@@ -6,18 +6,32 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (one JSON line each; any failure raises, so the exit code is
 nonzero and no result line is printed):
   1. device:  requires CUDA; prints the card (nvidia-smi name, power limit)
-  2. build:   compiles the tile-grid kernels from egogaussian_tpu_torch/csrc
+  2. build:   compiles the five compositor kernels (tile-grid forward, the
+              tile-grid backward in both flavors, the stream pair) from
+              egogaussian_tpu_torch/csrc into one library
   3. kernels: each kernel against its plain PyTorch twin on the card, at
               D = 3 and 1, tile sizes 16 and 32, on three scenes (60
               Gaussians at 48x32, 2k at 256x192, a kNN-init deep-tile scene
-              at 320x240), plus the cuda render against the oracle
-  4. slice:   stage-1.0 static training (train_static) on a 640x480
-              synthetic video with ~100k Gaussians, shortened schedule;
-              launch counters must show every kernel ran; PLY round trip
-  5. timing:  kernel vs plain twin (CUDA events) at the slice's shapes
-  6. profile: torch.profiler over std-mode steps at the slice's size:
+              at 320x240); the exact-total backward also against the
+              default one; the cuda render (tile-grid and stream) against
+              the oracle; the exact-total render's gradients within 5e-6
+  4. slice:   (path 1) stage-1.0 static training (train_static) on a
+              640x480 synthetic video with ~100k Gaussians, shortened
+              schedule; launch counters must show the tile-grid kernels
+              ran; PLY round trip
+  5. coarse:  (path 2) stage-2 coarse object pose (estimate_coarse_obj_pose)
+              on the same video with the object model the slice hands
+              over, shortened schedule, crop windows on; pose error against
+              the video's ground truth; pose npz round trip
+  6. flavors: (path 2) the stage-2 step from the coarse stage's final state
+              under the default, exact-total and stream tile configs:
+              gradients and 20 steps' losses against the default's, and a
+              label (D = 1) render gradient per flavor
+  7. timing:  kernel vs plain twin (CUDA events) at the slice's shapes
+  8. profile: torch.profiler over std-mode steps at the slice's size:
               device time by kernel and the device's busy share
               (table in chiprun_out/chip_smoke/profile.txt)
+Launch counters are set to 0 just before each path and read just after.
 Then the kernel table, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}}.
 
@@ -57,6 +71,28 @@ STEADY_SKIP = 20  # std iterations left out of the it/s figure
 # check scene with 20x the Gaussians
 KNN_SCENE = dict(width=320, height=240, n_bg=40_000, n_obj=4_000, frames_static=2,
                  frames_dynamic=1, seed=7)
+# stage-2 schedule cut from 30k to 200 iterations per frame (reference:
+# warm-up 20k, densify (20.5k, 25.5k) every 500, object opacity reset every
+# 2.5k), keeping the warm-up, the densify window and one object opacity
+# reset inside it
+COARSE_SCHEDULE = dict(warm_up_iter=100, total_num_iter=200, densify_from_iter=120,
+                       densify_until_iter=180, densification_interval=20,
+                       opacity_reset_interval=150)
+# the pose trains only on current-frame iterations outside the densify
+# window (~55 of the 200); at the reference's 1e-4 Adam moves it at most
+# ~0.006 per frame against a ground-truth step of 0.126 (translation) and
+# 0.12 rad, so the cut schedule raises the pose learning rates 20x
+COARSE_OPT = dict(obj_translation_lr=2e-3, obj_rotation_lr=2e-3)
+# stage 2's object model: the slice's trained Gaussians inside the
+# ground-truth object's rest-pose box, widened by this margin (the init
+# points carry 0.02 noise). The slice's 100 label iterations at the
+# reference label_lr (tuned for 30k) move labels ~0.1, so none crosses the
+# 0.5 object threshold and the label segmentation hands over nothing.
+OBJECT_BOX_MARGIN = 0.1
+# fewest object Gaussians the handover must give stage 2
+MIN_OBJECT_GAUSSIANS = 50
+FLAVOR_STEPS = 20
+FLAVOR_TOL = 1e-3  # norm-relative gradient error and relative loss error
 
 
 def emit(phase: str, **fields) -> None:
@@ -138,29 +174,127 @@ def check_layout(name, lay, colors_d, bg, tol, width, height, errs):
     saved = [x.detach() for x in p_out]
     k_d = cr.tilegrid_backward(meta, vals, bg2, *saved, gi, ga, gd, ts, n_tx)
     p_d = cr.composite_tilegrid_plain_bwd(meta, vals, bg2, *saved, gi, ga, gd, ts, n_tx)
+    k_e = cr.tilegrid_backward(meta, vals, bg2, *saved, gi, ga, gd, ts, n_tx, exact_total=True)
+    p_e = cr.composite_tilegrid_plain_bwd(meta, vals, bg2, *saved, gi, ga, gd, ts, n_tx,
+                                          exact_total=True)
     fit = int(meta[2, 0])
-    k_d, p_d = k_d[:fit], p_d[:fit]
-    excess = float(((k_d - p_d).abs() - (GRAD_ATOL + GRAD_RTOL * p_d.abs())).max()) if fit else -1.0
-    grad_err = float((k_d - p_d).abs().max()) if fit else 0.0
-    ok = all(fwd_err[k] <= tol[k] for k in tol) and excess <= 0.0
+    k_d, p_d, k_e, p_e = k_d[:fit], p_d[:fit], k_e[:fit], p_e[:fit]
+    grad_err = max_err(k_d, p_d)
+    exact_err = max_err(k_e, p_e)
+    # the two flavors compute the same gradient up to the total's rounding
+    flavor_err = max_err(k_e, k_d)
+    # what tells the flavors apart: the exact one rebuilds nothing from the
+    # saved outputs, so zeroing them leaves its gradient bit-identical,
+    # while the default's total and base_S move
+    zeros = [torch.zeros_like(x) for x in saved]
+    k_e0 = cr.tilegrid_backward(meta, vals, bg2, *zeros, gi, ga, gd, ts, n_tx,
+                                exact_total=True)[:fit]
+    k_d0 = cr.tilegrid_backward(meta, vals, bg2, *zeros, gi, ga, gd, ts, n_tx)[:fit]
+    flavors_apart = torch.equal(k_e0, k_e) and (fit == 0 or not torch.equal(k_d0, k_d))
+    ok = (all(fwd_err[k] <= tol[k] for k in tol) and flavors_apart
+          and all(grad_excess(a, b) <= 0.0 for a, b in ((k_d, p_d), (k_e, p_e), (k_e, k_d))))
     depth_max = int(meta[1].max())
     emit("kernel_check", case=name, d=d, tile_size=ts, fwd_err=fwd_err,
-         grad_max_abs_err=grad_err, grad_scale=float(p_d.abs().max()) if fit else 0.0,
+         grad_max_abs_err=grad_err, exact_grad_max_abs_err=exact_err,
+         exact_vs_default_max_abs_err=flavor_err, exact_ignores_saved_outputs=flavors_apart,
+         grad_scale=float(p_d.abs().max()) if fit else 0.0,
          deepest_tile=depth_max, ok=ok)
     if not ok:
         raise AssertionError(f"kernel vs twin out of tolerance: {name} d={d} ts={ts}")
     errs.setdefault(("fwd", d), []).append(max(fwd_err.values()))
     errs.setdefault(("bwd", d), []).append(grad_err)
+    errs.setdefault(("bwd_exact", d), []).append(exact_err)
+    return gi, ga, gd
+
+
+def max_err(a, b) -> float:
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def grad_excess(a, b) -> float:
+    """Largest excess of |a - b| over the gradient tolerance (<= 0: ok)."""
+    if not a.numel():
+        return -1.0
+    return float(((a - b).abs() - (GRAD_ATOL + GRAD_RTOL * b.abs())).max())
+
+
+def check_stream(name, lay, cots, colors_d, bg, tol, errs):
+    """Stream kernel pair vs plain twins on one layout. The forward is
+    compared on the tiles that own a slot (the kernel leaves the others
+    unwritten, as the TPU kernel does); the backward on every slot."""
+    from egogaussian_tpu_torch.render import stream_raster as sr
+
+    d = colors_d
+    meta, vals = lay.meta, lay.vals.detach().contiguous()
+    ts, n_tx = lay.tile_size, lay.n_tx
+    n_tiles = lay.n_tx * lay.n_ty
+    bg2 = bg[None].contiguous()
+    k_out = sr.stream_forward(meta, vals, bg2, ts, n_tx, n_tiles)
+    p_out = sr.composite_stream_plain_fwd(meta, vals, bg2, ts, n_tx, n_tiles)
+    owned = ~lay.empty
+    fwd_err = {key: max_err(k[owned], p[owned])
+               for key, k, p in zip(("image", "alpha", "depth", "logT"), k_out, p_out)}
+    k_d = sr.stream_backward(meta, vals, bg2, p_out[3], *cots, ts, n_tx)
+    p_d = sr.composite_stream_plain_bwd(meta, vals, bg2, p_out[3], *cots, ts, n_tx)
+    grad_err = max_err(k_d, p_d)
+    fwd_tol = dict(tol, logT=tol["image"])
+    ok = all(fwd_err[k] <= fwd_tol[k] for k in fwd_tol) and grad_excess(k_d, p_d) <= 0.0
+    emit("stream_check", case=name, d=d, tile_size=ts, fwd_err=fwd_err,
+         grad_max_abs_err=grad_err, grad_scale=float(p_d.abs().max()),
+         slots=int(meta.shape[1]), ok=ok)
+    if not ok:
+        raise AssertionError(f"stream kernel vs twin out of tolerance: {name} d={d} ts={ts}")
+    errs.setdefault(("stream_fwd", d), []).append(max(fwd_err.values()))
+    errs.setdefault(("stream_bwd", d), []).append(grad_err)
+
+
+def render_vs_oracle(case, cam, scene, bg, cfg, grad_atol=None):
+    """The cuda render with tile config `cfg` against the oracle: forward
+    errors within FWD_TOL; with grad_atol, gradients of the JAX suite's
+    test loss w.r.t. means, colors and opacities within grad_atol."""
+    import torch
+
+    from egogaussian_tpu_torch.render.api import render
+
+    means, cov3d, colors, ops = scene
+    target = torch.rand((3, cam.height, cam.width),
+                        generator=torch.Generator(device=means.device).manual_seed(9),
+                        device=means.device)
+
+    def run(backend):
+        args = [x.clone().requires_grad_(True) for x in (means, colors, ops)]
+        r = render(cam, args[0], cov3d, args[2], bg, colors_precomp=args[1], backend=backend,
+                   tile_config=cfg)
+        loss = (torch.mean((r.image - target) ** 2) + 0.1 * torch.mean(r.alpha)
+                + 0.01 * torch.mean(r.depth))
+        return r, torch.autograd.grad(loss, args)
+
+    rk, gk = run("cuda")
+    ro, go = run("oracle")
+    err = {k: max_err(getattr(rk, k).detach(), getattr(ro, k).detach())
+           for k in ("image", "alpha", "depth")}
+    ok = all(err[k] <= FWD_TOL[k] for k in FWD_TOL)
+    grad_err = max(max_err(a, b) for a, b in zip(gk, go))
+    if grad_atol is not None:
+        ok = ok and grad_err <= grad_atol
+    emit("kernel_vs_oracle", case=case, compositor=cfg.compositor,
+         bwd_exact_total=cfg.bwd_exact_total, err=err, grad_max_abs_err=grad_err,
+         grad_atol=grad_atol, ok=ok)
+    if not ok:
+        raise AssertionError(f"cuda render vs oracle out of tolerance: {case}")
 
 
 def phase_kernels(dev, errs):
+    import dataclasses as dc
+
     import torch
 
     from egogaussian_tpu_torch.data.synthetic import make_synthetic_video
     from egogaussian_tpu_torch.models.gaussians import from_points
-    from egogaussian_tpu_torch.render.api import render
+    from egogaussian_tpu_torch.ops.covariance import covariance_from_scaling_rotation
+    from egogaussian_tpu_torch.render.camera import Camera, look_at
     from egogaussian_tpu_torch.render.project import project_gaussians
-    from egogaussian_tpu_torch.render.tiled import TileConfig, tilegrid_layout
+    from egogaussian_tpu_torch.render.tiled import TileConfig, stream_layout, tilegrid_layout
     from egogaussian_tpu_torch.train.common import auto_tile_config, model_colors
 
     def scene_cases(name, cam, means, cov3d, colors, ops, cfg_of, tol):
@@ -173,27 +307,37 @@ def phase_kernels(dev, errs):
             for d, cols, bg in ((3, colors, torch.tensor([0.2, 0.1, 0.4], device=dev)),
                                 (1, labels, torch.zeros(1, device=dev))):
                 lay = tilegrid_layout(proj, cols, ops, cam.width, cam.height, cfg)
-                if int(lay.dropped):
+                slay = stream_layout(proj, cols, ops, cam.width, cam.height,
+                                     dc.replace(cfg, compositor="stream"))
+                if int(lay.dropped) or int(slay.dropped):
                     raise AssertionError(f"{name}: pairs dropped in the check scene")
-                check_layout(name, lay, d, bg, tol, cam.width, cam.height, errs)
+                cots = check_layout(name, lay, d, bg, tol, cam.width, cam.height, errs)
+                check_stream(name, slay, cots, d, bg, tol, errs)
 
     # 1) 60 Gaussians at 48x32 (tests/test_pallas_raster.py:23-36)
     cam = look_at_camera(48, 32, dev)
     means, cov3d, colors, ops = random_scene(60, 11, dev)
     small_cfg = lambda ts: TileConfig(max_per_tile=256, max_pairs=8192, tile_size=ts)  # noqa: E731
     scene_cases("random60_48x32", cam, means, cov3d, colors, ops, small_cfg, FWD_TOL)
-    # the cuda render against the port's oracle on the same scene
+    # the cuda render against the port's oracle on the same scene: the
+    # tile-grid forward, the stream forward and gradients
     bg = torch.tensor([0.2, 0.1, 0.4], device=dev)
-    with torch.no_grad():
-        a = render(cam, means, cov3d, ops, bg, colors_precomp=colors, backend="oracle")
-        b = render(cam, means, cov3d, ops, bg, colors_precomp=colors, backend="cuda",
-                   tile_config=small_cfg(16))
-    oracle_err = {k: float((getattr(a, k) - getattr(b, k)).abs().max())
-                  for k in ("image", "alpha", "depth")}
-    ok = all(oracle_err[k] <= FWD_TOL[k] for k in FWD_TOL)
-    emit("kernel_vs_oracle", case="random60_48x32", err=oracle_err, ok=ok)
-    if not ok:
-        raise AssertionError("cuda render vs oracle out of tolerance")
+    render_vs_oracle("random60_48x32", cam, (means, cov3d, colors, ops), bg, small_cfg(16))
+    render_vs_oracle("random60_48x32", cam, (means, cov3d, colors, ops), bg,
+                     dc.replace(small_cfg(16), compositor="stream"), grad_atol=GRAD_ATOL)
+    # the exact-total render on the JAX suite's 64x48 / 300-Gaussian scene
+    # (tests/test_pallas_raster.py:301-347): gradients within 5e-6
+    rng = np.random.RandomState(0)
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)  # noqa: E731
+    ex_means = t(rng.randn(300, 3))
+    ex_cov = covariance_from_scaling_rotation(t(np.exp(rng.randn(300, 3) * 0.3 - 1.6)),
+                                              t(rng.randn(300, 4)))
+    ex_scene = (ex_means, ex_cov, t(rng.rand(300, 3)), t(rng.uniform(0.3, 0.99, 300)))
+    R, tr = look_at(np.array([0.0, 0.0, -4.0]), np.zeros(3))
+    render_vs_oracle("random300_64x48", Camera.from_colmap(R, tr, 60.0, 60.0, 64, 48, device=dev),
+                     ex_scene, t([0.2, 0.1, 0.3]),
+                     TileConfig(max_pairs=16384, max_per_tile=1024, max_slots=16384,
+                                bwd_exact_total=True), grad_atol=5e-6)
 
     # 2) 2k Gaussians at 256x192
     cam = look_at_camera(256, 192, dev, focal=240.0)
@@ -302,7 +446,325 @@ def phase_slice(dev, out_dir):
     emit("ply_roundtrip", path=path, gaussians=int(n), bit_identical=identical)
     if not identical:
         raise AssertionError("PLY round trip changed parameters")
-    return vid, extent, launches
+    return vid, extent, launches, res.model
+
+
+def launch_counts():
+    """Every kernel's launch counter, keyed by the kernels-line name."""
+    from egogaussian_tpu_torch.render.cuda_raster import TileGridCompositor as tg
+    from egogaussian_tpu_torch.render.stream_raster import StreamCompositor as st
+
+    out = {}
+    for d in (3, 1):
+        out[f"tilegrid_fwd_d{d}"] = tg.fwd_launches[d]
+        out[f"tilegrid_bwd_d{d}"] = tg.bwd_launches[d]
+        out[f"tilegrid_bwd_exact_d{d}"] = tg.bwd_exact_launches[d]
+        out[f"stream_fwd_d{d}"] = st.fwd_launches[d]
+        out[f"stream_bwd_d{d}"] = st.bwd_launches[d]
+    return out
+
+
+def reset_launch_counts():
+    from egogaussian_tpu_torch.render.cuda_raster import TileGridCompositor
+    from egogaussian_tpu_torch.render.stream_raster import StreamCompositor
+
+    TileGridCompositor.reset_launch_counts()
+    StreamCompositor.reset_launch_counts()
+
+
+def coarse_config():
+    from egogaussian_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.coarse = dataclasses.replace(cfg.coarse, **COARSE_SCHEDULE)
+    cfg.opt = dataclasses.replace(cfg.opt, **COARSE_OPT)
+    return cfg
+
+
+def pose_errors(T, T_gt, points):
+    """Errors of poses T [F,4,4] against ground truth T_gt [F,4,4] (numpy):
+    rotation (degrees), translation, and ADD, the mean distance between
+    the object's rest-pose points moved by each (Hinterstoisser et al.,
+    ACCV 2012), which weighs rotation by the object's extent."""
+    rel = np.einsum("fji,fjk->fik", T[:, :3, :3], T_gt[:, :3, :3])
+    cos = np.clip((np.trace(rel, axis1=1, axis2=2) - 1.0) * 0.5, -1.0, 1.0)
+    trans = np.linalg.norm(T[:, :3, 3] - T_gt[:, :3, 3], axis=1)
+
+    def move(M):
+        return np.einsum("fij,nj->fni", M[:, :3, :3], points) + M[:, None, :3, 3]
+
+    add = np.linalg.norm(move(T) - move(T_gt), axis=2).mean(axis=1)
+    return np.degrees(np.arccos(cos)), trans, add
+
+
+def object_handover(model, vid):
+    """The object-only model stage 2 starts from: the slice's trained
+    Gaussians inside the ground-truth object's rest-pose box (static phase
+    0 sees the object at rest), widened by OBJECT_BOX_MARGIN."""
+    import torch
+
+    from egogaussian_tpu_torch.models.gaussians import split_by_is_object
+
+    pts = vid.gt_means[vid.gt_is_object]
+    lo = torch.as_tensor(pts.min(axis=0) - OBJECT_BOX_MARGIN, device=model.device)
+    hi = torch.as_tensor(pts.max(axis=0) + OBJECT_BOX_MARGIN, device=model.device)
+    xyz = model.params.xyz
+    inside = torch.all((xyz >= lo) & (xyz <= hi), dim=1).to(torch.int32)
+    model = dataclasses.replace(model, aux=dataclasses.replace(model.aux, is_object=inside))
+    return split_by_is_object(model)[0]
+
+
+def phase_coarse(dev, vid, extent, obj_model, out_dir):
+    """Stage 2 on the slice's video with the object model handed over from
+    the slice. Pose errors of the accumulated object pose (the object's
+    pose at each frame) and of the per-frame delta, against the video's
+    ground truth; the identity's errors beside them. The run counters come
+    from the stage's closing metrics record."""
+    import torch
+
+    from egogaussian_tpu_torch.data import split_viewpoints_by_phase
+    from egogaussian_tpu_torch.models.pose import load_pose_sequence
+    from egogaussian_tpu_torch.render.cuda_raster import TileGridCompositor
+    from egogaussian_tpu_torch.train.coarse_pose import estimate_coarse_obj_pose
+    from egogaussian_tpu_torch.utils.logging import MetricsLogger, set_active_logger
+
+    n_obj = int(obj_model.num_alive)
+    if n_obj < MIN_OBJECT_GAUSSIANS:
+        raise AssertionError(f"the handover gave stage 2 {n_obj} object Gaussians")
+    cfg = coarse_config()
+    static_g = split_viewpoints_by_phase(vid.cameras, vid.static_phases)
+    dyn_g = split_viewpoints_by_phase(vid.cameras, vid.dynamic_phases)
+    losses = {}
+
+    def on_step(frame, it, loss):
+        losses.setdefault(frame, []).append(loss)
+
+    save_dir = os.path.join(out_dir, "coarse")
+    log_dir = os.path.join(save_dir, "metrics")
+    logger = MetricsLogger(log_dir=log_dir)
+    set_active_logger(logger)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        seq, model, solved = estimate_coarse_obj_pose(
+            vid.cameras, obj_model, cfg, static_g, dyn_g, extent, save_dir=save_dir, seed=0,
+            device=dev, on_step=on_step)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        set_active_logger(None)
+        logger.close()
+    with open(os.path.join(log_dir, "metrics.jsonl")) as fh:
+        stats = [r for r in map(json.loads, fh) if r.get("event") == "stage_end"][-1]
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"fwd": TileGridCompositor.fwd_launches[3], "bwd": TileGridCompositor.bwd_launches[3]}
+
+    frames = sorted(solved)
+    dyn = [f for f in frames if f in dyn_g[0]]
+    pts = vid.gt_means[vid.gt_is_object].astype(np.float64)
+    gt_d = vid.gt_obj_deltas.astype(np.float64)
+    gt_a = np.stack([np.linalg.multi_dot([np.eye(4)] + [gt_d[g] for g in range(f, -1, -1)])
+                     for f in range(len(gt_d))])
+    eye = np.tile(np.eye(4), (len(gt_d), 1, 1))
+    deltas = seq.deltas().cpu().numpy().astype(np.float64)
+    errs = {"delta": pose_errors(deltas, gt_d, pts),  # per-frame delta
+            "pose": pose_errors(seq.accum_T().cpu().numpy().astype(np.float64), gt_a, pts),
+            "identity": pose_errors(eye, gt_a, pts)}  # the object left at rest
+    per_frame = {int(f): {"loss_first": float(losses[f][0]), "loss_last": float(losses[f][-1]),
+                          "steps": len(losses[f])} for f in frames}
+    for kind, (rot, tr, add) in errs.items():
+        for f in frames:
+            per_frame[int(f)].update({f"{kind}_err_deg": float(rot[f]),
+                                      f"{kind}_err_t": float(tr[f]),
+                                      f"{kind}_add": float(add[f])})
+    mean = {f"{kind}_{m}": float(v[dyn].mean()) for kind in ("pose", "identity")
+            for m, v in zip(("err_deg", "err_t", "add"), errs[kind])}
+    finite = all(bool(torch.isfinite(v).all()) for v in model.params.as_dict().values())
+    back, _ = load_pose_sequence(os.path.join(save_dir, "obj_pose_sequence.npz"), dev)
+    npz_ok = all(torch.equal(getattr(back, f), getattr(seq, f))
+                 for f in ("translations", "rotations", "solved"))
+    emit("coarse", schedule=COARSE_SCHEDULE, opt=COARSE_OPT, object_gaussians_in=n_obj,
+         object_gaussians_out=int(model.num_alive), capacity=model.capacity,
+         frames=per_frame, mean_over_dynamic=mean, steps=int(stats["steps"]),
+         elided_noop_iters=int(stats["elided"]), it_per_s=stats["steps"] / seconds,
+         seconds=seconds, crop_size_initial=stats["crop_size_initial"],
+         crop_size_final=stats["crop_size"], crop_escapes=int(stats["crop_escapes"]),
+         dropped_pairs=int(stats["dropped_pairs"]), max_memory_allocated=peak,
+         tilegrid_launches_d3=launches, params_finite=finite, pose_npz_roundtrip=npz_ok)
+    if not finite:
+        raise AssertionError("non-finite parameters after the coarse stage")
+    if stats["dropped_pairs"]:
+        raise AssertionError(f"{stats['dropped_pairs']} pairs dropped after regrowth")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the coarse stage launched no tile-grid kernel: {launches}")
+    if not mean["pose_add"] < mean["identity_add"]:
+        raise AssertionError(f"coarse pose no better than the identity: {mean}")
+    if not npz_ok:
+        raise AssertionError("pose npz round trip changed the sequence")
+    return seq, model, dyn, cfg
+
+
+def norm_rel(a, b) -> float:
+    """||a - b|| / ||b|| (0 when both are zero)."""
+    den = float(b.norm())
+    num = float((a - b).norm())
+    return num / den if den > 0 else num
+
+
+def flavor_frame(dev, vid, seq, model, dyn, cfg):
+    """The state the step flavors start from: the coarse stage's last
+    dynamic frame f, its solved pose, the fixed-transform tables, the
+    default tile config and the stage's crop size."""
+    from types import SimpleNamespace
+
+    from egogaussian_tpu_torch.data.readers import stack_cameras
+    from egogaussian_tpu_torch.models.pose import pose_from_rt
+    from egogaussian_tpu_torch.train.coarse_pose import _accum_tables
+    from egogaussian_tpu_torch.train.common import auto_tile_config, pose_crop_size
+
+    batch = stack_cameras(vid.cameras, dev)
+    f = dyn[-1]
+    table_T, table_R = _accum_tables(seq)
+    return SimpleNamespace(
+        batch=batch, f=f, table_T=table_T, table_R=table_R,
+        pose0=pose_from_rt(seq.rotations[f], seq.translations[f]),
+        base=auto_tile_config(model, batch.camera(0), tile_size=cfg.render.tile_size),
+        crop=pose_crop_size(batch, cfg, "flavors"))
+
+
+def phase_flavors(model, cfg, fr):
+    """The stage-2 step under the three tile configs (same capacities, the
+    same crop window), from the coarse stage's final state `fr`
+    (flavor_frame): each flavor's gradients against the default's, then
+    FLAVOR_STEPS steps of each from the same state with each step's loss
+    against the default's (and each flavor's step rate, host clock between
+    two syncs); and per flavor a label render (D = 1) through the public
+    render_label with its label gradient against the default's."""
+    import torch
+
+    from egogaussian_tpu_torch.models.optim import adam_init
+    from egogaussian_tpu_torch.ops.losses import bce_with_logits
+    from egogaussian_tpu_torch.render.api import render_label
+    from egogaussian_tpu_torch.train.coarse_pose import coarse_step, pose_loss_grads
+
+    cp = cfg.coarse
+    dev = model.device
+    batch, f, table_T, table_R = fr.batch, fr.f, fr.table_T, fr.table_R
+    pose0, base, crop = fr.pose0, fr.base, fr.crop
+    flavors = {"default": base,
+               "exact_total": dataclasses.replace(base, bwd_exact_total=True),
+               "stream": dataclasses.replace(base, compositor="stream")}
+    lam = dict(lambda_image=cp.lambda_image, lambda_dssim=cp.lambda_dssim,
+               lambda_l1_alpha=cp.lambda_Ll1_alpha, lambda_l2_alpha=cp.lambda_Ll2_alpha)
+    # each flavor's own kernels (launch-count names) must run in its turn
+    own = {"default": ("tilegrid_fwd_d3", "tilegrid_bwd_d3", "tilegrid_bwd_d1"),
+           "exact_total": ("tilegrid_fwd_d3", "tilegrid_bwd_exact_d3", "tilegrid_bwd_exact_d1"),
+           "stream": ("stream_fwd_d3", "stream_bwd_d3", "stream_fwd_d1", "stream_bwd_d1")}
+    grads, losses, label_grads, flavor_launches, step_rate = {}, {}, {}, {}, {}
+    for name, tcfg in flavors.items():
+        before = launch_counts()
+        g = pose_loss_grads(model, pose0, batch, f, table_T[f], table_R[f], True,
+                            backend="cuda", tile_config=tcfg, crop_size=crop, **lam)
+        grads[name] = g
+        m, opt, pose, popt = model, adam_init(model.params), pose0, adam_init(pose0)
+        drop = torch.zeros((), dtype=torch.int64, device=dev)
+        crop_max = torch.zeros((3,), dtype=torch.int32, device=dev)
+        trace = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(FLAVOR_STEPS):
+            m, opt, pose, popt, loss, _, drop, crop_max = coarse_step(
+                m, opt, pose, popt, batch, f, table_T, table_R, f - 1, cp.warm_up_iter + 1 + k,
+                drop, train_pose=True, first_frame=False, grad_params=True, opt_cfg=cfg.opt,
+                coarse_cfg=cp, backend="cuda", tile_config=tcfg, crop_size=crop,
+                crop_max=crop_max)
+            trace.append(loss)
+        torch.cuda.synchronize()
+        step_rate[name] = FLAVOR_STEPS / (time.perf_counter() - t0)
+        losses[name] = torch.stack(trace).cpu().numpy()
+        # the label render (D = 1): BCE against the frame's object mask
+        cam, _, _, obj_mask = batch.frame(f)
+        labels = model.params.label[:, 0].detach().clone().requires_grad_(True)
+        img = render_label(cam, model.params.xyz, model.covariance(), model.opacity, labels,
+                           valid_mask=model.aux.alive, backend="cuda", tile_config=tcfg)
+        (label_grads[name],) = torch.autograd.grad(bce_with_logits(img, obj_mask), labels)
+        after = launch_counts()
+        flavor_launches[name] = {k: after[k] - before[k] for k in own[name]}
+    ref = grads["default"]
+    report = {}
+    ok = True
+    for name in ("exact_total", "stream"):
+        g = grads[name]
+        errs = {k: norm_rel(getattr(g.params, k), getattr(ref.params, k))
+                for k in g.params.as_dict()}
+        errs["pose_translation"] = norm_rel(g.pose.translation, ref.pose.translation)
+        errs["pose_rot6d"] = norm_rel(g.pose.rot6d, ref.pose.rot6d)
+        errs["label_d1"] = norm_rel(label_grads[name], label_grads["default"])
+        loss_rel = np.abs(losses[name] - losses["default"]) / np.abs(losses["default"])
+        report[name] = {"grad_norm_rel_err": errs, "loss0": float(g.loss),
+                        "step_loss_max_rel_err": float(loss_rel.max())}
+        ok = ok and max(errs.values()) <= FLAVOR_TOL and float(loss_rel.max()) <= FLAVOR_TOL
+    ok = ok and all(n > 0 for counts in flavor_launches.values() for n in counts.values())
+    emit("flavors", frame=int(f), crop_size=crop, tile_size=base.tile_size,
+         max_pairs=base.max_pairs, max_slots=base.max_slots, steps=FLAVOR_STEPS,
+         default_loss0=float(ref.loss), default_losses=[float(x) for x in losses["default"]],
+         flavors=report, launches=flavor_launches, it_per_s=step_rate, bound=FLAVOR_TOL,
+         ok=ok)
+    if not ok:
+        raise AssertionError(f"a step flavor disagrees with the default: {report}")
+
+
+def phase_frame_kernels(model, fr, errs):
+    """Every kernel against its twin at the shapes path 2 gives it, on the
+    flavor frame's state `fr`: the posed object model's cropped
+    projection, built as pose_loss_grads renders it (D = 3, crop window
+    with a partial bottom tile row), and the label render's full-frame
+    projection (D = 1)."""
+    import torch
+
+    from egogaussian_tpu_torch.models.pose import pose_to_se3
+    from egogaussian_tpu_torch.render.crop import crop_window, mask_rect
+    from egogaussian_tpu_torch.render.project import project_gaussians
+    from egogaussian_tpu_torch.render.tiled import stream_layout, tilegrid_layout
+    from egogaussian_tpu_torch.train.common import model_colors
+
+    cam, _, _, obj_mask = fr.batch.frame(fr.f)
+    alive, opac = model.aux.alive, model.opacity
+    scfg = dataclasses.replace(fr.base, compositor="stream")
+
+    def project(xyz, cov3d):
+        return project_gaussians(xyz, cov3d, cam.viewmat, cam.fx, cam.fy, cam.cx, cam.cy,
+                                 cam.width, cam.height, valid_mask=alive)
+
+    with torch.no_grad():
+        # D = 3: the object Gaussians at pose @ fixed_T, covariance rotated
+        T = pose_to_se3(fr.pose0) @ fr.table_T[fr.f]
+        R = fr.pose0.rotation @ fr.table_R[fr.f]
+        xyz = model.params.xyz
+        xyz = torch.where((model.aux.is_object == 1)[:, None], xyz @ T[:3, :3].T + T[:3, 3], xyz)
+        proj = project(xyz, model.covariance_rotated(R, 1))
+        w, h = cam.width, cam.height
+        if fr.crop is not None:
+            w, h = fr.crop
+            ox, oy, _ = crop_window(proj, opac, alive, mask_rect(obj_mask), w, h, cam.width,
+                                    cam.height, align=fr.base.tile_size)
+            shift = torch.stack([ox, oy]).to(proj.means2d.dtype)
+            proj = proj._replace(means2d=proj.means2d - shift[None, :])
+        cases = [(f"frame{fr.f}_crop_{w}x{h}", proj, model_colors(model), w, h,
+                  torch.zeros(3, device=model.device))]
+        # D = 1: the label render, unmoved geometry, full frame
+        cases.append((f"frame{fr.f}_label_{cam.width}x{cam.height}",
+                      project(model.params.xyz, model.covariance()), model.params.label,
+                      cam.width, cam.height, torch.zeros(1, device=model.device)))
+        for case, pr, cols, cw, ch, bg in cases:
+            lay = tilegrid_layout(pr, cols, opac, cw, ch, fr.base)
+            slay = stream_layout(pr, cols, opac, cw, ch, scfg)
+            if int(lay.dropped) or int(slay.dropped):
+                raise AssertionError(f"{case}: pairs dropped")
+            with torch.enable_grad():
+                cots = check_layout(case, lay, cols.shape[1], bg, FWD_TOL, cw, ch, errs)
+            check_stream(case, slay, cots, cols.shape[1], bg, FWD_TOL, errs)
 
 
 def phase_timing(dev, vid, extent, errs):
@@ -313,8 +775,9 @@ def phase_timing(dev, vid, extent, errs):
 
     from egogaussian_tpu_torch.models.gaussians import from_points
     from egogaussian_tpu_torch.render import cuda_raster as cr
+    from egogaussian_tpu_torch.render import stream_raster as sr
     from egogaussian_tpu_torch.render.project import project_gaussians
-    from egogaussian_tpu_torch.render.tiled import tilegrid_layout
+    from egogaussian_tpu_torch.render.tiled import stream_layout, tilegrid_layout
     from egogaussian_tpu_torch.train.common import auto_tile_config, model_colors
 
     model = from_points(vid.points, vid.colors, dev, spatial_lr_scale=extent, seed=0)
@@ -328,8 +791,13 @@ def phase_timing(dev, vid, extent, errs):
     for d, cols, bg in ((3, model_colors(model), torch.zeros(3, device=dev)),
                         (1, model.params.label, torch.zeros(1, device=dev))):
         lay = tilegrid_layout(proj, cols, opac, cam.width, cam.height, cfg)
-        check_layout(f"slice_{cam.width}x{cam.height}_d{d}", lay, d, bg, FWD_TOL,
-                     cam.width, cam.height, errs)
+        case = f"slice_{cam.width}x{cam.height}_d{d}"
+        cots = check_layout(case, lay, d, bg, FWD_TOL, cam.width, cam.height, errs)
+        slay = stream_layout(proj, cols, opac, cam.width, cam.height,
+                             dataclasses.replace(cfg, compositor="stream"))
+        check_stream(case, slay, cots, d, bg, FWD_TOL, errs)
+        smeta, svals = slay.meta, slay.vals.detach().contiguous()
+        n_tiles = lay.n_tx * lay.n_ty
         meta, vals = lay.meta, lay.vals.detach().contiguous()
         ts, n_tx = lay.tile_size, lay.n_tx
         bg2 = bg[None].contiguous()
@@ -346,11 +814,26 @@ def phase_timing(dev, vid, extent, errs):
                 cuda_ms(lambda: cr.composite_tilegrid_plain_bwd(meta, vals, bg2, *out, *cot,
                                                                 ts, n_tx),
                         iters=5, warmup=1))
+            times[("bwd_exact", d)] = (
+                cuda_ms(lambda: cr.tilegrid_backward(meta, vals, bg2, *out, *cot, ts, n_tx,
+                                                     exact_total=True)),
+                cuda_ms(lambda: cr.composite_tilegrid_plain_bwd(meta, vals, bg2, *out, *cot,
+                                                                ts, n_tx, exact_total=True),
+                        iters=5, warmup=1))
+            sout = sr.stream_forward(smeta, svals, bg2, ts, n_tx, n_tiles)
+            times[("stream_fwd", d)] = (
+                cuda_ms(lambda: sr.stream_forward(smeta, svals, bg2, ts, n_tx, n_tiles)),
+                cuda_ms(lambda: sr.composite_stream_plain_fwd(smeta, svals, bg2, ts, n_tx,
+                                                              n_tiles), iters=5, warmup=1))
+            times[("stream_bwd", d)] = (
+                cuda_ms(lambda: sr.stream_backward(smeta, svals, bg2, sout[3], *cot, ts, n_tx)),
+                cuda_ms(lambda: sr.composite_stream_plain_bwd(smeta, svals, bg2, sout[3], *cot,
+                                                              ts, n_tx), iters=5, warmup=1))
         emit("timing", d=d, tile_size=ts, gaussians=int(model.num_alive),
              tiles=meta.shape[1], slots=vals.shape[0], deepest_tile=int(meta[1].max()),
              pairs=int(meta[1].sum()), dropped=int(lay.dropped),
-             fwd_ms=times[("fwd", d)][0], fwd_plain_ms=times[("fwd", d)][1],
-             bwd_ms=times[("bwd", d)][0], bwd_plain_ms=times[("bwd", d)][1])
+             **{f"{k}_ms": times[(k, d)][0] for k in KERNELS},
+             **{f"{k}_plain_ms": times[(k, d)][1] for k in KERNELS})
     return times
 
 
@@ -406,12 +889,22 @@ def phase_profile(dev, vid, extent, out_dir, iters: int = 40, skip: int = 10):
          top=[{"op": n[:80], "ms_per_it": ms, "calls_per_it": c} for ms, c, n in rows[:15]])
 
 
+# kernel key -> (kernels-line name stem, source, the TPU kernel it replaces)
 KERNELS = {
-    "fwd": ("egogaussian_tpu_torch/csrc/tilegrid_fwd.cu",
+    "fwd": ("tilegrid_fwd", "egogaussian_tpu_torch/csrc/tilegrid_fwd.cu",
             "egogaussian_tpu/render/pallas_raster.py:890"),
-    "bwd": ("egogaussian_tpu_torch/csrc/tilegrid_bwd.cu",
+    "bwd": ("tilegrid_bwd", "egogaussian_tpu_torch/csrc/tilegrid_bwd.cu",
             "egogaussian_tpu/render/pallas_raster.py:984"),
+    "bwd_exact": ("tilegrid_bwd_exact", "egogaussian_tpu_torch/csrc/tilegrid_bwd.cu",
+                  "egogaussian_tpu/render/pallas_raster.py:1073"),
+    "stream_fwd": ("stream_fwd", "egogaussian_tpu_torch/csrc/stream_fwd.cu",
+                   "egogaussian_tpu/render/pallas_raster.py:530"),
+    "stream_bwd": ("stream_bwd", "egogaussian_tpu_torch/csrc/stream_bwd.cu",
+                   "egogaussian_tpu/render/pallas_raster.py:583"),
 }
+# the path whose launch counts the kernels line reports for each kernel
+PATH_OF = {"fwd": "slice", "bwd": "slice", "bwd_exact": "coarse", "stream_fwd": "coarse",
+           "stream_bwd": "coarse"}
 
 
 def main(argv=None) -> int:
@@ -447,20 +940,36 @@ def main(argv=None) -> int:
 
     out_dir = os.path.join("chiprun_out", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
-    vid, extent, launches = phase_slice(dev, out_dir)
+    # path 1: stage-1.0 static training
+    reset_launch_counts()
+    vid, extent, _, slice_model = phase_slice(dev, out_dir)
+    path_launches = {"slice": launch_counts()}
+    # path 2: stage-2 coarse pose, then its step under each flavor
+    reset_launch_counts()
+    seq, model, dyn, ccfg = phase_coarse(dev, vid, extent, object_handover(slice_model, vid),
+                                         out_dir)
+    fr = flavor_frame(dev, vid, seq, model, dyn, ccfg)
+    phase_flavors(model, ccfg, fr)
+    path_launches["coarse"] = launch_counts()
+    emit("launches", **path_launches)
+    # the kernels against their twins at path 2's own shapes
+    phase_frame_kernels(model, fr, errs)
     times = phase_timing(dev, vid, extent, errs)
     phase_profile(dev, vid, extent, out_dir)
 
     table = []
-    for kind in ("fwd", "bwd"):
+    for key, (stem, src, replaces) in KERNELS.items():
         for d in (3, 1):
-            src, replaces = KERNELS[kind]
+            name = f"{stem}_d{d}"
             table.append({
-                "name": f"tilegrid_{kind}_d{d}", "route": "cuda", "source": src,
-                "replaces": replaces, "launches": launches[kind][d],
-                "max_abs_err": max(errs[(kind, d)]),
-                "ms": times[(kind, d)][0], "plain_ms": times[(kind, d)][1],
+                "name": name, "route": "cuda", "source": src, "replaces": replaces,
+                "launches": path_launches[PATH_OF[key]][name],
+                "max_abs_err": max(errs[(key, d)]),
+                "ms": times[(key, d)][0], "plain_ms": times[(key, d)][1],
             })
+    missing = [k["name"] for k in table if k["launches"] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on their path: {missing}")
     print(json.dumps({"kernels": table}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
-// Shared definitions of the tile-grid compositor kernels (tilegrid_fwd.cu,
-// tilegrid_bwd.cu). Both kernels evaluate a pair's alpha through the same
-// inline function, so the backward's replayed transmittance sweep sees the
-// forward's values operation for operation.
+// Shared definitions of the compositor kernels (tilegrid_fwd.cu,
+// tilegrid_bwd.cu, stream_fwd.cu, stream_bwd.cu). Every kernel evaluates a
+// pair's alpha through the same inline function, so a backward's replayed
+// transmittance sweep sees its forward's values operation for operation.
 //
-// Pair layout: vals [n_slots, ch16, 128] float32, one 128-pair chunk per
-// slot, stored transposed (row r of a chunk holds field r of its 128 pairs):
-//   rows mu_x, mu_y, a, b, c, op, col[0..D), z, zero padding up to ch16.
-// meta [3, n_tiles] int32: (first chunk slot, pair count, fit-slot count).
+// Tile-grid pair layout: vals [n_slots, ch16, 128] float32, one 128-pair
+// chunk per slot, stored transposed (row r of a chunk holds field r of its
+// 128 pairs): rows mu_x, mu_y, a, b, c, op, col[0..D), z, zero padding up
+// to ch16. meta [3, n_tiles] int32: (first chunk slot, pair count, fit-slot
+// count). The stream layout is described in stream_fwd.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -14,7 +15,7 @@
 namespace egogs {
 
 constexpr int kChunk = 128;    // pairs per chunk
-constexpr int kThreads = 256;  // threads per block (one block per tile)
+constexpr int kThreads = 256;  // threads per block
 constexpr int kWarps = kThreads / 32;
 constexpr float kAlphaEps = 1.0f / 255.0f;
 constexpr float kAlphaMax = 0.99f;
@@ -53,6 +54,14 @@ __device__ __forceinline__ void load_chunk(float* __restrict__ dst,
   const float4* s4 = reinterpret_cast<const float4*>(src);
   float4* d4 = reinterpret_cast<float4*>(dst);
   for (int i = threadIdx.x; i < n_floats / 4; i += kThreads) d4[i] = s4[i];
+}
+
+// Sum over the warp's 32 lanes into lane 0, in a fixed shuffle-tree order
+// (the backwards' deterministic reduction).
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
 }
 
 }  // namespace egogs

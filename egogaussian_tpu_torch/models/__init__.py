@@ -15,6 +15,18 @@ from egogaussian_tpu_torch.models.optim import (
     adam_update,
     adam_state_from_jax_arrays,
 )
+from egogaussian_tpu_torch.models.pose import (
+    ObjectPose,
+    PoseSequence,
+    identity_pose,
+    empty_pose_sequence,
+    pose_to_se3,
+    apply_pose,
+    save_pose_sequence,
+    load_pose_sequence,
+    se3_nth_root,
+    interpolate_pose_sequence,
+)
 from egogaussian_tpu_torch.models.densify import (
     add_densification_stats,
     densify_and_prune,

@@ -16,7 +16,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from egogaussian_tpu_torch.ops.covariance import covariance_from_scaling_rotation
+from egogaussian_tpu_torch.ops.covariance import (
+    covariance_from_scaling_rotation,
+    covariance_from_scaling_rotation_rotated,
+)
 from egogaussian_tpu_torch.ops.knn import mean_sq_dist_to_knn
 from egogaussian_tpu_torch.ops.sh import rgb_to_sh
 
@@ -90,6 +93,15 @@ class GaussianModel:
     def covariance(self, scale_modifier: float = 1.0) -> torch.Tensor:
         return covariance_from_scaling_rotation(
             self.scaling, self.params.quats, scale_modifier
+        )
+
+    def covariance_rotated(self, extra_rot: torch.Tensor, which_object: int = 1,
+                           scale_modifier: float = 1.0) -> torch.Tensor:
+        """Covariance with the object Gaussians (is_object == which_object)
+        rotated by extra_rot [3, 3] (reference gaussian_model.py:46-63)."""
+        mask = self.aux.is_object == which_object
+        return covariance_from_scaling_rotation_rotated(
+            self.scaling, self.params.quats, extra_rot, mask, scale_modifier
         )
 
     @property

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -21,17 +21,35 @@ from egogaussian_tpu_torch.models.gaussians import PARAM_FIELDS, GaussianParams
 
 @dataclasses.dataclass
 class AdamState:
-    mu: GaussianParams
-    nu: GaussianParams
+    mu: Any  # same dataclass of tensors as the params
+    nu: Any
     count: torch.Tensor  # 0-d int32 step count (on the params' device)
 
 
-def adam_init(params: GaussianParams) -> AdamState:
+def _fields(x) -> List[str]:
+    return [f.name for f in dataclasses.fields(x)]
+
+
+def _map(fn, x):
+    """The same dataclass with fn applied to every field."""
+    return type(x)(**{k: fn(getattr(x, k)) for k in _fields(x)})
+
+
+def adam_init(params) -> AdamState:
+    """Zero moments for a dataclass of tensors (GaussianParams, ObjectPose)."""
+    first = getattr(params, _fields(params)[0])
     return AdamState(
-        mu=params.map(torch.zeros_like),
-        nu=params.map(torch.zeros_like),
-        count=torch.zeros((), dtype=torch.int32, device=params.xyz.device),
+        mu=_map(torch.zeros_like, params),
+        nu=_map(torch.zeros_like, params),
+        count=torch.zeros((), dtype=torch.int32, device=first.device),
     )
+
+
+def adam_advance(state: AdamState, steps) -> AdamState:
+    """Advance the step count by `steps` without an update: the exact
+    residue of `steps` Adam updates with zero gradients onto zero moments
+    (the coarse stage's elided warm-up no-ops)."""
+    return dataclasses.replace(state, count=state.count + int(steps))
 
 
 def adam_state_from_jax_arrays(
@@ -49,8 +67,8 @@ def adam_state_from_jax_arrays(
 
 
 def adam_update(
-    params: GaussianParams,
-    grads: GaussianParams,
+    params,
+    grads,
     state: AdamState,
     lr_tree: Dict[str, float],
     b1: float = 0.9,
@@ -58,14 +76,14 @@ def adam_update(
     eps: float = 1e-15,
 ):
     """One Adam step with a learning rate per field (`lr_tree`: field ->
-    float, zero allowed). Returns (new params, new state); inputs are not
-    modified."""
+    float or 0-d tensor, zero allowed) on a dataclass of tensors. Returns
+    (new params, new state); inputs are not modified."""
     count = state.count + 1
     c = count.to(torch.float32)
     bc1 = 1.0 - b1 ** c
     bc2 = 1.0 - b2 ** c
     mu, nu, new = {}, {}, {}
-    for k in PARAM_FIELDS:
+    for k in _fields(params):
         g = getattr(grads, k)
         m = b1 * getattr(state.mu, k) + (1 - b1) * g
         v = b2 * getattr(state.nu, k) + (1 - b2) * (g * g)
@@ -73,8 +91,8 @@ def adam_update(
         v_hat = v / bc2
         new[k] = getattr(params, k) - lr_tree[k] * m_hat / (torch.sqrt(v_hat) + eps)
         mu[k], nu[k] = m, v
-    return GaussianParams(**new), AdamState(
-        mu=GaussianParams(**mu), nu=GaussianParams(**nu), count=count)
+    cls = type(params)
+    return cls(**new), AdamState(mu=cls(**mu), nu=cls(**nu), count=count)
 
 
 def zero_moments_where(state: AdamState, mask: torch.Tensor) -> AdamState:
@@ -84,7 +102,7 @@ def zero_moments_where(state: AdamState, mask: torch.Tensor) -> AdamState:
         m = mask.reshape((-1,) + (1,) * (x.dim() - 1)).to(torch.bool)
         return torch.where(m, torch.zeros_like(x), x)
 
-    return dataclasses.replace(state, mu=state.mu.map(z), nu=state.nu.map(z))
+    return dataclasses.replace(state, mu=_map(z, state.mu), nu=_map(z, state.nu))
 
 
 def zero_moments_field(state: AdamState, field: str) -> AdamState:

@@ -8,7 +8,18 @@ from egogaussian_tpu_torch.ops.covariance import (
     build_scaling_rotation,
     strip_symmetric,
     covariance_from_scaling_rotation,
+    covariance_from_scaling_rotation_rotated,
+    congruence_transform,
     unpack_symmetric,
+)
+from egogaussian_tpu_torch.ops.rotation6d import rot6d_to_rotmat, rotmat_to_rot6d
+from egogaussian_tpu_torch.ops.se3 import (
+    make_se3,
+    se3_compose,
+    se3_inverse,
+    se3_apply,
+    accumulate_transforms,
+    accumulate_rotations,
 )
 from egogaussian_tpu_torch.ops.sh import eval_sh, rgb_to_sh, sh_to_rgb
 from egogaussian_tpu_torch.ops.losses import (

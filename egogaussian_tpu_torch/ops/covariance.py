@@ -65,3 +65,51 @@ def covariance_from_scaling_rotation(
     yz = s0 * r10 * r20 + s1 * r11 * r21 + s2 * r12 * r22
     zz = s0 * r20 * r20 + s1 * r21 * r21 + s2 * r22 * r22
     return torch.stack([xx, xy, xz, yy, yz, zz], dim=-1)
+
+
+def covariance_from_scaling_rotation_rotated(
+    scales: torch.Tensor,
+    quats: torch.Tensor,
+    extra_rot: torch.Tensor,
+    apply_mask: torch.Tensor,
+    scale_modifier: float = 1.0,
+) -> torch.Tensor:
+    """Covariance with an extra left rotation applied to a subset of
+    Gaussians: Sigma = (X L)(X L)^T where X = extra_rot [3, 3] and
+    apply_mask [...] is 1 where it applies (the object Gaussians rendered
+    at a frame pose). Blended as rot*m + cov*(1-m), like the JAX package,
+    so both packages take the same gradient paths."""
+    cov = covariance_from_scaling_rotation(scales, quats, scale_modifier)
+    rot = congruence_transform(cov, extra_rot)
+    mask = apply_mask[..., None].to(cov.dtype)
+    return rot * mask + cov * (1.0 - mask)
+
+
+def congruence_transform(cov: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """X Sigma X^T on packed [..., 6] covariances, channel-wise (X [3, 3])."""
+    xx, xy, xz, yy, yz, zz = (cov[..., i] for i in range(6))
+    x00, x01, x02 = X[0, 0], X[0, 1], X[0, 2]
+    x10, x11, x12 = X[1, 0], X[1, 1], X[1, 2]
+    x20, x21, x22 = X[2, 0], X[2, 1], X[2, 2]
+    # T = X @ Sigma (rows of the intermediate as channels)
+    t00 = x00 * xx + x01 * xy + x02 * xz
+    t01 = x00 * xy + x01 * yy + x02 * yz
+    t02 = x00 * xz + x01 * yz + x02 * zz
+    t10 = x10 * xx + x11 * xy + x12 * xz
+    t11 = x10 * xy + x11 * yy + x12 * yz
+    t12 = x10 * xz + x11 * yz + x12 * zz
+    t20 = x20 * xx + x21 * xy + x22 * xz
+    t21 = x20 * xy + x21 * yy + x22 * yz
+    t22 = x20 * xz + x21 * yz + x22 * zz
+    # Sigma' = T @ X^T (upper triangle only)
+    return torch.stack(
+        [
+            t00 * x00 + t01 * x01 + t02 * x02,
+            t00 * x10 + t01 * x11 + t02 * x12,
+            t00 * x20 + t01 * x21 + t02 * x22,
+            t10 * x10 + t11 * x11 + t12 * x12,
+            t10 * x20 + t11 * x21 + t12 * x22,
+            t20 * x20 + t21 * x21 + t22 * x22,
+        ],
+        dim=-1,
+    )

@@ -18,7 +18,10 @@ import torch.nn.functional as F
 
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.abs(pred - target))
+    """Mean |pred - target|, with the JAX package's slope +1 at 0 (torch.abs
+    takes 0 there; masked-object losses have many exact zeros)."""
+    d = pred - target
+    return torch.mean(torch.where(d >= 0, d, -d))
 
 
 def l2_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

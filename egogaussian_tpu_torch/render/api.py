@@ -31,6 +31,11 @@ class RenderResult(NamedTuple):
     means2d: torch.Tensor  # [N, 2] projected screen means
     # pairs dropped by the binned backend's static capacities this render
     dropped_pairs: torch.Tensor
+    # crop-window rendering (render/crop.py): window origin (ox, oy) int32
+    # and the coverage stat [escape_count, need_w, need_h] (escape_count 0
+    # == the cropped render is loss-identical for masked-object losses)
+    crop_offset: Optional[torch.Tensor] = None
+    crop_outside: object = 0
 
 
 def resolve_backend(backend: str, tile_config) -> str:
@@ -63,6 +68,8 @@ def render(
     means2d_probe: Optional[torch.Tensor] = None,
     backend: str = "auto",
     tile_config=None,
+    crop_size: Optional[tuple] = None,
+    crop_rect: Optional[torch.Tensor] = None,
 ) -> RenderResult:
     """Differentiable rasterization of N Gaussians into `camera`.
 
@@ -74,6 +81,13 @@ def render(
       means2d_probe: [N, 2] zeros added to the projected means, so that
         d(loss)/d(probe) is the screen-space gradient for densification
       backend: "oracle" | "cuda" | "auto"
+      crop_size: optional (crop_w, crop_h): composite only a window of that
+        size, placed on the device over (splat reach | crop_rect) every
+        call (render/crop.py). Projection, radii and probe gradients stay
+        those of the full frame; image/alpha/depth come back at crop_size
+        and `crop_offset`/`crop_outside` report the window.
+      crop_rect: optional (x0, y0, x1, y1) float32 must-cover rect (e.g.
+        the object-mask box from render.crop.mask_rect)
     """
     proj = project_gaussians(
         means3d, cov3d, camera.viewmat, camera.fx, camera.fy, camera.cx,
@@ -92,13 +106,34 @@ def render(
         colors = _colors_from_sh(sh_coeffs, sh_degree, means3d, camera.camera_center)
 
     backend = resolve_backend(backend, tile_config)
+    comp_w, comp_h = camera.width, camera.height
+    crop_offset, crop_outside = None, 0
+    if crop_size is not None:
+        from egogaussian_tpu_torch.render.crop import crop_window
+        from egogaussian_tpu_torch.render.tiled import TileConfig
+
+        crop_w, crop_h = int(crop_size[0]), int(crop_size[1])
+        # tile-aligned windows composite the full frame's pixels exactly
+        align = 1 if backend == "oracle" else (tile_config or TileConfig()).tile_size
+        ox, oy, crop_outside = crop_window(
+            proj, opacities, valid_mask, crop_rect, crop_w, crop_h,
+            camera.width, camera.height, align=align,
+        )
+        # exact window shift: means2d = fx*x/z + cx, so moving the origin by
+        # an integer is the principal-point shift cx - ox (radii, conics
+        # and depths are unchanged)
+        shift = torch.stack([ox, oy]).to(means2d.dtype)
+        proj = proj._replace(means2d=means2d - shift[None, :])
+        comp_w, comp_h = crop_w, crop_h
+        crop_offset = torch.stack([ox, oy])
+
     if backend == "oracle":
-        out = composite_oracle(proj, colors, opacities, bg, camera.width, camera.height)
+        out = composite_oracle(proj, colors, opacities, bg, comp_w, comp_h)
     elif backend == "cuda":
         from egogaussian_tpu_torch.render.tiled import composite_cuda
 
-        out = composite_cuda(proj, colors, opacities, bg, camera.width,
-                             camera.height, config=tile_config)
+        out = composite_cuda(proj, colors, opacities, bg, comp_w, comp_h,
+                             config=tile_config)
     else:
         raise ValueError(f"unknown render backend: {backend}")
 
@@ -109,6 +144,8 @@ def render(
         radii=out.radii,
         means2d=means2d,
         dropped_pairs=out.dropped_pairs,
+        crop_offset=crop_offset,
+        crop_outside=crop_outside,
     )
 
 

@@ -1,11 +1,14 @@
-"""The tile-grid compositor: CUDA kernel pair, plain PyTorch twins, autograd.
+"""The tile-grid compositor: CUDA kernels, plain PyTorch twins, autograd;
+and the build of the kernel library that every compositor shares.
 
 Port of the tile-grid half of `egogaussian_tpu/render/pallas_raster.py`
 (`make_tilegrid_compositor`, `_tilegrid_fwd_kernel`, `_tilegrid_bwd_kernel`
-with exact_total=False). The kernels are CUDA C++ for sm_90a in
+in both flavors: exact_total=False rebuilds each pixel's weighted
+gradient total from the saved outputs, exact_total=True recomputes it in a
+value-only pre-sweep). The kernels are CUDA C++ for sm_90a in
 `egogaussian_tpu_torch/csrc/`, compiled by nvcc at first use into
-`build/kernels/` as a shared library with a plain C interface and loaded
-with ctypes.
+`build/kernels/` as one shared library with a plain C interface and
+loaded with ctypes.
 
 Interface (the TPU kernels' own):
   meta [3, T] int32: (first chunk slot, pair count, fit-slot count
@@ -43,7 +46,8 @@ SUPPORTED_TS = (16, 32)
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-_SOURCES = ("tilegrid_common.cuh", "tilegrid_fwd.cu", "tilegrid_bwd.cu")
+_SOURCES = ("tilegrid_common.cuh", "tilegrid_fwd.cu", "tilegrid_bwd.cu",
+            "stream_fwd.cu", "stream_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -64,7 +68,7 @@ def _find_nvcc() -> str:
         nvcc = default
     if nvcc is None:
         raise RuntimeError(
-            "nvcc not found: the tile-grid kernels are built from "
+            "nvcc not found: the compositor kernels are built from "
             f"{CSRC_DIR} at first use and need the CUDA toolkit")
     return nvcc
 
@@ -76,7 +80,7 @@ def library_path() -> str:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libegogs_tilegrid_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"libegogs_raster_{h.hexdigest()[:16]}.so")
 
 
 def build_library() -> Tuple[str, str]:
@@ -110,7 +114,11 @@ def kernel_library() -> ctypes.CDLL:
     lib.egogs_tilegrid_fwd.restype = i
     lib.egogs_tilegrid_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.egogs_tilegrid_bwd.restype = i
-    lib.egogs_tilegrid_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.egogs_tilegrid_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.egogs_stream_fwd.restype = i
+    lib.egogs_stream_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.egogs_stream_bwd.restype = i
+    lib.egogs_stream_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
     return lib
 
 
@@ -228,31 +236,28 @@ def composite_tilegrid_plain_fwd(meta, vals, bg, ts: int, n_tx: int):
 
 
 def composite_tilegrid_plain_bwd(meta, vals, bg, img, alpha, depth,
-                                 gimg, galpha, gdepth, ts: int, n_tx: int):
+                                 gimg, galpha, gdepth, ts: int, n_tx: int,
+                                 exact_total: bool = False):
     """The backward kernel's algorithm in plain torch: one forward sweep,
-    S = (total - inclusive prefix) + T_total * (gimg . bg) with the total
-    rebuilt from the saved outputs, dalpha gated to eps <= raw < 0.99,
-    per-pair rows reduced over each tile's pixels. Slots of no tile and
-    skipped chunks are zeros."""
+    S = (total - inclusive prefix) + base_S, dalpha gated to
+    eps <= raw < 0.99, per-pair rows reduced over each tile's pixels. The
+    per-pixel total and base_S = T_final * (gimg . bg) are rebuilt from
+    the saved outputs (exact_total=False) or taken from a value-only
+    pre-sweep that runs the gradient sweep's own value path, saturation
+    votes included (exact_total=True). Slots of no tile and skipped chunks
+    are zeros."""
     n_tiles, d = meta.shape[1], bg.shape[1]
     dev = vals.device
     start, cnt, n_chunks, max_chunks = _chunk_schedule(meta)
     px, py = _pixel_coords(n_tiles, ts, n_tx, dev)
     lane = torch.arange(CHUNK, device=dev)
     bgv = bg[0]
-    t_total = 1.0 - alpha  # [T, P, 1]
     g_dot_bg = torch.sum(gimg * bgv, dim=-1, keepdim=True)
-    total_wd = (
-        torch.sum((img - t_total * bgv) * gimg, dim=-1, keepdim=True)
-        + depth * gdepth
-        + alpha * galpha
-    )
-    base_s = t_total * g_dot_bg
-    dvals = torch.zeros_like(vals)
-    t_carry = torch.ones_like(alpha)
-    carry_wd = torch.zeros_like(alpha)
-    n_pad = ch16_of(d) - (7 + d)
-    for c in range(max_chunks):
+
+    def chunk_values(c, t_carry, carry_wd):
+        """Value path of chunk c (both sweeps): (live, slot, blk, lane_ok,
+        alpha terms, one_minus, T_excl, w, dL/dw, inclusive prefix) and the
+        advanced (t_carry, carry_wd)."""
         live = (c < n_chunks) & (t_carry.amax(dim=(1, 2)) >= SAT_SKIP_EPS)
         slot = torch.where(live, start + c, torch.zeros_like(start))
         blk = vals[slot]
@@ -266,6 +271,31 @@ def composite_tilegrid_plain_bwd(meta, vals, bg, img, alpha, depth,
         z = blk[:, None, 6 + d]  # [T, 1, 128]
         dld = z * gdepth + galpha + torch.einsum("tpd,tdl->tpl", gimg, cols)
         pre_wd = torch.cumsum(w * dld, dim=2) + carry_wd
+        m = live[:, None, None]
+        t_next = torch.where(m, t_carry * incl[..., -1:], t_carry)
+        wd_next = torch.where(m, pre_wd[..., -1:], carry_wd)
+        return (live, slot, blk, lane_ok, raw, power, dx, dy, one_minus, t_excl, w, dld,
+                pre_wd), (t_next, wd_next)
+
+    if exact_total:
+        t_carry, carry_wd = torch.ones_like(alpha), torch.zeros_like(alpha)
+        for c in range(max_chunks):
+            _, (t_carry, carry_wd) = chunk_values(c, t_carry, carry_wd)
+        total_wd, base_s = carry_wd, t_carry * g_dot_bg
+    else:
+        t_total = 1.0 - alpha  # [T, P, 1]
+        total_wd = (
+            torch.sum((img - t_total * bgv) * gimg, dim=-1, keepdim=True)
+            + depth * gdepth
+            + alpha * galpha
+        )
+        base_s = t_total * g_dot_bg
+    dvals = torch.zeros_like(vals)
+    t_carry, carry_wd = torch.ones_like(alpha), torch.zeros_like(alpha)
+    n_pad = ch16_of(d) - (7 + d)
+    for c in range(max_chunks):
+        (live, slot, blk, lane_ok, raw, power, dx, dy, one_minus, t_excl, w, dld,
+         pre_wd), (t_carry, carry_wd) = chunk_values(c, t_carry, carry_wd)
         s = (total_wd - pre_wd) + base_s
         dalpha = t_excl * dld - s / one_minus
         gate = (raw >= ALPHA_EPS) & (raw < ALPHA_MAX)
@@ -287,9 +317,6 @@ def composite_tilegrid_plain_bwd(meta, vals, bg, img, alpha, depth,
         rows += [torch.zeros_like(rows[0])] * n_pad
         dblk = torch.stack(rows, dim=1)  # [T, ch16, 128]
         dvals[slot[live]] = dblk[live]
-        m = live[:, None, None]
-        t_carry = torch.where(m, t_carry * incl[..., -1:], t_carry)
-        carry_wd = torch.where(m, pre_wd[..., -1:], carry_wd)
     return dvals
 
 
@@ -320,16 +347,16 @@ def tilegrid_forward(meta, vals, bg, ts: int, n_tx: int):
 
 
 def tilegrid_backward(meta, vals, bg, img, alpha, depth, gimg, galpha, gdepth,
-                      ts: int, n_tx: int):
-    """Backward compositor -> dvals. CUDA tensors launch the kernel (which
-    writes only the slots of tiles in meta); CPU tensors run
-    composite_tilegrid_plain_bwd."""
+                      ts: int, n_tx: int, exact_total: bool = False):
+    """Backward compositor -> dvals. CUDA tensors launch the kernel of the
+    flavor `exact_total` names (it writes only the slots of tiles in meta);
+    CPU tensors run composite_tilegrid_plain_bwd."""
     d = bg.shape[1]
     _check(meta, vals, bg, ts, tensors=[(img, d), (alpha, 1), (depth, 1),
                                          (gimg, d), (galpha, 1), (gdepth, 1)])
     if vals.device.type == "cpu":
         return composite_tilegrid_plain_bwd(meta, vals, bg, img, alpha, depth,
-                                            gimg, galpha, gdepth, ts, n_tx)
+                                            gimg, galpha, gdepth, ts, n_tx, exact_total)
     if vals.device.type != "cuda":
         raise ValueError(f"no tile-grid compositor for device {vals.device}")
     dvals = torch.empty_like(vals)
@@ -338,34 +365,40 @@ def tilegrid_backward(meta, vals, bg, img, alpha, depth, gimg, galpha, gdepth,
     rc = lib.egogs_tilegrid_bwd(
         *(x.data_ptr() for x in (meta, vals, bg, img, alpha, depth, gimg, galpha,
                                  gdepth, dvals)),
-        meta.shape[1], n_tx, ts, d, stream)
+        meta.shape[1], n_tx, ts, d, int(exact_total), stream)
     _launch_check(rc, "tilegrid backward")
-    TileGridCompositor.bwd_launches[d] += 1
+    counts = (TileGridCompositor.bwd_exact_launches if exact_total
+              else TileGridCompositor.bwd_launches)
+    counts[d] += 1
     return dvals
 
 
 class TileGridCompositor(torch.autograd.Function):
-    """(meta, vals, bg, ts, n_tx) -> (img, alpha, depth) with the backward
-    kernel as its gradient. Slots past the fit count get zero gradient and
-    bg gets a zero gradient, as in the JAX VJP.
+    """(meta, vals, bg, ts, n_tx, exact_total) -> (img, alpha, depth) with
+    the backward kernel of the chosen flavor as its gradient. Slots past
+    the fit count get zero gradient and bg gets a zero gradient, as in the
+    JAX VJP.
 
-    fwd_launches / bwd_launches count kernel launches per channel count D;
-    the CPU twin path does not count."""
+    fwd_launches, bwd_launches (exact_total=False) and bwd_exact_launches
+    count kernel launches per channel count D; the CPU twin path does not
+    count."""
 
     fwd_launches = {d: 0 for d in SUPPORTED_D}
     bwd_launches = {d: 0 for d in SUPPORTED_D}
+    bwd_exact_launches = {d: 0 for d in SUPPORTED_D}
 
     @staticmethod
     def reset_launch_counts():
-        for d in SUPPORTED_D:
-            TileGridCompositor.fwd_launches[d] = 0
-            TileGridCompositor.bwd_launches[d] = 0
+        for counts in (TileGridCompositor.fwd_launches, TileGridCompositor.bwd_launches,
+                       TileGridCompositor.bwd_exact_launches):
+            for d in SUPPORTED_D:
+                counts[d] = 0
 
     @staticmethod
-    def forward(ctx, meta, vals, bg, ts, n_tx):
+    def forward(ctx, meta, vals, bg, ts, n_tx, exact_total=False):
         img, alpha, depth = tilegrid_forward(meta, vals, bg, ts, n_tx)
         ctx.save_for_backward(meta, vals, bg, img, alpha, depth)
-        ctx.ts, ctx.n_tx = ts, n_tx
+        ctx.ts, ctx.n_tx, ctx.exact_total = ts, n_tx, exact_total
         return img, alpha, depth
 
     @staticmethod
@@ -374,8 +407,8 @@ class TileGridCompositor(torch.autograd.Function):
         dvals = tilegrid_backward(
             meta, vals, bg, img, alpha, depth,
             gimg.contiguous(), galpha.contiguous(), gdepth.contiguous(),
-            ctx.ts, ctx.n_tx)
+            ctx.ts, ctx.n_tx, ctx.exact_total)
         # slots of no fitting tile were never written (torch.empty)
         s = torch.arange(dvals.shape[0], device=dvals.device)[:, None, None]
         dvals = torch.where(s < meta[2, 0], dvals, torch.zeros_like(dvals))
-        return None, dvals, torch.zeros_like(bg), None, None
+        return None, dvals, torch.zeros_like(bg), None, None, None

@@ -7,9 +7,12 @@ Port of the main-path parts of `egogaussian_tpu/render/tiled.py`:
      with the opacity-aware AABB and the exact conic-vs-tile-rectangle cull
      (both output-identical: culled pairs would only ever get alpha < 1/255)
   3. sort pairs by (tile id, depth rank); per-tile ranges by searchsorted
-  4. lay each tile's run out padded to 128-pair chunks, transposed per chunk
-     ([n_slots, ch16, 128]), and composite with the tile-grid kernel pair
-     (render/cuda_raster.py)
+  4. lay each tile's run out padded to 128-pair chunks and composite with
+     one of two kernel flavors, chosen by TileConfig.compositor:
+       "tilegrid": per-tile meta, chunks transposed ([n_slots, ch16, 128]),
+         the tile-grid kernel pair (render/cuda_raster.py)
+       "stream": per-slot meta, pairs row-major ([n_slots*128, 7+D]), the
+         stream kernel pair (render/stream_raster.py)
 
 Every static capacity that can lose a pair counts it in `dropped`; nothing
 is dropped silently. Scatters that JAX writes with mode="drop" use a buffer
@@ -29,21 +32,35 @@ from egogaussian_tpu_torch.render.project import ProjectedGaussians
 CHUNK = 128  # pairs per chunk of the padded layout (the kernels' unit)
 
 
+COMPOSITORS = ("tilegrid", "stream")
+
+
 @dataclasses.dataclass(frozen=True)
 class TileConfig:
-    """Binning capacities, with the JAX package's TileConfig meanings. Its
-    kernel-selecting fields for flavors not ported yet (compositor,
-    bwd_exact_total, scatter_layout) come with those flavors. `mxu_accum`
-    keeps its meaning (accumulate each chunk as one matmul); on the card
-    both settings accumulate with float32 FMAs, because tensor cores in
-    TF32 would break the error bounds the kernels are held to."""
+    """Binning capacities and kernel flavors, with the JAX package's
+    TileConfig meanings. `mxu_accum` keeps its meaning (accumulate each
+    chunk as one matmul); on the card both settings accumulate with float32
+    FMAs, because tensor cores in TF32 would break the error bounds the
+    kernels are held to. The JAX-only `scatter_layout` (an XLA layout
+    choice with no kernel of its own) is not ported."""
 
     tile_size: int = 16
     max_pairs: Optional[int] = None  # default 16 * N
     max_per_tile: int = 1024
     # chunk-slot capacity of the padded layout; defaults to max_pairs
     max_slots: Optional[int] = None
+    # compositor kernel pair: "tilegrid" (one block per tile) or "stream"
+    # (per-slot meta, log-space transmittance)
+    compositor: str = "tilegrid"
+    # tile-grid backward flavor: False rebuilds each pixel's weighted
+    # gradient total from the saved outputs; True recomputes it in a
+    # value-only pre-sweep in the gradient sweep's own order
+    bwd_exact_total: bool = False
     mxu_accum: bool = True
+
+    def __post_init__(self):
+        if self.compositor not in COMPOSITORS:
+            raise ValueError(f"compositor {self.compositor!r} not in {COMPOSITORS}")
 
 
 def _default_config(n: int, config: Optional[TileConfig], n_tiles: int) -> TileConfig:
@@ -308,6 +325,80 @@ class TilegridLayout(NamedTuple):
     tile_size: int
 
 
+class StreamLayout(NamedTuple):
+    """Inputs of the stream compositor for one render."""
+
+    meta: torch.Tensor  # [4, n_slots] int32
+    vals: torch.Tensor  # [n_slots*128, 7+D] float32 (differentiable)
+    empty: torch.Tensor  # [T] bool: tile owns no chunk (empty or overflowed)
+    dropped: torch.Tensor
+    n_tx: int
+    n_ty: int
+    tile_size: int
+
+
+class _PaddedRuns(NamedTuple):
+    """Per-tile runs padded to whole chunks, shared by both layouts."""
+
+    config: TileConfig
+    order: torch.Tensor
+    g_sorted: torch.Tensor
+    starts: torch.Tensor  # first pair of each tile in the sorted pair array
+    tile_cnt: torch.Tensor
+    padded_cnt: torch.Tensor
+    starts2: torch.Tensor  # first slot of each tile in the padded layout
+    overflowed: torch.Tensor  # the tile's padded run does not fit sc
+    dropped: torch.Tensor
+    sc: int  # slot capacity (a multiple of CHUNK)
+    n_tx: int
+    n_ty: int
+
+
+def _padded_runs(proj, opacities, width, height, config) -> _PaddedRuns:
+    n = proj.depths.shape[0]
+    ts = (config or TileConfig()).tile_size
+    n_tiles0 = (-(-width // ts)) * (-(-height // ts))
+    config = _default_config(n, config, n_tiles0)
+    order, g_sorted, _, starts, tile_cnt, dropped, (n_tx, n_ty) = bin_pairs(
+        proj, width, height, config, opacities=opacities
+    )
+    sc = config.max_slots or config.max_pairs
+    sc = -(-sc // CHUNK) * CHUNK
+    with torch.no_grad():
+        padded_cnt = ((tile_cnt + CHUNK - 1) // CHUNK) * CHUNK
+        starts2 = torch.cumsum(padded_cnt, 0) - padded_cnt  # padded starts
+        # a tile whose padded run does not fit the slot capacity is never
+        # laid out: it renders as empty and its pairs count as dropped
+        overflowed = starts2 + padded_cnt > sc
+        dropped = dropped + torch.sum(
+            torch.where(overflowed, tile_cnt, torch.zeros_like(tile_cnt)))
+    return _PaddedRuns(config, order, g_sorted, starts, tile_cnt, padded_cnt, starts2,
+                       overflowed, dropped, sc, n_tx, n_ty)
+
+
+def _slot_stream(runs: _PaddedRuns, per_tile: torch.Tensor) -> torch.Tensor:
+    """[sc] value of each slot's owning tile: a scatter at the tiles'
+    padded starts (tiles past the capacity drop out) and a running max;
+    every scattered stream is nondecreasing in tile id, so the owner of a
+    slot run is the largest tile id that starts there."""
+    return torch.cummax(_scatter_amax(runs.sc, runs.starts2, per_tile), 0).values
+
+
+def _slot_sources(runs: _PaddedRuns) -> torch.Tensor:
+    """[sc] index (into the unsorted Gaussian arrays) of the pair in each
+    slot: slot q of tile t holds pair starts[t] + (q - starts2[t])."""
+    q = torch.arange(runs.sc, dtype=torch.int64, device=runs.tile_cnt.device)
+    p_q = torch.clamp(_slot_stream(runs, runs.starts) + (q - _slot_stream(runs, runs.starts2)),
+                      0, runs.config.max_pairs - 1)
+    return runs.order[runs.g_sorted[p_q]]
+
+
+def _packed_rows(proj, colors, opacities) -> torch.Tensor:
+    """[N, 7+D] pair fields mu_x | mu_y | a | b | c | op | col x D | z."""
+    return torch.cat(
+        [proj.means2d, proj.conics, opacities[:, None], colors, proj.depths[:, None]], dim=1)
+
+
 def tilegrid_layout(
     proj: ProjectedGaussians,
     colors: torch.Tensor,
@@ -325,52 +416,57 @@ def tilegrid_layout(
     is autograd's."""
     from egogaussian_tpu_torch.render.cuda_raster import ch16_of
 
-    n = proj.depths.shape[0]
-    d = colors.shape[-1]
-    ts = (config or TileConfig()).tile_size
-    n_tiles0 = (-(-width // ts)) * (-(-height // ts))
-    config = _default_config(n, config, n_tiles0)
-
-    order, g_sorted, _, starts, tile_cnt, dropped, (n_tx, n_ty) = bin_pairs(
-        proj, width, height, config, opacities=opacities
-    )
-    n_tiles = n_tx * n_ty
-    sc = config.max_slots or config.max_pairs
-    sc = -(-sc // CHUNK) * CHUNK
-    n_slots = sc // CHUNK
-
+    runs = _padded_runs(proj, opacities, width, height, config)
+    n_tiles = runs.n_tx * runs.n_ty
     with torch.no_grad():
-        padded_cnt = ((tile_cnt + CHUNK - 1) // CHUNK) * CHUNK
-        starts2 = torch.cumsum(padded_cnt, 0) - padded_cnt  # padded starts
-        overflowed = starts2 + padded_cnt > sc
-        zero = torch.zeros_like(tile_cnt)
-        dropped = dropped + torch.sum(torch.where(overflowed, tile_cnt, zero))
-        fit_slots = torch.sum(torch.where(overflowed, zero, padded_cnt)) // CHUNK
+        zero = torch.zeros_like(runs.tile_cnt)
+        fit_slots = torch.sum(torch.where(runs.overflowed, zero, runs.padded_cnt)) // CHUNK
         meta = torch.stack([
-            torch.where(overflowed, zero, starts2 // CHUNK),
-            torch.where(overflowed, zero, tile_cnt),
+            torch.where(runs.overflowed, zero, runs.starts2 // CHUNK),
+            torch.where(runs.overflowed, zero, runs.tile_cnt),
             fit_slots.expand(n_tiles),
         ]).to(torch.int32).contiguous()
+        src = _slot_sources(runs)
 
-        # per-slot pair index: the owner tile's (start, padded start) by a
-        # scatter at the padded start and a running max
-        q = torch.arange(sc, dtype=torch.int64, device=tile_cnt.device)
-        a_q = torch.cummax(_scatter_amax(sc, starts2, starts), 0).values
-        b_q = torch.cummax(_scatter_amax(sc, starts2, starts2), 0).values
-        p_q = torch.clamp(a_q + (q - b_q), 0, config.max_pairs - 1)
-        # Gaussian of each slot, as an index into the unsorted arrays: one
-        # row gather (and one index backward) instead of two
-        src = order[g_sorted[p_q]]
-
-    packed = torch.cat(
-        [proj.means2d, proj.conics, opacities[:, None], colors, proj.depths[:, None]],
-        dim=1,
-    )
-    ch16 = ch16_of(d)
+    packed = _packed_rows(proj, colors, opacities)
+    ch16 = ch16_of(colors.shape[-1])
     rows = torch.nn.functional.pad(packed, (0, ch16 - packed.shape[1]))[src]
-    vals = rows.reshape(n_slots, CHUNK, ch16).transpose(1, 2).contiguous()
-    return TilegridLayout(meta, vals, (tile_cnt == 0) | overflowed, dropped,
-                          n_tx, n_ty, ts)
+    vals = rows.reshape(runs.sc // CHUNK, CHUNK, ch16).transpose(1, 2).contiguous()
+    return TilegridLayout(meta, vals, (runs.tile_cnt == 0) | runs.overflowed, runs.dropped,
+                          runs.n_tx, runs.n_ty, runs.config.tile_size)
+
+
+def stream_layout(
+    proj: ProjectedGaussians,
+    colors: torch.Tensor,
+    opacities: torch.Tensor,
+    width: int,
+    height: int,
+    config: Optional[TileConfig] = None,
+) -> StreamLayout:
+    """The stream flavor's layout (port of the stream branch of the JAX
+    `composite_pallas`): the same padded runs, pairs row-major with no
+    padding rows, and a per-slot meta of four rows:
+      0 owning tile, 1 rank of the chunk's first pair within its tile,
+      2 the tile's pair count, 3 the last occupied slot (broadcast).
+    Slots past the last tile's run belong to the last tile id with rank >=
+    count (pure padding)."""
+    runs = _padded_runs(proj, opacities, width, height, config)
+    n_tiles = runs.n_tx * runs.n_ty
+    n_slots = runs.sc // CHUNK
+    dev = runs.tile_cnt.device
+    with torch.no_grad():
+        src = _slot_sources(runs)
+        q0 = torch.arange(0, runs.sc, CHUNK, dtype=torch.int64, device=dev)
+        t_chunk = _slot_stream(runs, torch.arange(n_tiles, dtype=torch.int64, device=dev))[::CHUNK]
+        rank_off = q0 - _slot_stream(runs, runs.starts2)[::CHUNK]
+        last_used = torch.clamp(torch.sum(runs.padded_cnt) // CHUNK - 1, 0, n_slots - 1)
+        meta = torch.stack([
+            t_chunk, rank_off, runs.tile_cnt[t_chunk], last_used.expand(n_slots),
+        ]).to(torch.int32).contiguous()
+    vals = _packed_rows(proj, colors, opacities)[src]
+    return StreamLayout(meta, vals, (runs.tile_cnt == 0) | runs.overflowed, runs.dropped,
+                        runs.n_tx, runs.n_ty, runs.config.tile_size)
 
 
 def composite_cuda(
@@ -382,15 +478,25 @@ def composite_cuda(
     height: int,
     config: Optional[TileConfig] = None,
 ) -> RenderOutput:
-    """Same semantics as the oracle, composited by the tile-grid kernel pair
-    over the chunk-padded layout (tilegrid_layout)."""
-    from egogaussian_tpu_torch.render.cuda_raster import TileGridCompositor
+    """Same semantics as the oracle, composited by the kernel pair that
+    config.compositor names over its chunk-padded layout."""
+    config = config or TileConfig()
+    if config.compositor == "stream":
+        from egogaussian_tpu_torch.render.stream_raster import StreamCompositor
 
-    lay = tilegrid_layout(proj, colors, opacities, width, height, config)
+        lay = stream_layout(proj, colors, opacities, width, height, config)
+        img_t, alpha_t, depth_t = StreamCompositor.apply(
+            lay.meta, lay.vals, bg[None, :], lay.tile_size, lay.n_tx, lay.n_tx * lay.n_ty)
+    else:
+        from egogaussian_tpu_torch.render.cuda_raster import TileGridCompositor
+
+        lay = tilegrid_layout(proj, colors, opacities, width, height, config)
+        img_t, alpha_t, depth_t = TileGridCompositor.apply(
+            lay.meta, lay.vals, bg[None, :], lay.tile_size, lay.n_tx, config.bwd_exact_total)
     ts, n_tx, n_ty = lay.tile_size, lay.n_tx, lay.n_ty
-    img_t, alpha_t, depth_t = TileGridCompositor.apply(
-        lay.meta, lay.vals, bg[None, :], ts, n_tx)
-    # tiles owning no chunk (empty or overflowed) are background / zero
+    # tiles owning no chunk (empty or overflowed) are background / zero: the
+    # stream kernel never writes them, the tile-grid kernel writes them as
+    # such; the mask also cuts the gradient of the overflowed tiles' chunks
     empty = lay.empty[:, None, None]
     img_t = torch.where(empty, bg[None, None, :].to(img_t.dtype), img_t)
     alpha_t = torch.where(empty, torch.zeros_like(alpha_t), alpha_t)

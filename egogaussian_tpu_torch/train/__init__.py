@@ -5,3 +5,4 @@ from egogaussian_tpu_torch.train.common import (
     opacity_entropy,
 )
 from egogaussian_tpu_torch.train.static import train_static
+from egogaussian_tpu_torch.train.coarse_pose import estimate_coarse_obj_pose, pose_step

@@ -1,4 +1,5 @@
-"""Tile-grid CUDA kernels against their plain twins and the oracle, on the
+"""The compositor CUDA kernels (tile-grid forward, both tile-grid backward
+flavors, the stream pair) against their plain twins and the oracle, on the
 card. Marked `cuda`; without a CUDA device every test skips.
 
 On a machine with a GPU (no JAX needed there):
@@ -6,7 +7,8 @@ On a machine with a GPU (no JAX needed there):
 
 Tolerances: the JAX suite's cross-backend bounds (tests/test_pallas_raster.py):
 forward 3e-4 (image, alpha) and 3e-3 (depth); gradients atol 2e-4,
-rtol 1e-3.
+rtol 1e-3; the exact-total render's gradients within 5e-6 of the oracle
+(:301-347).
 """
 import numpy as np
 import pytest
@@ -14,9 +16,10 @@ import torch
 
 from egogaussian_tpu_torch.ops.covariance import covariance_from_scaling_rotation
 from egogaussian_tpu_torch.render import cuda_raster as cr
+from egogaussian_tpu_torch.render import stream_raster as sr
 from egogaussian_tpu_torch.render.api import render
 from egogaussian_tpu_torch.render.camera import Camera, look_at
-from egogaussian_tpu_torch.render.tiled import TileConfig, tilegrid_layout
+from egogaussian_tpu_torch.render.tiled import TileConfig, stream_layout, tilegrid_layout
 from egogaussian_tpu_torch.render.project import project_gaussians
 
 pytestmark = pytest.mark.cuda
@@ -105,3 +108,137 @@ def test_cuda_render_grads_match_oracle(dev):
 
     for a, b in zip(grads("cuda"), grads("oracle")):
         torch.testing.assert_close(a, b, atol=2e-4, rtol=1e-3)
+
+
+def _project(dev, means, cov3d):
+    cam = _camera(dev)
+    return project_gaussians(means, cov3d, cam.viewmat, cam.fx, cam.fy, cam.cx, cam.cy, W, H)
+
+
+@pytest.mark.parametrize("tile_size", [16, 32])
+@pytest.mark.parametrize("d", [3, 1])
+def test_exact_total_kernel_matches_twin(dev, d, tile_size):
+    means, cov3d, colors, ops = _scene(dev, n=300, seed=5)
+    lay = tilegrid_layout(_project(dev, means, cov3d), colors[:, :d], ops, W, H,
+                          TileConfig(max_pairs=16384, tile_size=tile_size))
+    meta, vals = lay.meta, lay.vals.detach().contiguous()
+    bg = torch.rand((1, d), device=dev)
+    out = cr.composite_tilegrid_plain_fwd(meta, vals, bg, tile_size, lay.n_tx)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cots = [torch.randn(o.shape, generator=gen, device=dev) * 1e-2 for o in out]
+    fit = int(meta[2, 0])
+    cr.TileGridCompositor.reset_launch_counts()
+    k_e = cr.tilegrid_backward(meta, vals, bg, *out, *cots, tile_size, lay.n_tx,
+                               exact_total=True)[:fit]
+    p_e = cr.composite_tilegrid_plain_bwd(meta, vals, bg, *out, *cots, tile_size, lay.n_tx,
+                                          exact_total=True)[:fit]
+    k_d = cr.tilegrid_backward(meta, vals, bg, *out, *cots, tile_size, lay.n_tx)[:fit]
+    torch.testing.assert_close(k_e, p_e, atol=2e-4, rtol=1e-3)
+    torch.testing.assert_close(k_e, k_d, atol=2e-4, rtol=1e-3)
+    torch.cuda.synchronize()
+    assert cr.TileGridCompositor.bwd_exact_launches[d] == 1
+    assert cr.TileGridCompositor.bwd_launches[d] == 1
+    # what tells the flavors apart: the exact kernel rebuilds nothing from
+    # the saved outputs, so zeroing them leaves its gradient bit-identical
+    zeros = [torch.zeros_like(o) for o in out]
+    assert torch.equal(k_e, cr.tilegrid_backward(meta, vals, bg, *zeros, *cots, tile_size,
+                                                 lay.n_tx, exact_total=True)[:fit])
+    assert not torch.equal(k_d, cr.tilegrid_backward(meta, vals, bg, *zeros, *cots, tile_size,
+                                                     lay.n_tx)[:fit])
+
+
+@pytest.mark.parametrize("tile_size", [16, 32])
+@pytest.mark.parametrize("d", [3, 1])
+def test_stream_kernels_match_twins(dev, d, tile_size):
+    means, cov3d, colors, ops = _scene(dev, n=300, seed=6)
+    lay = stream_layout(_project(dev, means, cov3d), colors[:, :d], ops, W, H,
+                        TileConfig(max_pairs=16384, tile_size=tile_size, compositor="stream"))
+    meta, vals = lay.meta, lay.vals.detach().contiguous()
+    n_tiles = lay.n_tx * lay.n_ty
+    bg = torch.rand((1, d), device=dev)
+    sr.StreamCompositor.reset_launch_counts()
+    k_out = sr.stream_forward(meta, vals, bg, tile_size, lay.n_tx, n_tiles)
+    p_out = sr.composite_stream_plain_fwd(meta, vals, bg, tile_size, lay.n_tx, n_tiles)
+    owned = ~lay.empty  # the kernel leaves tiles that own no slot unwritten
+    for k, p, tol in zip(k_out, p_out, (3e-4, 3e-4, 3e-3, 3e-4)):
+        torch.testing.assert_close(k[owned], p[owned], atol=tol, rtol=0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cots = [torch.randn(o.shape, generator=gen, device=dev) * 1e-2 for o in p_out[:3]]
+    k_d = sr.stream_backward(meta, vals, bg, p_out[3], *cots, tile_size, lay.n_tx)
+    p_d = sr.composite_stream_plain_bwd(meta, vals, bg, p_out[3], *cots, tile_size, lay.n_tx)
+    torch.testing.assert_close(k_d, p_d, atol=2e-4, rtol=1e-3)
+    torch.cuda.synchronize()
+    assert sr.StreamCompositor.fwd_launches[d] == 1
+    assert sr.StreamCompositor.bwd_launches[d] == 1
+
+
+@pytest.mark.parametrize("flavor", ["exact_total", "stream"])
+def test_new_backwards_repeat_bit_for_bit(dev, flavor):
+    """Fixed-order reductions, no float atomics: two runs are identical."""
+    means, cov3d, colors, ops = _scene(dev, n=400, seed=3)
+    proj = _project(dev, means, cov3d)
+    bg = torch.zeros((1, 3), device=dev)
+    if flavor == "stream":
+        lay = stream_layout(proj, colors, ops, W, H,
+                            TileConfig(max_pairs=16384, tile_size=16, compositor="stream"))
+        vals = lay.vals.detach().contiguous()
+        out = sr.stream_forward(lay.meta, vals, bg, 16, lay.n_tx, lay.n_tx * lay.n_ty)
+        cots = [torch.ones_like(o) for o in out[:3]]
+        a, b = (sr.stream_backward(lay.meta, vals, bg, out[3], *cots, 16, lay.n_tx)
+                for _ in range(2))
+    else:
+        lay = tilegrid_layout(proj, colors, ops, W, H, TileConfig(max_pairs=16384, tile_size=16))
+        vals = lay.vals.detach().contiguous()
+        out = cr.tilegrid_forward(lay.meta, vals, bg, 16, lay.n_tx)
+        cots = [torch.ones_like(o) for o in out]
+        fit = int(lay.meta[2, 0])
+        a, b = (cr.tilegrid_backward(lay.meta, vals, bg, *out, *cots, 16, lay.n_tx,
+                                     exact_total=True)[:fit] for _ in range(2))
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("flavor", ["stream", "exact_total"])
+def test_flavor_render_grads_match_oracle(dev, flavor):
+    """The stream render (forward and gradients) and the exact-total render
+    (gradients within 5e-6, on the JAX suite's 64x48 / 300-Gaussian
+    scene) against the oracle."""
+    w, h = 64, 48
+    rng = np.random.RandomState(0)
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)  # noqa: E731
+    n = 300
+    means = t(rng.randn(n, 3))
+    cov3d = covariance_from_scaling_rotation(t(np.exp(rng.randn(n, 3) * 0.3 - 1.6)),
+                                             t(rng.randn(n, 4)))
+    colors, ops = t(rng.rand(n, 3)), t(rng.uniform(0.3, 0.99, n))
+    R, tr = look_at(np.array([0.0, 0.0, -4.0]), np.zeros(3))
+    cam = Camera.from_colmap(R, tr, 60.0, 60.0, w, h, device=dev)
+    bg = t([0.2, 0.1, 0.3])
+    target = t(rng.rand(3, h, w))
+    cfg = TileConfig(max_pairs=16384, max_per_tile=1024, max_slots=16384,
+                     compositor="stream" if flavor == "stream" else "tilegrid",
+                     bwd_exact_total=flavor == "exact_total")
+
+    def run(backend):
+        args = [x.clone().requires_grad_(True) for x in (means, colors, ops)]
+        r = render(cam, args[0], cov3d, args[2], bg, colors_precomp=args[1], backend=backend,
+                   tile_config=cfg)
+        loss = (torch.mean((r.image - target) ** 2) + 0.1 * torch.mean(r.alpha)
+                + 0.01 * torch.mean(r.depth))
+        return r, torch.autograd.grad(loss, args)
+
+    cr.TileGridCompositor.reset_launch_counts()
+    sr.StreamCompositor.reset_launch_counts()
+    rk, gk = run("cuda")
+    ro, go = run("oracle")
+    for f, tol in (("image", 3e-4), ("alpha", 3e-4), ("depth", 3e-3)):
+        torch.testing.assert_close(getattr(rk, f), getattr(ro, f), atol=tol, rtol=0)
+    for a, b in zip(gk, go):
+        if flavor == "exact_total":
+            torch.testing.assert_close(a, b, atol=5e-6, rtol=0)
+        else:
+            torch.testing.assert_close(a, b, atol=2e-4, rtol=1e-3)
+    torch.cuda.synchronize()
+    if flavor == "stream":
+        assert sr.StreamCompositor.fwd_launches[3] == sr.StreamCompositor.bwd_launches[3] == 1
+    else:
+        assert cr.TileGridCompositor.bwd_exact_launches[3] == 1

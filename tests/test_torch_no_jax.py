@@ -26,7 +26,13 @@ def test_port_modules_found():
     names = _port_modules()
     for expected in ("egogaussian_tpu_torch.render.cuda_raster",
                      "egogaussian_tpu_torch.train.static",
-                     "egogaussian_tpu_torch.models.densify"):
+                     "egogaussian_tpu_torch.models.densify",
+                     "egogaussian_tpu_torch.render.stream_raster",
+                     "egogaussian_tpu_torch.render.crop",
+                     "egogaussian_tpu_torch.models.pose",
+                     "egogaussian_tpu_torch.ops.se3",
+                     "egogaussian_tpu_torch.ops.rotation6d",
+                     "egogaussian_tpu_torch.train.coarse_pose"):
         assert expected in names
 
 
