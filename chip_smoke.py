@@ -6,15 +6,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (one JSON line each; any failure raises, so the exit code is
 nonzero and no result line is printed):
   1. device:  requires CUDA; prints the card (nvidia-smi name, power limit)
-  2. build:   compiles the five compositor kernels (tile-grid forward, the
-              tile-grid backward in both flavors, the stream pair) from
-              egogaussian_tpu_torch/csrc into one library
+  2. build:   compiles the nine compositor kernels (tile-grid forward, the
+              tile-grid backward in both flavors, the stream pair, the
+              chunked and simple windowed pairs) from
+              egogaussian_tpu_torch/csrc, one nvcc per source in parallel,
+              into one library
   3. kernels: each kernel against its plain PyTorch twin on the card, at
               D = 3 and 1, tile sizes 16 and 32, on three scenes (60
               Gaussians at 48x32, 2k at 256x192, a kNN-init deep-tile scene
               at 320x240); the exact-total backward also against the
-              default one; the cuda render (tile-grid and stream) against
-              the oracle; the exact-total render's gradients within 5e-6
+              default one; the simple windowed pair also against the
+              chunked one, and both windowed backwards twice, bit for bit;
+              the cuda render (tile-grid and stream) against the oracle;
+              the exact-total render's gradients within 5e-6
   4. slice:   (path 1) stage-1.0 static training (train_static) on a
               640x480 synthetic video with ~100k Gaussians, shortened
               schedule; launch counters must show the tile-grid kernels
@@ -27,8 +31,26 @@ nonzero and no result line is printed):
               under the default, exact-total and stream tile configs:
               gradients and 20 steps' losses against the default's, and a
               label (D = 1) render gradient per flavor
-  7. timing:  kernel vs plain twin (CUDA events) at the slice's shapes
-  8. profile: torch.profiler over std-mode steps at the slice's size:
+  7. eval:    (path 3) stage-6 evaluation: the eval CLI on the video
+              exported in the reference's dataset layout, with path 1's
+              model and path 2's poses filled over every frame, random
+              LPIPS weights; then every frame at 640x480 through
+              render_results with backend="auto" (the tiled backend) on the
+              ~100k-Gaussian kNN model at the ground-truth poses
+  8. tiled step: the static step under backend="tiled" against "cuda" on
+              that model (std mode D = 3, label mode D = 1): gradients and
+              20 steps' losses within FLAVOR_TOL
+  9. entry:   (path 4) the simple windowed pair through
+              make_tile_compositor, forward and backward, on the full-frame
+              windows of that model at frame 0 (D = 3 and 1)
+ 10. checks after the paths: path 3's frames against backend="cuda"
+              (DEEP_FWD_TOL, 0 dropped pairs), path 4 against the twins and
+              the chunked pair, every kernel against its twin at path 2's
+              own shapes
+ 11. timing:  kernel vs plain twin (CUDA events) at the slice's shapes, and
+              each kernel's bound (bytes over HBM rate or operations over
+              the float32 peak, whichever is larger) on the same inputs
+ 12. profile: torch.profiler over std-mode steps at the slice's size:
               device time by kernel and the device's busy share
               (table in chiprun_out/chip_smoke/profile.txt)
 Launch counters are set to 0 just before each path and read just after.
@@ -43,6 +65,7 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -248,6 +271,93 @@ def check_stream(name, lay, cots, colors_d, bg, tol, errs):
     errs.setdefault(("stream_bwd", d), []).append(grad_err)
 
 
+def split_window(lay):
+    """The simple windowed kernels' five inputs from a chunked window:
+    (mu, con, op, col, z), op zeroed at and past each tile's count."""
+    import torch
+
+    data = lay.data.detach()
+    d = data.shape[2] - 7
+    rows = torch.arange(data.shape[1], device=data.device)
+    live = (rows[None, :] < lay.counts[:, None].long())[..., None]
+    op = torch.where(live, data[..., 5:6], torch.zeros_like(data[..., 5:6]))
+    return tuple(x.contiguous() for x in (data[..., 0:2], data[..., 2:5], op,
+                                          data[..., 6:6 + d], data[..., 6 + d:7 + d]))
+
+
+def window_cotangents(outs, lay, d, width, height):
+    """Cotangents of the JAX suite's test loss at the outputs `outs`
+    (img, alpha, depth per tile), as check_layout takes them."""
+    import torch
+
+    from egogaussian_tpu_torch.render.tiled import _untile
+
+    gen = torch.Generator(device=outs[0].device).manual_seed(7)
+    target = torch.rand((d, height, width), generator=gen, device=outs[0].device)
+    leaves = [x.detach().requires_grad_(True) for x in outs]
+    img, alpha, depth = (_untile(x, lay.n_tx, lay.n_ty, lay.tile_size, width, height)
+                         for x in leaves)
+    loss = (torch.mean((img - target) ** 2) + 0.3 * torch.mean(alpha)
+            + 0.1 * torch.mean(depth))
+    return torch.autograd.grad(loss, leaves)
+
+
+def check_window(name, lay, bg, tol, width, height, errs):
+    """The four windowed kernels on one window (window_layout): each against
+    its plain twin (forward within `tol`, gradients within GRAD_ATOL +
+    GRAD_RTOL), each backward run twice and bit-identical, and the simple
+    pair against the chunked pair on the same window (forward within `tol`,
+    gradients within FLAVOR_TOL norm-relative: the simple backward takes
+    the suffix as total - prefix, the chunked one sums it)."""
+    import torch
+
+    from egogaussian_tpu_torch.render import window_raster as wr
+
+    counts, data = lay.counts, lay.data.detach().contiguous()
+    d, ts, n_tx = data.shape[2] - 7, lay.tile_size, lay.n_tx
+    bg2 = bg[None].contiguous()
+    twin_batch = 16  # bounds the twins' [B, P, rows] temporaries on the card
+    k_out = wr.window_chunked_forward(counts, data, bg2, ts, n_tx)
+    p_out = wr.composite_window_chunked_plain_fwd(counts, data, bg2, ts, n_tx, twin_batch)
+    keys = ("image", "alpha", "depth", "logT")
+    fwd_err = {k: max_err(a, b) for k, a, b in zip(keys, k_out, p_out)}
+    cots = window_cotangents(p_out[:3], lay, d, width, height)
+    k_d = wr.window_chunked_backward(counts, data, bg2, p_out[3], *cots, ts, n_tx)
+    k_d2 = wr.window_chunked_backward(counts, data, bg2, p_out[3], *cots, ts, n_tx)
+    p_d = wr.composite_window_chunked_plain_bwd(counts, data, bg2, p_out[3], *cots, ts, n_tx,
+                                                twin_batch)
+    parts = split_window(lay)
+    ks_out = wr.window_forward(*parts, bg2, ts, n_tx)
+    ps_out = wr.composite_window_plain_fwd(*parts, bg2, ts, n_tx, twin_batch)
+    sfwd_err = {k: max_err(a, b) for k, a, b in zip(keys, ks_out, ps_out)}
+    ks_d = torch.cat(wr.window_backward(*parts, bg2, *cots, ts, n_tx), dim=2)
+    ks_d2 = torch.cat(wr.window_backward(*parts, bg2, *cots, ts, n_tx), dim=2)
+    ps_d = torch.cat(wr.composite_window_plain_bwd(*parts, bg2, *cots, ts, n_tx, twin_batch),
+                     dim=2)
+    cross_fwd = {k: max_err(a, b) for k, a, b in zip(keys, ks_out, k_out)}
+    cross_grad = norm_rel(ks_d, k_d)
+    fwd_tol = dict(tol, logT=tol["image"])
+    repeat = torch.equal(k_d, k_d2) and torch.equal(ks_d, ks_d2)
+    ok = (all(fwd_err[k] <= fwd_tol[k] for k in fwd_tol)
+          and all(sfwd_err[k] <= tol[k] for k in tol)
+          and all(cross_fwd[k] <= tol[k] for k in tol)
+          and grad_excess(k_d, p_d) <= 0.0 and grad_excess(ks_d, ps_d) <= 0.0
+          and cross_grad <= FLAVOR_TOL and repeat)
+    emit("window_check", case=name, d=d, tile_size=ts, window_rows=data.shape[1],
+         deepest_tile=int(counts.max()), chunked_fwd_err=fwd_err,
+         chunked_grad_max_abs_err=max_err(k_d, p_d), simple_fwd_err=sfwd_err,
+         simple_grad_max_abs_err=max_err(ks_d, ps_d), simple_vs_chunked_fwd_err=cross_fwd,
+         simple_vs_chunked_grad_norm_rel=cross_grad, grad_scale=float(p_d.abs().max()),
+         backward_repeats_bit_for_bit=repeat, ok=ok)
+    if not ok:
+        raise AssertionError(f"windowed kernels out of tolerance: {name} d={d} ts={ts}")
+    errs.setdefault(("window_chunked_fwd", d), []).append(max(fwd_err.values()))
+    errs.setdefault(("window_chunked_bwd", d), []).append(max_err(k_d, p_d))
+    errs.setdefault(("window_fwd", d), []).append(max(sfwd_err.values()))
+    errs.setdefault(("window_bwd", d), []).append(max_err(ks_d, ps_d))
+    return cots
+
+
 def render_vs_oracle(case, cam, scene, bg, cfg, grad_atol=None):
     """The cuda render with tile config `cfg` against the oracle: forward
     errors within FWD_TOL; with grad_atol, gradients of the JAX suite's
@@ -294,7 +404,12 @@ def phase_kernels(dev, errs):
     from egogaussian_tpu_torch.ops.covariance import covariance_from_scaling_rotation
     from egogaussian_tpu_torch.render.camera import Camera, look_at
     from egogaussian_tpu_torch.render.project import project_gaussians
-    from egogaussian_tpu_torch.render.tiled import TileConfig, stream_layout, tilegrid_layout
+    from egogaussian_tpu_torch.render.tiled import (
+        TileConfig,
+        stream_layout,
+        tilegrid_layout,
+        window_layout,
+    )
     from egogaussian_tpu_torch.train.common import auto_tile_config, model_colors
 
     def scene_cases(name, cam, means, cov3d, colors, ops, cfg_of, tol):
@@ -313,6 +428,10 @@ def phase_kernels(dev, errs):
                     raise AssertionError(f"{name}: pairs dropped in the check scene")
                 cots = check_layout(name, lay, d, bg, tol, cam.width, cam.height, errs)
                 check_stream(name, slay, cots, d, bg, tol, errs)
+                wlay = window_layout(proj, cols, ops, cam.width, cam.height, cfg)
+                if int(wlay.dropped):
+                    raise AssertionError(f"{name}: pairs dropped in the check window")
+                check_window(name, wlay, bg, tol, cam.width, cam.height, errs)
 
     # 1) 60 Gaussians at 48x32 (tests/test_pallas_raster.py:23-36)
     cam = look_at_camera(48, 32, dev)
@@ -334,10 +453,18 @@ def phase_kernels(dev, errs):
                                               t(rng.randn(300, 4)))
     ex_scene = (ex_means, ex_cov, t(rng.rand(300, 3)), t(rng.uniform(0.3, 0.99, 300)))
     R, tr = look_at(np.array([0.0, 0.0, -4.0]), np.zeros(3))
-    render_vs_oracle("random300_64x48", Camera.from_colmap(R, tr, 60.0, 60.0, 64, 48, device=dev),
-                     ex_scene, t([0.2, 0.1, 0.3]),
+    ex_cam = Camera.from_colmap(R, tr, 60.0, 60.0, 64, 48, device=dev)
+    render_vs_oracle("random300_64x48", ex_cam, ex_scene, t([0.2, 0.1, 0.3]),
                      TileConfig(max_pairs=16384, max_per_tile=1024, max_slots=16384,
                                 bwd_exact_total=True), grad_atol=5e-6)
+    # the windowed kernels on the same scene (tiles up to ~200 rows deep)
+    ex_proj = project_gaussians(ex_means, ex_cov, ex_cam.viewmat, ex_cam.fx, ex_cam.fy,
+                                ex_cam.cx, ex_cam.cy, 64, 48)
+    for ts in (16, 32):
+        for d, bg in ((3, t([0.2, 0.1, 0.3])), (1, torch.zeros(1, device=dev))):
+            wlay = window_layout(ex_proj, ex_scene[2][:, :d].contiguous(), ex_scene[3], 64, 48,
+                                 TileConfig(max_pairs=16384, max_per_tile=1024, tile_size=ts))
+            check_window("random300_64x48", wlay, bg, FWD_TOL, 64, 48, errs)
 
     # 2) 2k Gaussians at 256x192
     cam = look_at_camera(256, 192, dev, focal=240.0)
@@ -453,6 +580,8 @@ def launch_counts():
     """Every kernel's launch counter, keyed by the kernels-line name."""
     from egogaussian_tpu_torch.render.cuda_raster import TileGridCompositor as tg
     from egogaussian_tpu_torch.render.stream_raster import StreamCompositor as st
+    from egogaussian_tpu_torch.render.window_raster import WindowChunkedCompositor as wc
+    from egogaussian_tpu_torch.render.window_raster import WindowCompositor as ws
 
     out = {}
     for d in (3, 1):
@@ -461,15 +590,20 @@ def launch_counts():
         out[f"tilegrid_bwd_exact_d{d}"] = tg.bwd_exact_launches[d]
         out[f"stream_fwd_d{d}"] = st.fwd_launches[d]
         out[f"stream_bwd_d{d}"] = st.bwd_launches[d]
+        out[f"window_chunked_fwd_d{d}"] = wc.fwd_launches[d]
+        out[f"window_chunked_bwd_d{d}"] = wc.bwd_launches[d]
+        out[f"window_fwd_d{d}"] = ws.fwd_launches[d]
+        out[f"window_bwd_d{d}"] = ws.bwd_launches[d]
     return out
 
 
 def reset_launch_counts():
     from egogaussian_tpu_torch.render.cuda_raster import TileGridCompositor
     from egogaussian_tpu_torch.render.stream_raster import StreamCompositor
+    from egogaussian_tpu_torch.render.window_raster import WindowChunkedCompositor, WindowCompositor
 
-    TileGridCompositor.reset_launch_counts()
-    StreamCompositor.reset_launch_counts()
+    for fn in (TileGridCompositor, StreamCompositor, WindowChunkedCompositor, WindowCompositor):
+        fn.reset_launch_counts()
 
 
 def coarse_config():
@@ -497,10 +631,11 @@ def pose_errors(T, T_gt, points):
     return np.degrees(np.arccos(cos)), trans, add
 
 
-def object_handover(model, vid):
+def object_handover(model, vid, split=True):
     """The object-only model stage 2 starts from: the slice's trained
     Gaussians inside the ground-truth object's rest-pose box (static phase
-    0 sees the object at rest), widened by OBJECT_BOX_MARGIN."""
+    0 sees the object at rest), widened by OBJECT_BOX_MARGIN. With
+    split=False, the whole model with is_object set by that box."""
     import torch
 
     from egogaussian_tpu_torch.models.gaussians import split_by_is_object
@@ -511,7 +646,7 @@ def object_handover(model, vid):
     xyz = model.params.xyz
     inside = torch.all((xyz >= lo) & (xyz <= hi), dim=1).to(torch.int32)
     model = dataclasses.replace(model, aux=dataclasses.replace(model.aux, is_object=inside))
-    return split_by_is_object(model)[0]
+    return split_by_is_object(model)[0] if split else model
 
 
 def phase_coarse(dev, vid, extent, obj_model, out_dir):
@@ -767,23 +902,384 @@ def phase_frame_kernels(model, fr, errs):
             check_stream(case, slay, cots, cols.shape[1], bg, FWD_TOL, errs)
 
 
-def phase_timing(dev, vid, extent, errs):
-    """Kernel vs plain twin at the slice's shapes: the kNN-initialized model
-    of the slice (its heaviest, ~100k Gaussians, the state std mode starts
-    from) on frame 0 at 640x480; D = 3 (image) and D = 1 (label)."""
+def knn_model(dev, vid, extent):
+    """The slice's kNN-initialized model (~102k Gaussians, the state std
+    mode starts from), with is_object from the video's ground truth."""
     import torch
 
     from egogaussian_tpu_torch.models.gaussians import from_points
-    from egogaussian_tpu_torch.render import cuda_raster as cr
-    from egogaussian_tpu_torch.render import stream_raster as sr
-    from egogaussian_tpu_torch.render.project import project_gaussians
-    from egogaussian_tpu_torch.render.tiled import stream_layout, tilegrid_layout
-    from egogaussian_tpu_torch.train.common import auto_tile_config, model_colors
 
     model = from_points(vid.points, vid.colors, dev, spatial_lr_scale=extent, seed=0)
+    is_obj = torch.zeros_like(model.aux.is_object)
+    is_obj[:len(vid.gt_is_object)] = torch.as_tensor(vid.gt_is_object.astype(np.int32),
+                                                     device=dev)
+    return dataclasses.replace(model, aux=dataclasses.replace(model.aux, is_object=is_obj))
+
+
+def gt_pose_sequence(vid, dev):
+    """The video's ground-truth object motion as a solved PoseSequence."""
+    import torch
+
+    from egogaussian_tpu_torch.models.pose import PoseSequence
+
+    deltas = torch.as_tensor(vid.gt_obj_deltas, device=dev)
+    return PoseSequence(translations=deltas[:, :3, 3].contiguous(),
+                        rotations=deltas[:, :3, :3].contiguous(),
+                        solved=torch.ones(len(vid.cameras), dtype=torch.bool, device=dev))
+
+
+def check_results_txt(path):
+    """results.txt in the JAX package's layout: per eval bucket a name line
+    then SSIM, PSNR and LPIPS lines. Returns its lines."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    ok = len(lines) == 8 and lines[0] == "dynamic_eval" and lines[4] == "static_eval"
+    for i in (0, 4):
+        ok = ok and all(lines[i + 1 + k].startswith(p)
+                        for k, p in enumerate(("  SSIM : ", "  PSNR : ", "  LPIPS: ")))
+    if not ok:
+        raise AssertionError(f"results.txt is not in the JAX layout: {lines}")
+    return lines
+
+
+def phase_eval(dev, vid, extent, slice_model, coarse_seq, out_dir):
+    """Path 3, stage 6. (a) The eval CLI end to end on the card: the
+    slice's video exported in the reference's dataset layout, path 1's
+    model as fine_all/gaussians_all.ply (is_object from the ground-truth
+    box, as handed to path 2), path 2's pose sequence filled over every
+    frame as stage 4 fills it, random LPIPS weights. (b) Every frame at
+    640x480 through render_results with backend="auto" and no tile config
+    (the tiled backend, as the JAX pipeline's stage 6 runs it) on the
+    102k-Gaussian kNN model at the ground-truth poses. Returns what the
+    comparison after the path needs."""
+    import torch
+
+    from egogaussian_tpu_torch.cli.eval import main as eval_main
+    from egogaussian_tpu_torch.data.export_colmap import export_colmap_dataset
+    from egogaussian_tpu_torch.data.readers import phase_membership_mask
+    from egogaussian_tpu_torch.eval.lpips import random_lpips_weights, save_lpips_weights
+    from egogaussian_tpu_torch.eval.render_results import render_results
+    from egogaussian_tpu_torch.models.gaussians import save_ply
+    from egogaussian_tpu_torch.models.pose import interpolate_pose_sequence, save_pose_sequence
+
+    # the dataset and the CLI's PNGs (~100 MB) go to the gitignored build/,
+    # results.txt to out_dir
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_eval")
+    shutil.rmtree(root, ignore_errors=True)
+    src = export_colmap_dataset(vid, os.path.join(root, "data"))
+    model_dir = os.path.join(root, "model")
+    handed = object_handover(slice_model, vid, split=False)
+    save_ply(handed, os.path.join(model_dir, "fine_all", "gaussians_all.ply"))
+    dyn_mask = phase_membership_mask(vid.cameras, vid.dynamic_phases)
+    dyn_mask |= coarse_seq.solved.cpu().numpy()
+    filled = interpolate_pose_sequence(coarse_seq, dyn_mask)
+    save_pose_sequence(os.path.join(model_dir, "interpolate_pose_coarse", "obj_pose_sequence.npz"),
+                       filled, vid.image_names)
+    weights = os.path.join(root, "lpips_random_weights.npz")
+    save_lpips_weights(random_lpips_weights(0), weights)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = eval_main(["-s", src, "-m", model_dir, "--lpips_weights", weights,
+                         "--device", str(dev)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_peak = torch.cuda.max_memory_allocated()
+    results_txt = os.path.join(model_dir, "evaluation", "results.txt")
+    lines = check_results_txt(results_txt)
+    shutil.copy(results_txt, os.path.join(out_dir, "eval_results.txt"))
+    n_png = sum(len(files) for _, _, files in os.walk(os.path.join(model_dir, "evaluation")))
+    shutil.rmtree(root)
+    finite = all(np.isfinite(v) for m in metrics.values() for v in m.values())
+    emit("eval_cli", frames=len(vid.cameras), gaussians=int(handed.num_alive),
+         pose_frames_filled=int(filled.solved.sum()), metrics=metrics,
+         lpips_weights="random (random_lpips_weights(0)): LPIPS values are uncalibrated",
+         results_txt=lines, files_written=n_png, seconds=cli_s,
+         seconds_per_frame=cli_s / len(vid.cameras), max_memory_allocated=cli_peak,
+         metrics_finite=finite)
+    if not finite or n_png != 2 * len(vid.cameras) + 1:
+        raise AssertionError(f"eval CLI output incomplete: {n_png} files, metrics {metrics}")
+
+    model = knn_model(dev, vid, extent)
+    seq = gt_pose_sequence(vid, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    buckets = render_results(vid.cameras, model, seq, backend="auto")
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    renders = [e["render"] for b in buckets.values() for e in b]
+    emit("eval_full_width", frames=len(renders), gaussians=int(model.num_alive),
+         width=vid.cameras[0].width, height=vid.cameras[0].height, backend="auto -> tiled",
+         seconds=full_s, seconds_per_frame=full_s / len(renders),
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         renders_finite=all(bool(np.isfinite(r).all()) for r in renders))
+    return model, seq, buckets
+
+
+def compare_eval_frames(vid, model, seq, buckets):
+    """After path 3's counts are read: every frame of the full-width
+    evaluation rendered again through the tiled backend ("auto", no tile
+    config) and through "cuda" with auto_tile_config, within DEEP_FWD_TOL,
+    with 0 dropped pairs in both; render_results' image must be the
+    8-bit quantization of the tiled render."""
+    import torch
+
+    from egogaussian_tpu_torch.eval.render_results import _quantize8
+    from egogaussian_tpu_torch.train.common import auto_tile_config, render_gaussians
+
+    accum_T, accum_R = seq.accum_T(), seq.accum_R()
+    bg = torch.zeros(3, device=model.device)
+    by_name = {e["name"]: e["render"] for b in buckets.values() for e in b}
+    worst = {k: 0.0 for k in DEEP_FWD_TOL}
+    dropped = {"tiled": 0, "cuda": 0}
+    same_as_results = True
+    with torch.no_grad():
+        for f, cam in enumerate(vid.cameras):
+            cfg = auto_tile_config(model, cam)
+            rt = render_gaussians(model, cam, bg, pose_T=accum_T[f], extra_rot=accum_R[f],
+                                  backend="auto")
+            rc = render_gaussians(model, cam, bg, pose_T=accum_T[f], extra_rot=accum_R[f],
+                                  backend="cuda", tile_config=cfg)
+            for k in worst:
+                worst[k] = max(worst[k], max_err(getattr(rt, k), getattr(rc, k)))
+            dropped["tiled"] += int(rt.dropped_pairs)
+            dropped["cuda"] += int(rc.dropped_pairs)
+            same_as_results &= bool(np.array_equal(_quantize8(rt.image.cpu().numpy()),
+                                                   by_name[cam.image_name]))
+    ok = (all(worst[k] <= DEEP_FWD_TOL[k] for k in worst) and not any(dropped.values())
+          and same_as_results)
+    emit("eval_vs_cuda", frames=len(vid.cameras), max_abs_err=worst, tol=DEEP_FWD_TOL,
+         dropped_pairs=dropped, results_are_quantized_tiled_renders=same_as_results, ok=ok)
+    if not ok:
+        raise AssertionError(f"tiled eval renders disagree with cuda: {worst}, {dropped}")
+
+
+TILED_STEPS = 20
+
+
+def phase_tiled_step(dev, vid, extent):
+    """The static step (train/static.py:_static_step) on the slice's kNN
+    model at 640x480 under backend="tiled" against "cuda", with one tile
+    config (auto_tile_config, ts 32): per mode (std at D = 3, label at
+    D = 1) each parameter group's gradient at the first state, then
+    TILED_STEPS steps of each from that state with each step's loss.
+    Norm-relative gradient error and relative loss error within
+    FLAVOR_TOL."""
+    import torch
+
+    from egogaussian_tpu_torch.config import Config
+    from egogaussian_tpu_torch.data import split_viewpoints_by_phase
+    from egogaussian_tpu_torch.data.readers import stack_cameras
+    from egogaussian_tpu_torch.models.optim import adam_init
+    from egogaussian_tpu_torch.train.common import auto_tile_config
+    from egogaussian_tpu_torch.train.static import _frames_loss_grads, _static_step
+
+    cfg = Config()
+    model = knn_model(dev, vid, extent)
+    group = split_viewpoints_by_phase(vid.cameras, vid.static_phases)[0]
+    batch = stack_cameras([vid.cameras[i] for i in group], dev)
+    tcfg = auto_tile_config(model, batch.camera(0))
+    bg = torch.zeros(3, device=dev)
+    report, ok = {}, True
+    step_s = {}
+    for mode in ("std", "label"):
+        grads, losses = {}, {}
+        for backend in ("tiled", "cuda"):
+            grads[backend], _, _, _, drop = _frames_loss_grads(
+                model, batch, [0], batch.hand_masks, mode, cfg.opt.lambda_dssim, backend,
+                tcfg, bg)
+            if int(drop.max()):
+                raise AssertionError(f"tiled step: {int(drop.max())} pairs dropped ({backend})")
+            m, opt = model, adam_init(model.params)
+            drop_max = torch.zeros((), dtype=torch.int64, device=dev)
+            trace = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for k in range(TILED_STEPS):
+                m, opt, loss, _, drop_max = _static_step(
+                    m, opt, batch, [k % len(group)], batch.hand_masks, k + 1, drop_max,
+                    mode=mode, lambda_dssim=cfg.opt.lambda_dssim, backend=backend,
+                    tile_config=tcfg, opt_cfg=cfg.opt, label_lr=cfg.static.label_lr)
+                trace.append(loss)
+            torch.cuda.synchronize()
+            step_s[f"{mode}_{backend}"] = (time.perf_counter() - t0) / TILED_STEPS
+            losses[backend] = torch.stack(trace).cpu().numpy()
+            if int(drop_max):
+                raise AssertionError(f"tiled step: {int(drop_max)} pairs dropped in {mode} steps")
+        g, ref = grads["tiled"], grads["cuda"]
+        errs = {k: norm_rel(getattr(g, k), getattr(ref, k)) for k in g.as_dict()
+                if float(getattr(ref, k).norm()) > 0}
+        loss_rel = np.abs(losses["tiled"] - losses["cuda"]) / np.abs(losses["cuda"])
+        report[mode] = {"grad_norm_rel_err": errs, "step_loss_max_rel_err": float(loss_rel.max()),
+                        "losses_cuda": [float(x) for x in losses["cuda"]]}
+        ok = ok and max(errs.values()) <= FLAVOR_TOL and float(loss_rel.max()) <= FLAVOR_TOL
+    emit("tiled_step", gaussians=int(model.num_alive), tile_size=tcfg.tile_size,
+         max_per_tile=tcfg.max_per_tile, steps=TILED_STEPS, modes=report,
+         seconds_per_step=step_s, bound=FLAVOR_TOL, ok=ok)
+    if not ok:
+        raise AssertionError(f"tiled step disagrees with cuda: {report}")
+
+
+def entry_windows(model, cam):
+    """Path 4's inputs: the full-frame window (default TileConfig: ts 16,
+    1,024 rows) of `model` at `cam`, for the image (D = 3) and the label
+    (D = 1)."""
+    import torch
+
+    from egogaussian_tpu_torch.render.project import project_gaussians
+    from egogaussian_tpu_torch.render.tiled import TileConfig, window_layout
+    from egogaussian_tpu_torch.train.common import model_colors
+
+    dev = model.device
+    with torch.no_grad():
+        proj = project_gaussians(model.params.xyz, model.covariance(), cam.viewmat, cam.fx,
+                                 cam.fy, cam.cx, cam.cy, cam.width, cam.height,
+                                 valid_mask=model.aux.alive)
+        opac = torch.where(model.aux.alive, model.opacity, torch.zeros_like(model.opacity))
+        out = []
+        for d, cols, bg in ((3, model_colors(model), torch.zeros(3, device=dev)),
+                            (1, model.params.label, torch.zeros(1, device=dev))):
+            lay = window_layout(proj, cols, opac, cam.width, cam.height, TileConfig())
+            if int(lay.dropped):
+                raise AssertionError(f"entry window D={d}: {int(lay.dropped)} pairs dropped")
+            out.append((d, lay, bg))
+    return out
+
+
+def phase_entry(model, cam):
+    """Path 4: the simple windowed pair through its entry point,
+    `make_tile_compositor`, forward and backward (autograd) on the
+    full-frame windows of entry_windows. Returns the windows and the
+    outputs for the checks after the path."""
+    import torch
+
+    from egogaussian_tpu_torch.render.window_raster import make_tile_compositor
+
+    results = []
+    for d, lay, bg in entry_windows(model, cam):
+        parts = [x.requires_grad_(True) for x in split_window(lay)]
+        n_tiles, m = parts[0].shape[:2]
+        fn = make_tile_compositor(n_tiles, m, d, lay.tile_size, lay.n_tx)
+        outs = fn(*parts, bg[None].contiguous())
+        cots = window_cotangents([o.detach() for o in outs], lay, d, cam.width, cam.height)
+        grads = torch.autograd.grad(outs, parts, grad_outputs=cots)
+        torch.cuda.synchronize()
+        results.append((d, lay, bg, [o.detach() for o in outs], cots, grads))
+    return results
+
+
+def check_entry(results, cam, errs):
+    """Path 4's outputs against the twins and the chunked pair (check_window
+    on the same windows), and the entry point's autograd results against
+    the kernels called directly."""
+    import torch
+
+    from egogaussian_tpu_torch.render import window_raster as wr
+
+    for d, lay, bg, outs, cots, grads in results:
+        case = f"entry_frame0_{cam.width}x{cam.height}"
+        check_window(case, lay, bg, FWD_TOL, cam.width, cam.height, errs)
+        parts = split_window(lay)
+        bg2 = bg[None].contiguous()
+        direct = wr.window_forward(*parts, bg2, lay.tile_size, lay.n_tx)
+        dgrads = wr.window_backward(*parts, bg2, *cots, lay.tile_size, lay.n_tx)
+        same = (all(torch.equal(a, b) for a, b in zip(outs, direct))
+                and all(torch.equal(a, b) for a, b in zip(grads, dgrads)))
+        emit("entry_point", d=d, tiles=lay.counts.shape[0], window_rows=parts[0].shape[1],
+             deepest_tile=int(lay.counts.max()), pairs=int(lay.counts.sum()),
+             autograd_equals_direct_kernels=same, ok=same)
+        if not same:
+            raise AssertionError("make_tile_compositor's autograd path differs from its kernels")
+
+
+# the card's peaks for the bounds (H100 SXM datasheet at 700 W): float32
+# outside the tensor cores, and HBM
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+CHUNK_ROWS = 128  # pairs per chunk of the padded layouts
+
+
+def ops_per_eval(kind: str, d: int) -> int:
+    """Operations per pair-pixel evaluation, each add, multiply, FMA,
+    compare and transcendental counted as one: the alpha (~12), the
+    transmittance step and weight (~4) and the accumulation (2D + 4) in a
+    forward; a backward adds dL/dw (2D + 2), S and dalpha (~8) and the
+    per-row terms (2D + 20); "bwd2" is a backward with a value-only
+    pre-sweep (exact-total, simple windowed)."""
+    fwd = 20 + 2 * d
+    bwd = fwd + 30 + 4 * d
+    return {"fwd": fwd, "bwd": bwd, "bwd2": bwd + fwd}[kind]
+
+
+def bound(kind, d, pairs, p, n_bytes):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the pair-pixel evaluations' operations over the float32 peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = pairs * p * ops_per_eval(kind, d) / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def kernel_bounds(d, p, lay, slay, wlay):
+    """Each kernel's bound on this run's layouts: the pairs the data has
+    (counted without the tile-grid's saturation skip) and the bytes each
+    kernel must move (the pair rows it needs read once, per-pixel planes,
+    every gradient row it writes)."""
+    f = 4  # bytes per float32
+    n_tiles, pp = lay.meta.shape[1], lay.n_tx * lay.n_ty * p
+    cnt = lay.meta[1].long()
+    pairs = int(cnt.sum())
+    used_slots = int(((cnt + CHUNK_ROWS - 1) // CHUNK_ROWS).sum())
+    ch16, ch = lay.vals.shape[1], 7 + d
+    chunk_bytes = used_slots * CHUNK_ROWS * ch16 * f
+    srow_bytes = used_slots * CHUNK_ROWS * ch * f
+    out_bytes = pp * (d + 2) * f  # img, alpha, depth
+    cot_bytes = out_bytes
+    wcnt = wlay.counts.long()
+    t_rows = wlay.data.shape[0] * wlay.data.shape[1]
+    need_rows = int(wcnt.sum()) * ch * f
+    return {
+        ("fwd", d): bound("fwd", d, pairs, p, 12 * n_tiles + chunk_bytes + out_bytes),
+        ("bwd", d): bound("bwd", d, pairs, p, 12 * n_tiles + 2 * chunk_bytes + out_bytes
+                          + cot_bytes),
+        ("bwd_exact", d): bound("bwd2", d, pairs, p, 12 * n_tiles + 2 * chunk_bytes
+                                + cot_bytes),
+        ("stream_fwd", d): bound("fwd", d, pairs, p, 16 * slay.meta.shape[1] + srow_bytes
+                                 + out_bytes + pp * f),
+        ("stream_bwd", d): bound("bwd", d, pairs, p, 16 * slay.meta.shape[1] + srow_bytes
+                                 + pp * f + cot_bytes + slay.vals.numel() * f),
+        ("window_chunked_fwd", d): bound("fwd", d, int(wcnt.sum()), p,
+                                         4 * n_tiles + need_rows + out_bytes + pp * f),
+        ("window_chunked_bwd", d): bound("bwd", d, int(wcnt.sum()), p,
+                                         4 * n_tiles + need_rows + pp * f + cot_bytes
+                                         + t_rows * ch * f),
+        # the simple pair reads every row's op to find the masked ones
+        ("window_fwd", d): bound("fwd", d, int(wcnt.sum()), p,
+                                 t_rows * f + need_rows + out_bytes),
+        ("window_bwd", d): bound("bwd2", d, int(wcnt.sum()), p,
+                                 t_rows * f + need_rows + cot_bytes + t_rows * ch * f),
+    }
+
+
+def phase_timing(dev, vid, extent, errs):
+    """Kernel vs plain twin at the slice's shapes: the kNN-initialized model
+    of the slice (its heaviest, ~100k Gaussians, the state std mode starts
+    from) on frame 0 at 640x480 with its auto tile config (ts 32); D = 3
+    (image) and D = 1 (label). Each kernel's bound on the same inputs."""
+    import torch
+
+    from egogaussian_tpu_torch.render import cuda_raster as cr
+    from egogaussian_tpu_torch.render import stream_raster as sr
+    from egogaussian_tpu_torch.render import window_raster as wr
+    from egogaussian_tpu_torch.render.project import project_gaussians
+    from egogaussian_tpu_torch.render.tiled import stream_layout, tilegrid_layout, window_layout
+    from egogaussian_tpu_torch.train.common import auto_tile_config, model_colors
+
+    model = knn_model(dev, vid, extent)
     cam = vid.cameras[0]
     cfg = auto_tile_config(model, cam)
-    times = {}
+    times, bounds = {}, {}
     proj = project_gaussians(model.params.xyz, model.covariance(), cam.viewmat, cam.fx,
                              cam.fy, cam.cx, cam.cy, cam.width, cam.height,
                              valid_mask=model.aux.alive)
@@ -796,11 +1292,16 @@ def phase_timing(dev, vid, extent, errs):
         slay = stream_layout(proj, cols, opac, cam.width, cam.height,
                              dataclasses.replace(cfg, compositor="stream"))
         check_stream(case, slay, cots, d, bg, FWD_TOL, errs)
+        wlay = window_layout(proj, cols, opac, cam.width, cam.height, cfg)
+        check_window(case, wlay, bg, FWD_TOL, cam.width, cam.height, errs)
         smeta, svals = slay.meta, slay.vals.detach().contiguous()
         n_tiles = lay.n_tx * lay.n_ty
         meta, vals = lay.meta, lay.vals.detach().contiguous()
+        counts, data = wlay.counts, wlay.data.detach().contiguous()
+        parts = split_window(wlay)
         ts, n_tx = lay.tile_size, lay.n_tx
         bg2 = bg[None].contiguous()
+        bounds.update(kernel_bounds(d, ts * ts, lay, slay, wlay))
         with torch.no_grad():
             out = cr.tilegrid_forward(meta, vals, bg2, ts, n_tx)
             gen = torch.Generator(device=dev).manual_seed(1)
@@ -829,12 +1330,34 @@ def phase_timing(dev, vid, extent, errs):
                 cuda_ms(lambda: sr.stream_backward(smeta, svals, bg2, sout[3], *cot, ts, n_tx)),
                 cuda_ms(lambda: sr.composite_stream_plain_bwd(smeta, svals, bg2, sout[3], *cot,
                                                               ts, n_tx), iters=5, warmup=1))
+            wout = wr.window_chunked_forward(counts, data, bg2, ts, n_tx)
+            times[("window_chunked_fwd", d)] = (
+                cuda_ms(lambda: wr.window_chunked_forward(counts, data, bg2, ts, n_tx)),
+                cuda_ms(lambda: wr.composite_window_chunked_plain_fwd(counts, data, bg2, ts,
+                                                                      n_tx),
+                        iters=5, warmup=1))
+            times[("window_chunked_bwd", d)] = (
+                cuda_ms(lambda: wr.window_chunked_backward(counts, data, bg2, wout[3], *cot, ts,
+                                                           n_tx)),
+                cuda_ms(lambda: wr.composite_window_chunked_plain_bwd(counts, data, bg2,
+                                                                      wout[3], *cot, ts, n_tx),
+                        iters=5, warmup=1))
+            times[("window_fwd", d)] = (
+                cuda_ms(lambda: wr.window_forward(*parts, bg2, ts, n_tx)),
+                cuda_ms(lambda: wr.composite_window_plain_fwd(*parts, bg2, ts, n_tx, 16),
+                        iters=3, warmup=1))
+            times[("window_bwd", d)] = (
+                cuda_ms(lambda: wr.window_backward(*parts, bg2, *cot, ts, n_tx)),
+                cuda_ms(lambda: wr.composite_window_plain_bwd(*parts, bg2, *cot, ts, n_tx, 16),
+                        iters=3, warmup=1))
         emit("timing", d=d, tile_size=ts, gaussians=int(model.num_alive),
-             tiles=meta.shape[1], slots=vals.shape[0], deepest_tile=int(meta[1].max()),
-             pairs=int(meta[1].sum()), dropped=int(lay.dropped),
+             tiles=meta.shape[1], slots=vals.shape[0], window_rows=data.shape[1],
+             deepest_tile=int(meta[1].max()), pairs=int(meta[1].sum()),
+             dropped=int(lay.dropped) + int(wlay.dropped),
              **{f"{k}_ms": times[(k, d)][0] for k in KERNELS},
-             **{f"{k}_plain_ms": times[(k, d)][1] for k in KERNELS})
-    return times
+             **{f"{k}_plain_ms": times[(k, d)][1] for k in KERNELS},
+             **{f"{k}_bound_ms": bounds[(k, d)][0] for k in KERNELS})
+    return times, bounds
 
 
 def phase_profile(dev, vid, extent, out_dir, iters: int = 40, skip: int = 10):
@@ -901,10 +1424,21 @@ KERNELS = {
                    "egogaussian_tpu/render/pallas_raster.py:530"),
     "stream_bwd": ("stream_bwd", "egogaussian_tpu_torch/csrc/stream_bwd.cu",
                    "egogaussian_tpu/render/pallas_raster.py:583"),
+    "window_chunked_fwd": ("window_chunked_fwd", "egogaussian_tpu_torch/csrc/window_chunked_fwd.cu",
+                           "egogaussian_tpu/render/pallas_raster.py:235"),
+    "window_chunked_bwd": ("window_chunked_bwd", "egogaussian_tpu_torch/csrc/window_chunked_bwd.cu",
+                           "egogaussian_tpu/render/pallas_raster.py:295"),
+    "window_fwd": ("window_fwd", "egogaussian_tpu_torch/csrc/window_fwd.cu",
+                   "egogaussian_tpu/render/pallas_raster.py:105"),
+    "window_bwd": ("window_bwd", "egogaussian_tpu_torch/csrc/window_bwd.cu",
+                   "egogaussian_tpu/render/pallas_raster.py:133"),
 }
-# the path whose launch counts the kernels line reports for each kernel
+# the path whose launch counts the kernels line reports for each kernel (per
+# D where they differ: evaluation renders images only, the tiled step's
+# label mode runs the D = 1 forward)
 PATH_OF = {"fwd": "slice", "bwd": "slice", "bwd_exact": "coarse", "stream_fwd": "coarse",
-           "stream_bwd": "coarse"}
+           "stream_bwd": "coarse", "window_chunked_fwd": {3: "eval", 1: "tiled_step"},
+           "window_chunked_bwd": "tiled_step", "window_fwd": "entry", "window_bwd": "entry"}
 
 
 def main(argv=None) -> int:
@@ -951,21 +1485,48 @@ def main(argv=None) -> int:
     fr = flavor_frame(dev, vid, seq, model, dyn, ccfg)
     phase_flavors(model, ccfg, fr)
     path_launches["coarse"] = launch_counts()
-    emit("launches", **path_launches)
-    # the kernels against their twins at path 2's own shapes
+    # path 3: stage-6 evaluation (the eval CLI, then every frame at full
+    # width through the tiled backend)
+    reset_launch_counts()
+    eval_model, eval_seq, buckets = phase_eval(dev, vid, extent, slice_model, seq, out_dir)
+    path_launches["eval"] = launch_counts()
+    # the tiled backend's train step (the chunked windowed backward)
+    reset_launch_counts()
+    phase_tiled_step(dev, vid, extent)
+    path_launches["tiled_step"] = launch_counts()
+    # path 4: the simple windowed pair through make_tile_compositor
+    reset_launch_counts()
+    entry = phase_entry(eval_model, vid.cameras[0])
+    path_launches["entry"] = launch_counts()
+    frames = 2 * len(vid.cameras)  # the eval CLI's frames and the full-width frames
+    # per mode (std: D = 3, label: D = 1) and backend: the gradient check
+    # and the steps
+    steps = TILED_STEPS + 1
+    emit("launches", **path_launches,
+         per_eval_frame={k: n / frames for k, n in path_launches["eval"].items() if n},
+         per_tiled_step={k: n / steps for k, n in path_launches["tiled_step"].items() if n})
+    # checks after the paths' counts are read: path 3's frames against the
+    # cuda backend, path 4 against the twins and the chunked pair, every
+    # kernel against its twin at path 2's own shapes
+    compare_eval_frames(vid, eval_model, eval_seq, buckets)
+    check_entry(entry, vid.cameras[0], errs)
     phase_frame_kernels(model, fr, errs)
-    times = phase_timing(dev, vid, extent, errs)
+    times, bounds = phase_timing(dev, vid, extent, errs)
     phase_profile(dev, vid, extent, out_dir)
 
     table = []
     for key, (stem, src, replaces) in KERNELS.items():
         for d in (3, 1):
             name = f"{stem}_d{d}"
+            path = PATH_OF[key][d] if isinstance(PATH_OF[key], dict) else PATH_OF[key]
             table.append({
                 "name": name, "route": "cuda", "source": src, "replaces": replaces,
-                "launches": path_launches[PATH_OF[key]][name],
+                "launches": path_launches[path][name],
                 "max_abs_err": max(errs[(key, d)]),
                 "ms": times[(key, d)][0], "plain_ms": times[(key, d)][1],
+                "bound_ms": bounds[(key, d)][0], "bound_by": bounds[(key, d)][1],
+                # no single PyTorch call composites Gaussians
+                "library_ms": None,
             })
     missing = [k["name"] for k in table if k["launches"] <= 0]
     if missing:

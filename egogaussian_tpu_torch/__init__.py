@@ -8,16 +8,20 @@ reference every module here is tested against. This package imports
 Layer map:
   ops/       tensor math (quaternion, covariance, 6D rotation, SE(3), SH,
              losses, exact kNN)
-  render/    projection, tile binning, chunk-padded pair layouts, crop
-             windows and the two compositor kernel pairs: tile-grid
-             (render/cuda_raster.py) and stream (render/stream_raster.py),
-             CUDA kernels in csrc/ with plain twins beside them; plus the
-             all-pairs oracle
+  render/    projection, tile binning, the per-tile gather window and the
+             chunk-padded pair layouts, crop windows and the compositor
+             kernel pairs: tile-grid (render/cuda_raster.py), stream
+             (render/stream_raster.py) and windowed, chunked and simple
+             (render/window_raster.py), CUDA kernels in csrc/ with plain
+             twins beside them; plus the all-pairs oracle
   models/    Gaussian model as a capacity + alive-mask dataclass of
              tensors; densify/prune; Adam with moment surgery; object
              pose and pose sequences
-  data/      frame batches with uint8 planes, synthetic video
+  data/      COLMAP files and scene loading, frame batches with uint8
+             planes, synthetic video and its export as a dataset
   train/     stage-1.0 static training, stage-2 coarse object pose
+  eval/      stage-6 evaluation: render_results, hand-masked metrics, LPIPS
+  cli/       the eval entry point (python -m egogaussian_tpu_torch.cli.eval)
 """
 
 __version__ = "0.1.0"

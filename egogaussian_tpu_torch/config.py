@@ -14,7 +14,7 @@ with a leading underscore.
 
 PyTorch port: a copy of `egogaussian_tpu/config.py` (it imports no JAX),
 with `data_device` set back to the reference default "cuda" and the render
-backend names of the port (auto | oracle | cuda).
+backend names of the port (auto | oracle | tiled | cuda).
 """
 from __future__ import annotations
 
@@ -181,7 +181,7 @@ class RenderParams:
     """Build additions: rasterizer backend + capacity knobs (no reference
     twin — the reference CUDA rasterizer had no exposed tuning)."""
 
-    backend: str = "auto"  # auto | oracle | cuda
+    backend: str = "auto"  # auto | oracle | tiled | cuda
     tile_size: int = 32
     max_per_tile: int = 1024
     pairs_per_gaussian: int = 16

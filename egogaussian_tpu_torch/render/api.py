@@ -7,9 +7,12 @@ the reference's `viewspace_points.grad`).
 
 Backends:
   "oracle": all-pairs compositor in plain torch autograd (small scenes)
-  "cuda":   tile binning + chunk-padded layout + the tile-grid kernel pair
-            (plain twins for CPU tensors)
-  "auto":   "cuda" when a tile config is given, else "oracle"
+  "tiled":  tile binning + per-tile gather window + the chunked windowed
+            kernel pair (the JAX "tiled" backend; plain twins for CPU
+            tensors)
+  "cuda":   tile binning + chunk-padded layout + the tile-grid or stream
+            kernel pair (the JAX "pallas" backend)
+  "auto":   "cuda" when a tile config is given, else "tiled", as in JAX
 """
 from __future__ import annotations
 
@@ -39,8 +42,10 @@ class RenderResult(NamedTuple):
 
 
 def resolve_backend(backend: str, tile_config) -> str:
+    """"auto" -> "cuda" with a tile config, else "tiled" (JAX render's
+    "pallas" / "tiled")."""
     if backend == "auto":
-        return "cuda" if tile_config is not None else "oracle"
+        return "cuda" if tile_config is not None else "tiled"
     return backend
 
 
@@ -66,7 +71,7 @@ def render(
     colors_precomp: Optional[torch.Tensor] = None,
     valid_mask: Optional[torch.Tensor] = None,
     means2d_probe: Optional[torch.Tensor] = None,
-    backend: str = "auto",
+    backend: str = "tiled",
     tile_config=None,
     crop_size: Optional[tuple] = None,
     crop_rect: Optional[torch.Tensor] = None,
@@ -80,7 +85,7 @@ def render(
       valid_mask: [N] alive mask (capacity padding rows culled)
       means2d_probe: [N, 2] zeros added to the projected means, so that
         d(loss)/d(probe) is the screen-space gradient for densification
-      backend: "oracle" | "cuda" | "auto"
+      backend: "oracle" | "tiled" | "cuda" | "auto"
       crop_size: optional (crop_w, crop_h): composite only a window of that
         size, placed on the device over (splat reach | crop_rect) every
         call (render/crop.py). Projection, radii and probe gradients stay
@@ -129,6 +134,11 @@ def render(
 
     if backend == "oracle":
         out = composite_oracle(proj, colors, opacities, bg, comp_w, comp_h)
+    elif backend == "tiled":
+        from egogaussian_tpu_torch.render.tiled import composite_tiled
+
+        out = composite_tiled(proj, colors, opacities, bg, comp_w, comp_h,
+                              config=tile_config)
     elif backend == "cuda":
         from egogaussian_tpu_torch.render.tiled import composite_cuda
 
@@ -156,7 +166,7 @@ def render_label(
     opacities: torch.Tensor,
     labels: torch.Tensor,
     valid_mask: Optional[torch.Tensor] = None,
-    backend: str = "auto",
+    backend: str = "tiled",
     tile_config=None,
 ) -> torch.Tensor:
     """Render the per-Gaussian scalar label as a 1-channel image with the

@@ -1,5 +1,6 @@
 """The tile-grid compositor: CUDA kernels, plain PyTorch twins, autograd;
-and the build of the kernel library that every compositor shares.
+and the build of the kernel library that every compositor shares (the
+tile-grid, stream and windowed kernels of `egogaussian_tpu_torch/csrc/`).
 
 Port of the tile-grid half of `egogaussian_tpu/render/pallas_raster.py`
 (`make_tilegrid_compositor`, `_tilegrid_fwd_kernel`, `_tilegrid_bwd_kernel`
@@ -47,9 +48,11 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 _SOURCES = ("tilegrid_common.cuh", "tilegrid_fwd.cu", "tilegrid_bwd.cu",
-            "stream_fwd.cu", "stream_bwd.cu")
+            "stream_fwd.cu", "stream_bwd.cu", "window_chunked_fwd.cu",
+            "window_chunked_bwd.cu", "window_fwd.cu", "window_bwd.cu")
+# compile flags of each source; the objects are then linked with -shared
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def ch16_of(d: int) -> int:
@@ -92,13 +95,29 @@ def build_library() -> Tuple[str, str]:
         with open(log_path) as f:
             return out, f.read()
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _find_nvcc()
     tmp = out + f".tmp{os.getpid()}"
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", tmp] + [
-        os.path.join(CSRC_DIR, s) for s in _SOURCES if s.endswith(".cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+    # one nvcc per source, all started together, then one link
+    objs, procs = [], []
+    for s in _SOURCES:
+        if s.endswith(".cu"):
+            objs.append(f"{tmp}.{s[:-3]}.o")
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC_DIR, s), "-o", objs[-1]],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    failed = [p.returncode for p in procs if p.returncode != 0]
+    if not failed:
+        res = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True,
+                             text=True)
+        log += res.stdout + res.stderr
+        failed = [res.returncode] if res.returncode != 0 else []
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
     with open(log_path, "w") as f:
         f.write(log)
     os.replace(tmp, out)
@@ -119,6 +138,14 @@ def kernel_library() -> ctypes.CDLL:
     lib.egogs_stream_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
     lib.egogs_stream_bwd.restype = i
     lib.egogs_stream_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.egogs_window_chunked_fwd.restype = i
+    lib.egogs_window_chunked_fwd.argtypes = [p] * 7 + [i] * 5 + [p]
+    lib.egogs_window_chunked_bwd.restype = i
+    lib.egogs_window_chunked_bwd.argtypes = [p] * 8 + [i] * 5 + [p]
+    lib.egogs_window_fwd.restype = i
+    lib.egogs_window_fwd.argtypes = [p] * 9 + [i] * 5 + [p]
+    lib.egogs_window_bwd.restype = i
+    lib.egogs_window_bwd.argtypes = [p] * 14 + [i] * 5 + [p]
     return lib
 
 

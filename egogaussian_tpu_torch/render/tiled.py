@@ -1,18 +1,24 @@
-"""Tile binning and the chunk-padded pair layout of the tile-grid compositor.
+"""Tile binning, the per-tile gather window and the chunk-padded pair
+layouts of the binned compositors.
 
-Port of the main-path parts of `egogaussian_tpu/render/tiled.py`:
+Port of `egogaussian_tpu/render/tiled.py`:
 
   1. depth-sort Gaussians (stable, so order within a tile == depth order)
   2. exact pair expansion: each Gaussian emits one pair per overlapped tile,
      with the opacity-aware AABB and the exact conic-vs-tile-rectangle cull
      (both output-identical: culled pairs would only ever get alpha < 1/255)
   3. sort pairs by (tile id, depth rank); per-tile ranges by searchsorted
-  4. lay each tile's run out padded to 128-pair chunks and composite with
-     one of two kernel flavors, chosen by TileConfig.compositor:
-       "tilegrid": per-tile meta, chunks transposed ([n_slots, ch16, 128]),
-         the tile-grid kernel pair (render/cuda_raster.py)
-       "stream": per-slot meta, pairs row-major ([n_slots*128, 7+D]), the
-         stream kernel pair (render/stream_raster.py)
+  4. composite, on one of two layouts:
+       the per-tile gather window [T, M] of `bin_gaussians` (backend
+         "tiled", `composite_tiled`): the chunked windowed kernel pair
+         (render/window_raster.py)
+       each tile's run padded to 128-pair chunks (backend "cuda",
+         `composite_cuda`), with one of two kernel flavors chosen by
+         TileConfig.compositor:
+         "tilegrid": per-tile meta, chunks transposed ([n_slots, ch16, 128]),
+           the tile-grid kernel pair (render/cuda_raster.py)
+         "stream": per-slot meta, pairs row-major ([n_slots*128, 7+D]), the
+           stream kernel pair (render/stream_raster.py)
 
 Every static capacity that can lose a pair counts it in `dropped`; nothing
 is dropped silently. Scatters that JAX writes with mode="drop" use a buffer
@@ -38,15 +44,18 @@ COMPOSITORS = ("tilegrid", "stream")
 @dataclasses.dataclass(frozen=True)
 class TileConfig:
     """Binning capacities and kernel flavors, with the JAX package's
-    TileConfig meanings. `mxu_accum` keeps its meaning (accumulate each
-    chunk as one matmul); on the card both settings accumulate with float32
-    FMAs, because tensor cores in TF32 would break the error bounds the
-    kernels are held to. The JAX-only `scatter_layout` (an XLA layout
-    choice with no kernel of its own) is not ported."""
+    TileConfig meanings. `map_batch` is the number of tiles per batch of
+    the tiled backend's CPU twins (on the card the kernel takes every tile
+    in one launch). `mxu_accum` keeps its meaning (accumulate each chunk as
+    one matmul); on the card both settings accumulate with float32 FMAs,
+    because tensor cores in TF32 would break the error bounds the kernels
+    are held to. The JAX-only `scatter_layout` (an XLA layout choice with
+    no kernel of its own) is not ported."""
 
     tile_size: int = 16
     max_pairs: Optional[int] = None  # default 16 * N
     max_per_tile: int = 1024
+    map_batch: int = 64  # tiles per batch of the tiled backend's CPU twins
     # chunk-slot capacity of the padded layout; defaults to max_pairs
     max_slots: Optional[int] = None
     # compositor kernel pair: "tilegrid" (one block per tile) or "stream"
@@ -305,6 +314,104 @@ def bin_pairs(
     return order, g_sorted, tile_sorted, starts, tile_cnt, dropped, (n_tx, n_ty)
 
 
+def _tile_gather(starts, g_sorted, rows: int, max_pairs: int) -> torch.Tensor:
+    """[n_tiles, rows] depth-sorted Gaussian index of each tile's window row:
+    pair starts[t] + r, clipped at the last pair slot."""
+    r = torch.arange(rows, dtype=torch.int64, device=starts.device)
+    return g_sorted[torch.clamp(starts[:, None] + r[None, :], 0, max_pairs - 1)]
+
+
+def bin_gaussians(
+    proj: ProjectedGaussians, width: int, height: int, config: TileConfig,
+    opacities: Optional[torch.Tensor] = None,
+):
+    """Per-tile gather-window view of bin_pairs (port of the JAX
+    bin_gaussians, index for index).
+
+    Returns:
+      order: [N] depth-sort permutation
+      tile_gather: [n_tiles, max_per_tile] indices into depth-sorted arrays
+      tile_mask: [n_tiles, max_per_tile] bool validity
+      dropped, (n_tx, n_ty)
+    """
+    order, g_sorted, _, starts, tile_cnt, dropped, dims = bin_pairs(
+        proj, width, height, config, opacities=opacities
+    )
+    with torch.no_grad():
+        tile_gather = _tile_gather(starts, g_sorted, config.max_per_tile, config.max_pairs)
+        m_idx = torch.arange(config.max_per_tile, device=tile_cnt.device)
+        tile_mask = m_idx[None, :] < tile_cnt[:, None]
+    return order, tile_gather, tile_mask, dropped, dims
+
+
+class WindowLayout(NamedTuple):
+    """Inputs of the chunked windowed compositor for one render."""
+
+    counts: torch.Tensor  # [T] int32 pairs per tile (clamped to max_per_tile)
+    data: torch.Tensor  # [T, M', 7+D] float32 (differentiable), M' % 128 == 0
+    dropped: torch.Tensor
+    n_tx: int
+    n_ty: int
+    tile_size: int
+    map_batch: int
+
+
+def window_layout(
+    proj: ProjectedGaussians,
+    colors: torch.Tensor,
+    opacities: torch.Tensor,
+    width: int,
+    height: int,
+    config: Optional[TileConfig] = None,
+) -> WindowLayout:
+    """The per-tile gather window of the tiled backend: counts = tile_cnt
+    and data = packed[order][tile_gather], with the window widened from
+    max_per_tile to M', the next multiple of 128 (the chunked kernel's
+    unit). Rows at or past a tile's count are masked inside the kernel, so
+    the widening changes nothing. The gather runs in torch, so its
+    backward (index_add back to the Gaussians) is autograd's."""
+    n = proj.depths.shape[0]
+    ts = (config or TileConfig()).tile_size
+    n_tiles0 = (-(-width // ts)) * (-(-height // ts))
+    config = _default_config(n, config, n_tiles0)
+    order, g_sorted, _, starts, tile_cnt, dropped, (n_tx, n_ty) = bin_pairs(
+        proj, width, height, config, opacities=opacities
+    )
+    m_pad = -(-config.max_per_tile // CHUNK) * CHUNK
+    with torch.no_grad():
+        src = order[_tile_gather(starts, g_sorted, m_pad, config.max_pairs)]
+    data = _packed_rows(proj, colors, opacities)[src]
+    return WindowLayout(tile_cnt.to(torch.int32), data, dropped, n_tx, n_ty, ts,
+                        config.map_batch)
+
+
+def composite_tiled(
+    proj: ProjectedGaussians,
+    colors: torch.Tensor,
+    opacities: torch.Tensor,
+    bg: torch.Tensor,
+    width: int,
+    height: int,
+    config: Optional[TileConfig] = None,
+) -> RenderOutput:
+    """Tiled front-to-back compositing (the JAX composite_tiled's semantics):
+    the gather window of every tile composited by the chunked windowed
+    kernel pair. Every tile is written (an empty one is bg)."""
+    from egogaussian_tpu_torch.render.window_raster import WindowChunkedCompositor
+
+    lay = window_layout(proj, colors, opacities, width, height, config)
+    img_t, alpha_t, depth_t = WindowChunkedCompositor.apply(
+        lay.counts, lay.data, bg[None, :].contiguous(), lay.tile_size, lay.n_tx, lay.map_batch)
+    ts, n_tx, n_ty = lay.tile_size, lay.n_tx, lay.n_ty
+    return RenderOutput(
+        image=_untile(img_t, n_tx, n_ty, ts, width, height),
+        alpha=_untile(alpha_t, n_tx, n_ty, ts, width, height),
+        depth=_untile(depth_t, n_tx, n_ty, ts, width, height),
+        radii=proj.radii,
+        dropped_pairs=lay.dropped,
+    )
+
+
 def _untile(x: torch.Tensor, n_tx: int, n_ty: int, ts: int, width: int, height: int):
     """[n_tiles, P, C] -> [C, H, W], cropping tile padding."""
     c = x.shape[-1]
@@ -479,7 +586,8 @@ def composite_cuda(
     config: Optional[TileConfig] = None,
 ) -> RenderOutput:
     """Same semantics as the oracle, composited by the kernel pair that
-    config.compositor names over its chunk-padded layout."""
+    config.compositor names over its chunk-padded layout (the JAX
+    composite_pallas)."""
     config = config or TileConfig()
     if config.compositor == "stream":
         from egogaussian_tpu_torch.render.stream_raster import StreamCompositor

@@ -112,7 +112,7 @@ def pose_loss_grads(
     lambda_dssim: float = 0.1,
     lambda_l1_alpha: float = 0.0,
     lambda_l2_alpha: float = 0.5,
-    backend: str = "auto",
+    backend: str = "tiled",
     tile_config=None,
     grad_params: bool = True,
     crop_size=None,
@@ -200,7 +200,7 @@ def pose_step(
     lambda_dssim: float = 0.1,
     lambda_l1_alpha: float = 0.0,
     lambda_l2_alpha: float = 0.5,
-    backend: str = "auto",
+    backend: str = "tiled",
     tile_config=None,
     grad_params: bool = True,
     param_grad_gate: Optional[float] = None,
@@ -306,7 +306,7 @@ def coarse_step(
     count_advance: int = 0,
     opt_cfg=None,
     coarse_cfg=None,
-    backend: str = "auto",
+    backend: str = "tiled",
     tile_config=None,
     crop_size=None,
     crop_max=0,

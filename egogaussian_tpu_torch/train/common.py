@@ -63,7 +63,7 @@ def render_gaussians(
     which_object: int = 1,
     means2d_probe=None,
     colors_override=None,
-    backend: str = "auto",
+    backend: str = "tiled",
     tile_config=None,
     crop_size=None,
     crop_rect=None,
@@ -100,8 +100,9 @@ def render_gaussians(
 
 
 def pick_backend(tile_config, backend: str = "auto") -> str:
-    """Resolve backend="auto": the tile-grid kernels ("cuda") whenever
-    binning capacities are known (tile_config present), else the oracle."""
+    """Resolve backend="auto": the chunk-padded kernels ("cuda") whenever
+    binning capacities are known (tile_config present), else the tiled
+    backend, as in JAX."""
     return resolve_backend(backend, tile_config)
 
 
@@ -245,7 +246,7 @@ def maybe_grow_crop(crop_size, crop_out_max, last_crop_out, batch, stage: str):
     return (cw, ch), 0, True
 
 
-def render_label_image(model: GaussianModel, camera: Camera, backend: str = "auto",
+def render_label_image(model: GaussianModel, camera: Camera, backend: str = "tiled",
                        tile_config=None) -> torch.Tensor:
     """[1, H, W] label rendering with detached geometry (reference
     get_render_label, render_helper.py:38-64)."""

@@ -128,7 +128,7 @@ def _static_lr_tree(model, it, opt_cfg, mode, label_lr):
 
 
 def _static_step(model, opt_state, batch, fidxs, grad_masks, it, drop_max,
-                 mode="std", lambda_dssim=0.2, backend="auto", tile_config=None,
+                 mode="std", lambda_dssim=0.2, backend="tiled", tile_config=None,
                  bg_color=None, opt_cfg=None, label_lr=0.0):
     """One training iteration over frames `fidxs` (a list of K indices; the
     photometric gradient is the mean over them). mode in {std, entropy,

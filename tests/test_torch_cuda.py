@@ -1,6 +1,7 @@
 """The compositor CUDA kernels (tile-grid forward, both tile-grid backward
-flavors, the stream pair) against their plain twins and the oracle, on the
-card. Marked `cuda`; without a CUDA device every test skips.
+flavors, the stream pair, the chunked and simple windowed pairs) against
+their plain twins and the oracle, on the card. Marked `cuda`; without a
+CUDA device every test skips.
 
 On a machine with a GPU (no JAX needed there):
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py
@@ -17,9 +18,15 @@ import torch
 from egogaussian_tpu_torch.ops.covariance import covariance_from_scaling_rotation
 from egogaussian_tpu_torch.render import cuda_raster as cr
 from egogaussian_tpu_torch.render import stream_raster as sr
+from egogaussian_tpu_torch.render import window_raster as wr
 from egogaussian_tpu_torch.render.api import render
 from egogaussian_tpu_torch.render.camera import Camera, look_at
-from egogaussian_tpu_torch.render.tiled import TileConfig, stream_layout, tilegrid_layout
+from egogaussian_tpu_torch.render.tiled import (
+    TileConfig,
+    stream_layout,
+    tilegrid_layout,
+    window_layout,
+)
 from egogaussian_tpu_torch.render.project import project_gaussians
 
 pytestmark = pytest.mark.cuda
@@ -172,13 +179,37 @@ def test_stream_kernels_match_twins(dev, d, tile_size):
     assert sr.StreamCompositor.bwd_launches[d] == 1
 
 
-@pytest.mark.parametrize("flavor", ["exact_total", "stream"])
+def _window_split(lay):
+    """The simple windowed pair's five inputs from a chunked window, op
+    zeroed at and past each tile's count."""
+    data = lay.data.detach()
+    d = data.shape[2] - 7
+    rows = torch.arange(data.shape[1], device=data.device)
+    live = (rows[None, :] < lay.counts[:, None].long())[..., None]
+    op = torch.where(live, data[..., 5:6], torch.zeros_like(data[..., 5:6]))
+    return [x.contiguous() for x in (data[..., 0:2], data[..., 2:5], op, data[..., 6:6 + d],
+                                     data[..., 6 + d:7 + d])]
+
+
+@pytest.mark.parametrize("flavor", ["exact_total", "stream", "window_chunked", "window"])
 def test_new_backwards_repeat_bit_for_bit(dev, flavor):
     """Fixed-order reductions, no float atomics: two runs are identical."""
     means, cov3d, colors, ops = _scene(dev, n=400, seed=3)
     proj = _project(dev, means, cov3d)
     bg = torch.zeros((1, 3), device=dev)
-    if flavor == "stream":
+    if flavor.startswith("window"):
+        lay = window_layout(proj, colors, ops, W, H, TileConfig(max_pairs=16384, tile_size=16))
+        data = lay.data.detach().contiguous()
+        out = wr.window_chunked_forward(lay.counts, data, bg, 16, lay.n_tx)
+        cots = [torch.ones_like(o) for o in out[:3]]
+        if flavor == "window_chunked":
+            a, b = (wr.window_chunked_backward(lay.counts, data, bg, out[3], *cots, 16,
+                                               lay.n_tx) for _ in range(2))
+        else:
+            parts = _window_split(lay)
+            a, b = (torch.cat(wr.window_backward(*parts, bg, *cots, 16, lay.n_tx), dim=2)
+                    for _ in range(2))
+    elif flavor == "stream":
         lay = stream_layout(proj, colors, ops, W, H,
                             TileConfig(max_pairs=16384, tile_size=16, compositor="stream"))
         vals = lay.vals.detach().contiguous()
@@ -242,3 +273,71 @@ def test_flavor_render_grads_match_oracle(dev, flavor):
         assert sr.StreamCompositor.fwd_launches[3] == sr.StreamCompositor.bwd_launches[3] == 1
     else:
         assert cr.TileGridCompositor.bwd_exact_launches[3] == 1
+
+
+@pytest.mark.parametrize("tile_size", [16, 32])
+@pytest.mark.parametrize("d", [3, 1])
+def test_window_kernels_match_twins(dev, d, tile_size):
+    """The four windowed kernels against their twins on one window (tiles
+    up to ~200 rows deep, so a tile spans two 128-row chunks), each counted
+    once; the simple pair against the chunked pair."""
+    means, cov3d, colors, ops = _scene(dev, n=300, seed=8)
+    lay = window_layout(_project(dev, means, cov3d), colors[:, :d], ops, W, H,
+                        TileConfig(max_pairs=16384, max_per_tile=300, tile_size=tile_size))
+    counts, data = lay.counts, lay.data.detach().contiguous()
+    assert data.shape[1] == 384
+    bg = torch.rand((1, d), device=dev)
+    wr.WindowChunkedCompositor.reset_launch_counts()
+    wr.WindowCompositor.reset_launch_counts()
+    k_out = wr.window_chunked_forward(counts, data, bg, tile_size, lay.n_tx)
+    p_out = wr.composite_window_chunked_plain_fwd(counts, data, bg, tile_size, lay.n_tx)
+    for k, p, tol in zip(k_out, p_out, (3e-4, 3e-4, 3e-3, 3e-4)):
+        torch.testing.assert_close(k, p, atol=tol, rtol=0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cots = [torch.randn(o.shape, generator=gen, device=dev) * 1e-2 for o in p_out[:3]]
+    k_d = wr.window_chunked_backward(counts, data, bg, p_out[3], *cots, tile_size, lay.n_tx)
+    p_d = wr.composite_window_chunked_plain_bwd(counts, data, bg, p_out[3], *cots, tile_size,
+                                                lay.n_tx)
+    torch.testing.assert_close(k_d, p_d, atol=2e-4, rtol=1e-3)
+    parts = _window_split(lay)
+    ks_out = wr.window_forward(*parts, bg, tile_size, lay.n_tx)
+    ps_out = wr.composite_window_plain_fwd(*parts, bg, tile_size, lay.n_tx)
+    for k, p, c, tol in zip(ks_out, ps_out, k_out, (3e-4, 3e-4, 3e-3)):
+        torch.testing.assert_close(k, p, atol=tol, rtol=0)
+        torch.testing.assert_close(k, c, atol=tol, rtol=0)
+    ks_d = torch.cat(wr.window_backward(*parts, bg, *cots, tile_size, lay.n_tx), dim=2)
+    ps_d = torch.cat(wr.composite_window_plain_bwd(*parts, bg, *cots, tile_size, lay.n_tx),
+                     dim=2)
+    torch.testing.assert_close(ks_d, ps_d, atol=2e-4, rtol=1e-3)
+    torch.testing.assert_close(ks_d, k_d, atol=2e-4, rtol=1e-3)
+    torch.cuda.synchronize()
+    assert wr.WindowChunkedCompositor.fwd_launches[d] == wr.WindowCompositor.fwd_launches[d] == 1
+    assert wr.WindowChunkedCompositor.bwd_launches[d] == wr.WindowCompositor.bwd_launches[d] == 1
+
+
+def test_tiled_render_matches_oracle(dev):
+    """render(backend="tiled") (the chunked windowed kernels) against the
+    oracle: forward and gradients of the JAX suite's test loss."""
+    means, cov3d, colors, ops = _scene(dev, seed=16)
+    cam = _camera(dev)
+    bg = torch.tensor([0.3, 0.2, 0.1], device=dev)
+    target = torch.rand((3, H, W), generator=torch.Generator(device=dev).manual_seed(17),
+                        device=dev)
+
+    def run(backend):
+        args = [x.clone().requires_grad_(True) for x in (means, colors, ops)]
+        r = render(cam, args[0], cov3d, args[2], bg, colors_precomp=args[1], backend=backend)
+        loss = (torch.mean((r.image - target) ** 2) + 0.3 * torch.mean(r.alpha)
+                + 0.1 * torch.mean(r.depth))
+        return r, torch.autograd.grad(loss, args)
+
+    wr.WindowChunkedCompositor.reset_launch_counts()
+    rk, gk = run("tiled")
+    ro, go = run("oracle")
+    for f, tol in (("image", 3e-4), ("alpha", 3e-4), ("depth", 3e-3)):
+        torch.testing.assert_close(getattr(rk, f), getattr(ro, f), atol=tol, rtol=0)
+    for a, b in zip(gk, go):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=1e-3)
+    torch.cuda.synchronize()
+    assert wr.WindowChunkedCompositor.fwd_launches[3] == 1
+    assert wr.WindowChunkedCompositor.bwd_launches[3] == 1

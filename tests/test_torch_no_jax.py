@@ -32,7 +32,14 @@ def test_port_modules_found():
                      "egogaussian_tpu_torch.models.pose",
                      "egogaussian_tpu_torch.ops.se3",
                      "egogaussian_tpu_torch.ops.rotation6d",
-                     "egogaussian_tpu_torch.train.coarse_pose"):
+                     "egogaussian_tpu_torch.train.coarse_pose",
+                     "egogaussian_tpu_torch.render.window_raster",
+                     "egogaussian_tpu_torch.eval.metrics",
+                     "egogaussian_tpu_torch.eval.lpips",
+                     "egogaussian_tpu_torch.eval.render_results",
+                     "egogaussian_tpu_torch.data.colmap",
+                     "egogaussian_tpu_torch.data.export_colmap",
+                     "egogaussian_tpu_torch.cli.eval"):
         assert expected in names
 
 

@@ -140,3 +140,29 @@ def test_port_trains_through_two_densify_intervals(tmp_path):
     for name in ("static_phase0.ply", "static_phase0_obj.ply", "static_phase0_bg.ply"):
         assert os.path.getsize(tmp_path / "ply" / name) > 0
     assert len(os.listdir(tmp_path / "obj_masks")) == len(groups[0])
+
+
+def test_train_static_tiled_backend_matches_cuda():
+    """train_static(backend="tiled") (the JAX package's `--backend tiled`)
+    runs the windowed twins with the auto tile config and lands where the
+    default ("auto" -> "cuda", held against JAX above) lands, with the same
+    tolerances: the two compositors differ by float32 reassociation only."""
+    vid = make_synthetic_video(CPU, width=64, height=48, n_bg=150, n_obj=40,
+                               frames_static=4, frames_dynamic=3)
+    groups = split_viewpoints_by_phase(vid.cameras, vid.static_phases)
+    cfg = _schedule(Config())
+    rc = train_static(vid.cameras, vid.points, vid.colors, cfg, groups, 4.0,
+                      first_phase_only=True, device=CPU)[0]
+    rt = train_static(vid.cameras, vid.points, vid.colors, cfg, groups, 4.0,
+                      first_phase_only=True, device=CPU, backend="tiled")[0]
+    np.testing.assert_array_equal(rt.model.aux.alive.numpy(), rc.model.aux.alive.numpy())
+    iters = 22
+    tol = dict(xyz=1e-5, features_dc=1e-5, log_scales=1e-4, opacity_logit=1e-4, label=1e-5,
+               quats=cfg.opt.rotation_lr * iters)
+    for f, atol in tol.items():
+        np.testing.assert_allclose(getattr(rt.model.params, f).numpy(),
+                                   getattr(rc.model.params, f).numpy(), atol=atol, rtol=0,
+                                   err_msg=f)
+    assert rt.dropped_pairs == rc.dropped_pairs == 0
+    for k in rc.pred_masks:
+        np.testing.assert_array_equal(rt.pred_masks[k], rc.pred_masks[k], err_msg=k)
