@@ -8,17 +8,21 @@ nonzero and no result line is printed):
   1. device:  requires CUDA; prints the card (nvidia-smi name, power limit)
   2. build:   compiles the nine compositor kernels (tile-grid forward, the
               tile-grid backward in both flavors, the stream pair, the
-              chunked and simple windowed pairs) from
+              chunked and simple windowed pairs) and the FMA-peak probe from
               egogaussian_tpu_torch/csrc, one nvcc per source in parallel,
               into one library
   3. kernels: each kernel against its plain PyTorch twin on the card, at
               D = 3 and 1, tile sizes 16 and 32, on three scenes (60
               Gaussians at 48x32, 2k at 256x192, a kNN-init deep-tile scene
               at 320x240); the exact-total backward also against the
-              default one; the simple windowed pair also against the
-              chunked one, and both windowed backwards twice, bit for bit;
-              the cuda render (tile-grid and stream) against the oracle;
-              the exact-total render's gradients within 5e-6
+              default one; the tile-grid kernels against themselves with
+              the per-warp cull compiled out and both backwards twice, bit
+              for bit; a hand-made layout that pins the tile-wide
+              saturation vote (quadrant_scene); the simple windowed pair
+              also against the chunked one, and both windowed backwards
+              twice, bit for bit; the cuda render (tile-grid and stream)
+              against the oracle; the exact-total render's gradients
+              within 5e-6
   4. slice:   (path 1) stage-1.0 static training (train_static) on a
               640x480 synthetic video with ~100k Gaussians, shortened
               schedule; launch counters must show the tile-grid kernels
@@ -43,14 +47,19 @@ nonzero and no result line is printed):
   9. entry:   (path 4) the simple windowed pair through
               make_tile_compositor, forward and backward, on the full-frame
               windows of that model at frame 0 (D = 3 and 1)
- 10. checks after the paths: path 3's frames against backend="cuda"
+ 10. peak:    (row 10's path) the card's float32 FMA rate through
+              utils/peak.py:fma_peak_gflops, beside the published 67 TFLOP/s
+ 11. checks after the paths: path 3's frames against backend="cuda"
               (DEEP_FWD_TOL, 0 dropped pairs), path 4 against the twins and
               the chunked pair, every kernel against its twin at path 2's
-              own shapes
- 11. timing:  kernel vs plain twin (CUDA events) at the slice's shapes, and
-              each kernel's bound (bytes over HBM rate or operations over
-              the float32 peak, whichever is larger) on the same inputs
- 12. profile: torch.profiler over std-mode steps at the slice's size:
+              own shapes, the FMA chain against its twin
+ 12. timing:  kernel vs plain twin (CUDA events) at the slice's shapes
+              (rows 1-3 also at 1920x1080), and each kernel's bound (bytes
+              over the HBM rate or instructions over the float32
+              instruction rate, whichever is larger) on the covered
+              evaluations of the same inputs, beside the dense count's
+              bound and the bound at the measured FMA rate
+ 13. profile: torch.profiler over std-mode steps at the slice's size:
               device time by kernel and the device's busy share
               (table in chiprun_out/chip_smoke/profile.txt)
 Launch counters are set to 0 just before each path and read just after.
@@ -118,8 +127,15 @@ FLAVOR_STEPS = 20
 FLAVOR_TOL = 1e-3  # norm-relative gradient error and relative loss error
 
 
+PHASE_LOG = []  # path of the run's phases.jsonl, once main has made out_dir
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    line = json.dumps({"phase": phase, **fields})
+    print(line, flush=True)
+    for path in PHASE_LOG:
+        with open(path, "a") as f:
+            f.write(line + "\n")
 
 
 def nvidia_smi_line() -> str:
@@ -214,13 +230,14 @@ def check_layout(name, lay, colors_d, bg, tol, width, height, errs):
                                 exact_total=True)[:fit]
     k_d0 = cr.tilegrid_backward(meta, vals, bg2, *zeros, gi, ga, gd, ts, n_tx)[:fit]
     flavors_apart = torch.equal(k_e0, k_e) and (fit == 0 or not torch.equal(k_d0, k_d))
-    ok = (all(fwd_err[k] <= tol[k] for k in tol) and flavors_apart
+    same = cull_and_repeat(meta, vals, bg2, k_out, saved, (gi, ga, gd), k_d, k_e, ts, n_tx)
+    ok = (all(fwd_err[k] <= tol[k] for k in tol) and flavors_apart and all(same.values())
           and all(grad_excess(a, b) <= 0.0 for a, b in ((k_d, p_d), (k_e, p_e), (k_e, k_d))))
     depth_max = int(meta[1].max())
     emit("kernel_check", case=name, d=d, tile_size=ts, fwd_err=fwd_err,
          grad_max_abs_err=grad_err, exact_grad_max_abs_err=exact_err,
          exact_vs_default_max_abs_err=flavor_err, exact_ignores_saved_outputs=flavors_apart,
-         grad_scale=float(p_d.abs().max()) if fit else 0.0,
+         bit_identical=same, grad_scale=float(p_d.abs().max()) if fit else 0.0,
          deepest_tile=depth_max, ok=ok)
     if not ok:
         raise AssertionError(f"kernel vs twin out of tolerance: {name} d={d} ts={ts}")
@@ -228,6 +245,122 @@ def check_layout(name, lay, colors_d, bg, tol, width, height, errs):
     errs.setdefault(("bwd", d), []).append(grad_err)
     errs.setdefault(("bwd_exact", d), []).append(exact_err)
     return gi, ga, gd
+
+
+def cull_and_repeat(meta, vals, bg2, k_out, saved, cots, k_d, k_e, ts, n_tx):
+    """The tile-grid kernels' exactness checks on one layout: the forward
+    and both backward flavors against the same kernels with the per-warp
+    cull compiled out (bit for bit), and both backwards run again (bit for
+    bit). k_d, k_e: the default and exact-total gradients of the fitting
+    slots."""
+    import torch
+
+    from egogaussian_tpu_torch.render import cuda_raster as cr
+
+    fit = k_d.shape[0]
+    n_out = cr.tilegrid_forward_nocull(meta, vals, bg2, ts, n_tx)
+    n_d = cr.tilegrid_backward_nocull(meta, vals, bg2, *saved, *cots, ts, n_tx)[:fit]
+    n_e = cr.tilegrid_backward_nocull(meta, vals, bg2, *saved, *cots, ts, n_tx,
+                                      exact_total=True)[:fit]
+    r_d = cr.tilegrid_backward(meta, vals, bg2, *saved, *cots, ts, n_tx)[:fit]
+    r_e = cr.tilegrid_backward(meta, vals, bg2, *saved, *cots, ts, n_tx, exact_total=True)[:fit]
+    return {"fwd_cull_off": all(torch.equal(a, b) for a, b in zip(k_out, n_out)),
+            "bwd_cull_off": torch.equal(k_d, n_d), "bwd_exact_cull_off": torch.equal(k_e, n_e),
+            "bwd_repeat": torch.equal(k_d, r_d), "bwd_exact_repeat": torch.equal(k_e, r_e)}
+
+
+def quadrant_scene(d: int, seed: int = 5):
+    """A hand-made tile-grid layout that pins the tile-wide saturation vote
+    (ts 32, 64x32 pixels, two tiles; float32 numpy):
+      tile 0, chunks 0-1: one steep splat (conic 20, op 1e4: alpha 0.99 at
+        the 4 pixels of its 2x2 block, 0 at every other pixel) per 2x2
+        block of quadrant (0, 0), 4 layers, so that quadrant's T falls to
+        ~1e-8 while the rest of the tile stays at 1. Chunk 2 holds 20
+        splats seen only inside that quadrant and 20 in the lower half. The
+        tile-wide rule composites chunk 2 everywhere, so the first 20 get
+        tiny nonzero gradients; a per-quadrant vote would zero them.
+      tile 1: chunk 0 saturates the whole tile (broad op-1e6 splats on an
+        8-px grid, 8 layers); its chunk 1 (30 pairs) is skipped: zeros.
+    Returns (meta [3, 2] int32, vals [5, ch16, 128], bg [1, D], n_tx, W, H);
+    slots 2 and 4 are the later chunks."""
+    rng = np.random.RandomState(seed)
+    ch16 = ((7 + d) + 7) // 8 * 8
+
+    def rows(mx, my, a, op):
+        n = len(mx)
+        r = np.zeros((n, ch16), np.float32)
+        r[:, 0], r[:, 1], r[:, 2], r[:, 4], r[:, 5] = mx, my, a, a, op
+        r[:, 3] = rng.uniform(-0.1, 0.1, n) * a
+        r[:, 6:6 + d] = rng.rand(n, d)
+        r[:, 6 + d] = rng.uniform(1.0, 5.0, n)
+        return r
+
+    def grid(x0, step, n_side, layers, a, op, x_off=0.0):
+        g = np.arange(n_side) * step + x0
+        mx, my = np.meshgrid(g + x_off, g, indexing="xy")
+        n = n_side * n_side * layers
+        return rows(np.tile(mx.ravel(), layers) + rng.uniform(-0.1, 0.1, n),
+                    np.tile(my.ravel(), layers) + rng.uniform(-0.1, 0.1, n),
+                    np.full(n, a), np.full(n, op))
+
+    def splats(n, x_lo, x_hi, y_lo, y_hi):
+        return rows(rng.uniform(x_lo, x_hi, n), rng.uniform(y_lo, y_hi, n), np.full(n, 0.5),
+                    rng.uniform(0.3, 0.9, n))
+
+    quad = grid(1.0, 2.0, 8, 4, 20.0, 1e4)  # 256 pairs: chunks 0 and 1
+    later0 = np.concatenate([splats(20, 3.0, 10.0, 3.0, 10.0), splats(20, 2.0, 30.0, 20.0, 28.0)])
+    full1 = grid(4.0, 8.0, 4, 8, 0.5, 1e6, x_off=32.0)
+    later1 = splats(30, 34.0, 62.0, 2.0, 30.0)
+    chunks = [quad[:128], quad[128:], later0, full1, later1]
+    vals = np.zeros((len(chunks), ch16, 128), np.float32)
+    for slot, r in enumerate(chunks):
+        vals[slot, :, :len(r)] = r.T
+    meta = np.array([[0, 3], [256 + len(later0), 128 + len(later1)], [5, 5]], np.int32)
+    bg = np.array([[0.2, 0.1, 0.4][:d]], np.float32)
+    return meta, vals, bg, 2, 64, 32
+
+
+def check_quadrant_vote(dev, errs):
+    """The tile-grid kernels on quadrant_scene at D = 3 and 1: outputs and
+    both backward flavors against the twins; the later chunks' gradient
+    rows zero exactly where the twin's are (tile 0's quadrant-only splats
+    nonzero, tile 1's skipped chunk all zeros); cull-off and repeat bit
+    for bit."""
+    import torch
+
+    from egogaussian_tpu_torch.render import cuda_raster as cr
+
+    for d in (3, 1):
+        meta, vals, bg, n_tx, _, _ = (torch.as_tensor(x, device=dev) if isinstance(x, np.ndarray)
+                                      else x for x in quadrant_scene(d))
+        k_out = cr.tilegrid_forward(meta, vals, bg, 32, n_tx)
+        p_out = cr.composite_tilegrid_plain_fwd(meta, vals, bg, 32, n_tx)
+        fwd_err = {k: max_err(a, b) for k, a, b in zip(("image", "alpha", "depth"), k_out, p_out)}
+        gen = torch.Generator(device=dev).manual_seed(3)
+        cots = [torch.randn(x.shape, generator=gen, device=dev) * 1e-3 for x in p_out]
+        saved = [x.detach() for x in p_out]
+        res, grads = {}, {}
+        for exact in (False, True):
+            k_d = cr.tilegrid_backward(meta, vals, bg, *saved, *cots, 32, n_tx, exact_total=exact)
+            p_d = cr.composite_tilegrid_plain_bwd(meta, vals, bg, *saved, *cots, 32, n_tx,
+                                                  exact_total=exact)
+            later = k_d[[2, 4]], p_d[[2, 4]]
+            res["exact" if exact else "default"] = dict(
+                grad_ok=grad_excess(k_d, p_d) <= 0.0, grad_max_abs_err=max_err(k_d, p_d),
+                zero_pattern_equal=torch.equal(later[0] == 0, later[1] == 0),
+                quadrant_rows_nonzero=bool((p_d[2, :7 + d, :20] != 0).any(dim=0).all()),
+                skipped_chunk_zero=bool((k_d[4] == 0).all()))
+            errs.setdefault(("bwd_exact" if exact else "bwd", d), []).append(max_err(k_d, p_d))
+            grads[exact] = k_d
+        same = cull_and_repeat(meta, vals, bg, k_out, saved, cots, grads[False], grads[True], 32,
+                               n_tx)
+        ok = (all(fwd_err[k] <= FWD_TOL[k] for k in FWD_TOL) and all(same.values())
+              and all(v for r in res.values() for k, v in r.items() if k != "grad_max_abs_err"))
+        emit("quadrant_vote_check", d=d, fwd_err=fwd_err, flavors=res, bit_identical=same,
+             ok=ok)
+        if not ok:
+            raise AssertionError(f"quadrant saturation scene: kernel differs from twin (d={d})")
+        errs.setdefault(("fwd", d), []).append(max(fwd_err.values()))
 
 
 def max_err(a, b) -> float:
@@ -433,6 +566,8 @@ def phase_kernels(dev, errs):
                     raise AssertionError(f"{name}: pairs dropped in the check window")
                 check_window(name, wlay, bg, tol, cam.width, cam.height, errs)
 
+    # 0) the tile-wide saturation vote, pinned on a hand-made layout
+    check_quadrant_vote(dev, errs)
     # 1) 60 Gaussians at 48x32 (tests/test_pallas_raster.py:23-36)
     cam = look_at_camera(48, 32, dev)
     means, cov3d, colors, ops = random_scene(60, 11, dev)
@@ -583,7 +718,9 @@ def launch_counts():
     from egogaussian_tpu_torch.render.window_raster import WindowChunkedCompositor as wc
     from egogaussian_tpu_torch.render.window_raster import WindowCompositor as ws
 
-    out = {}
+    from egogaussian_tpu_torch.utils.peak import FmaChain
+
+    out = {"fma_peak": FmaChain.launches}
     for d in (3, 1):
         out[f"tilegrid_fwd_d{d}"] = tg.fwd_launches[d]
         out[f"tilegrid_bwd_d{d}"] = tg.bwd_launches[d]
@@ -601,8 +738,10 @@ def reset_launch_counts():
     from egogaussian_tpu_torch.render.cuda_raster import TileGridCompositor
     from egogaussian_tpu_torch.render.stream_raster import StreamCompositor
     from egogaussian_tpu_torch.render.window_raster import WindowChunkedCompositor, WindowCompositor
+    from egogaussian_tpu_torch.utils.peak import FmaChain
 
-    for fn in (TileGridCompositor, StreamCompositor, WindowChunkedCompositor, WindowCompositor):
+    for fn in (TileGridCompositor, StreamCompositor, WindowChunkedCompositor, WindowCompositor,
+               FmaChain):
         fn.reset_launch_counts()
 
 
@@ -1194,170 +1333,286 @@ def check_entry(results, cam, errs):
             raise AssertionError("make_tile_compositor's autograd path differs from its kernels")
 
 
-# the card's peaks for the bounds (H100 SXM datasheet at 700 W): float32
-# outside the tensor cores, and HBM
-FP32_FLOPS = 67e12
-HBM_BYTES_PER_S = 3.35e12
-CHUNK_ROWS = 128  # pairs per chunk of the padded layouts
+def tilegrid_bounds(d, p, lay, instr_per_s):
+    """Rows 1-3's bounds on one tile-grid layout: {key: (bound_ms, bound_by,
+    dense_bound_ms, bound_ms at the measured rate)}, and the covered and
+    dense evaluation counts. Bytes: the chunks of the pairs the data has,
+    read once (twice for the backward's gradient chunk out), the per-pixel
+    planes."""
+    from egogaussian_tpu_torch.utils.peak import covered_evaluations
 
-
-def ops_per_eval(kind: str, d: int) -> int:
-    """Operations per pair-pixel evaluation, each add, multiply, FMA,
-    compare and transcendental counted as one: the alpha (~12), the
-    transmittance step and weight (~4) and the accumulation (2D + 4) in a
-    forward; a backward adds dL/dw (2D + 2), S and dalpha (~8) and the
-    per-row terms (2D + 20); "bwd2" is a backward with a value-only
-    pre-sweep (exact-total, simple windowed)."""
-    fwd = 20 + 2 * d
-    bwd = fwd + 30 + 4 * d
-    return {"fwd": fwd, "bwd": bwd, "bwd2": bwd + fwd}[kind]
-
-
-def bound(kind, d, pairs, p, n_bytes):
-    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
-    the pair-pixel evaluations' operations over the float32 peak."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = pairs * p * ops_per_eval(kind, d) / FP32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
-def kernel_bounds(d, p, lay, slay, wlay):
-    """Each kernel's bound on this run's layouts: the pairs the data has
-    (counted without the tile-grid's saturation skip) and the bytes each
-    kernel must move (the pair rows it needs read once, per-pixel planes,
-    every gradient row it writes)."""
     f = 4  # bytes per float32
     n_tiles, pp = lay.meta.shape[1], lay.n_tx * lay.n_ty * p
     cnt = lay.meta[1].long()
-    pairs = int(cnt.sum())
+    dense = int(cnt.sum()) * p
+    cov = covered_evaluations(lay.meta, lay.vals, lay.tile_size, lay.n_tx)
     used_slots = int(((cnt + CHUNK_ROWS - 1) // CHUNK_ROWS).sum())
-    ch16, ch = lay.vals.shape[1], 7 + d
-    chunk_bytes = used_slots * CHUNK_ROWS * ch16 * f
-    srow_bytes = used_slots * CHUNK_ROWS * ch * f
+    chunk_bytes = used_slots * CHUNK_ROWS * lay.vals.shape[1] * f
     out_bytes = pp * (d + 2) * f  # img, alpha, depth
+    return {
+        ("fwd", d): bounds_of("fwd", d, cov, dense, 12 * n_tiles + chunk_bytes + out_bytes,
+                              instr_per_s),
+        ("bwd", d): bounds_of("bwd", d, cov, dense, 12 * n_tiles + 2 * chunk_bytes
+                              + 2 * out_bytes, instr_per_s),
+        ("bwd_exact", d): bounds_of("bwd2", d, cov, dense, 12 * n_tiles + 2 * chunk_bytes
+                                    + out_bytes, instr_per_s),
+    }, cov, dense
+
+
+def bounds_of(kind, d, covered, dense, n_bytes, instr_per_s):
+    """(bound_ms on the covered evaluations, bound_by, bound_ms on the dense
+    count, bound_ms on the covered evaluations at the measured rate)."""
+    from egogaussian_tpu_torch.utils.peak import bound
+
+    ms, by = bound(kind, d, covered, n_bytes)
+    return (ms, by, bound(kind, d, dense, n_bytes)[0],
+            bound(kind, d, covered, n_bytes, instr_per_s)[0])
+
+
+def kernel_bounds(d, p, lay, slay, wlay, instr_per_s):
+    """Each kernel's bounds on this run's layouts (tilegrid_bounds for rows
+    1-3): the evaluations the data needs (gated alpha > 0, counted on each
+    layout) and the bytes each kernel must move (the pair rows it needs
+    read once, per-pixel planes, every gradient row it writes)."""
+    from egogaussian_tpu_torch.utils.peak import (
+        covered_evaluations_stream,
+        covered_evaluations_window,
+    )
+
+    f = 4
+    out, cov, dense = tilegrid_bounds(d, p, lay, instr_per_s)
+    n_tiles, pp = lay.meta.shape[1], lay.n_tx * lay.n_ty * p
+    ts, n_tx = lay.tile_size, lay.n_tx
+    ch = 7 + d
+    cnt = lay.meta[1].long()
+    used_slots = int(((cnt + CHUNK_ROWS - 1) // CHUNK_ROWS).sum())
+    srow_bytes = used_slots * CHUNK_ROWS * ch * f
+    out_bytes = pp * (d + 2) * f
     cot_bytes = out_bytes
+    scov = covered_evaluations_stream(slay.meta, slay.vals, ts, n_tx, n_tiles)
     wcnt = wlay.counts.long()
+    wcov = covered_evaluations_window(wlay.counts, wlay.data, ts, n_tx)
+    wdense = int(wcnt.sum()) * p
     t_rows = wlay.data.shape[0] * wlay.data.shape[1]
     need_rows = int(wcnt.sum()) * ch * f
-    return {
-        ("fwd", d): bound("fwd", d, pairs, p, 12 * n_tiles + chunk_bytes + out_bytes),
-        ("bwd", d): bound("bwd", d, pairs, p, 12 * n_tiles + 2 * chunk_bytes + out_bytes
-                          + cot_bytes),
-        ("bwd_exact", d): bound("bwd2", d, pairs, p, 12 * n_tiles + 2 * chunk_bytes
-                                + cot_bytes),
-        ("stream_fwd", d): bound("fwd", d, pairs, p, 16 * slay.meta.shape[1] + srow_bytes
-                                 + out_bytes + pp * f),
-        ("stream_bwd", d): bound("bwd", d, pairs, p, 16 * slay.meta.shape[1] + srow_bytes
-                                 + pp * f + cot_bytes + slay.vals.numel() * f),
-        ("window_chunked_fwd", d): bound("fwd", d, int(wcnt.sum()), p,
-                                         4 * n_tiles + need_rows + out_bytes + pp * f),
-        ("window_chunked_bwd", d): bound("bwd", d, int(wcnt.sum()), p,
-                                         4 * n_tiles + need_rows + pp * f + cot_bytes
-                                         + t_rows * ch * f),
+    out.update({
+        ("stream_fwd", d): bounds_of("fwd", d, scov, dense, 16 * slay.meta.shape[1]
+                                     + srow_bytes + out_bytes + pp * f, instr_per_s),
+        ("stream_bwd", d): bounds_of("bwd", d, scov, dense, 16 * slay.meta.shape[1]
+                                     + srow_bytes + pp * f + cot_bytes
+                                     + slay.vals.numel() * f, instr_per_s),
+        ("window_chunked_fwd", d): bounds_of("fwd", d, wcov, wdense, 4 * n_tiles + need_rows
+                                             + out_bytes + pp * f, instr_per_s),
+        ("window_chunked_bwd", d): bounds_of("bwd", d, wcov, wdense, 4 * n_tiles + need_rows
+                                             + pp * f + cot_bytes + t_rows * ch * f,
+                                             instr_per_s),
         # the simple pair reads every row's op to find the masked ones
-        ("window_fwd", d): bound("fwd", d, int(wcnt.sum()), p,
-                                 t_rows * f + need_rows + out_bytes),
-        ("window_bwd", d): bound("bwd2", d, int(wcnt.sum()), p,
-                                 t_rows * f + need_rows + cot_bytes + t_rows * ch * f),
-    }
+        ("window_fwd", d): bounds_of("fwd", d, wcov, wdense, t_rows * f + need_rows
+                                     + out_bytes, instr_per_s),
+        ("window_bwd", d): bounds_of("bwd2", d, wcov, wdense, t_rows * f + need_rows
+                                     + cot_bytes + t_rows * ch * f, instr_per_s),
+    })
+    return out, {"tilegrid": cov, "stream": scov, "window": wcov, "dense": dense,
+                 "window_dense": wdense}
 
 
-def phase_timing(dev, vid, extent, errs):
-    """Kernel vs plain twin at the slice's shapes: the kNN-initialized model
-    of the slice (its heaviest, ~100k Gaussians, the state std mode starts
-    from) on frame 0 at 640x480 with its auto tile config (ts 32); D = 3
-    (image) and D = 1 (label). Each kernel's bound on the same inputs."""
+CHUNK_ROWS = 128  # pairs per chunk of the padded layouts
+
+
+def frame_1080(cam):
+    """The timing camera at 1920x1080: intrinsics scaled by 3 (the
+    1920x1440 frame), cropped to its middle 1,080 rows; 60 x 34 tiles at
+    ts 32."""
+    return dataclasses.replace(cam, fx=cam.fx * 3, fy=cam.fy * 3, cx=cam.cx * 3,
+                               cy=cam.cy * 3 - 180, width=1920, height=1080, gt_image=None,
+                               hand_mask=None)
+
+
+def time_tilegrid(meta, vals, bg2, ts, n_tx, dev):
+    """Rows 1-3 (kernel ms, plain twin ms) on one tile-grid layout, with
+    random cotangents of scale 1e-3 on the kernel's own outputs; and the
+    cull-off instances' ms (what the per-warp cull saves)."""
     import torch
 
     from egogaussian_tpu_torch.render import cuda_raster as cr
+
+    out = cr.tilegrid_forward(meta, vals, bg2, ts, n_tx)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cot = [torch.randn(x.shape, generator=gen, device=dev) * 1e-3 for x in out]
+    times = {"fwd": (cuda_ms(lambda: cr.tilegrid_forward(meta, vals, bg2, ts, n_tx)),
+                     cuda_ms(lambda: cr.composite_tilegrid_plain_fwd(meta, vals, bg2, ts, n_tx),
+                             iters=5, warmup=1))}
+    for key, exact in (("bwd", False), ("bwd_exact", True)):
+        times[key] = (
+            cuda_ms(lambda: cr.tilegrid_backward(meta, vals, bg2, *out, *cot, ts, n_tx,
+                                                 exact_total=exact)),
+            cuda_ms(lambda: cr.composite_tilegrid_plain_bwd(meta, vals, bg2, *out, *cot, ts,
+                                                            n_tx, exact_total=exact),
+                    iters=5, warmup=1))
+    nocull = {
+        "fwd": cuda_ms(lambda: cr.tilegrid_forward_nocull(meta, vals, bg2, ts, n_tx)),
+        "bwd": cuda_ms(lambda: cr.tilegrid_backward_nocull(meta, vals, bg2, *out, *cot, ts,
+                                                           n_tx)),
+        "bwd_exact": cuda_ms(lambda: cr.tilegrid_backward_nocull(meta, vals, bg2, *out, *cot, ts,
+                                                                 n_tx, exact_total=True))}
+    return times, nocull, out, cot
+
+
+def phase_timing(dev, vid, extent, errs, peak_gflops):
+    """Kernel vs plain twin (CUDA events) on the kNN-initialized model of the
+    slice (its heaviest, ~100k Gaussians, the state std mode starts from),
+    with its auto tile config (ts 32), D = 3 (image) and D = 1 (label):
+    every kernel on frame 0 at 640x480, and rows 1-3 again on the same
+    frame at 1920x1080 (frame_1080), where the grid fills the card. Each
+    kernel's bound on the same inputs: on the covered evaluations (gated
+    alpha > 0) at the published rate, on the dense count (pairs x pixels,
+    PR 3's yardstick), and on the covered evaluations at the FMA rate this
+    run measured. Returns the 640x480 times and bounds."""
+    import torch
+
     from egogaussian_tpu_torch.render import stream_raster as sr
     from egogaussian_tpu_torch.render import window_raster as wr
     from egogaussian_tpu_torch.render.project import project_gaussians
     from egogaussian_tpu_torch.render.tiled import stream_layout, tilegrid_layout, window_layout
     from egogaussian_tpu_torch.train.common import auto_tile_config, model_colors
+    from egogaussian_tpu_torch.utils.peak import patch_evaluations
 
+    instr_per_s = peak_gflops * 1e9 / 2  # FMA = 2 flops, 1 instruction
     model = knn_model(dev, vid, extent)
-    cam = vid.cameras[0]
-    cfg = auto_tile_config(model, cam)
-    times, bounds = {}, {}
-    proj = project_gaussians(model.params.xyz, model.covariance(), cam.viewmat, cam.fx,
-                             cam.fy, cam.cx, cam.cy, cam.width, cam.height,
-                             valid_mask=model.aux.alive)
     opac = torch.where(model.aux.alive, model.opacity, torch.zeros_like(model.opacity))
-    for d, cols, bg in ((3, model_colors(model), torch.zeros(3, device=dev)),
-                        (1, model.params.label, torch.zeros(1, device=dev))):
-        lay = tilegrid_layout(proj, cols, opac, cam.width, cam.height, cfg)
-        case = f"slice_{cam.width}x{cam.height}_d{d}"
-        cots = check_layout(case, lay, d, bg, FWD_TOL, cam.width, cam.height, errs)
-        slay = stream_layout(proj, cols, opac, cam.width, cam.height,
-                             dataclasses.replace(cfg, compositor="stream"))
-        check_stream(case, slay, cots, d, bg, FWD_TOL, errs)
-        wlay = window_layout(proj, cols, opac, cam.width, cam.height, cfg)
-        check_window(case, wlay, bg, FWD_TOL, cam.width, cam.height, errs)
-        smeta, svals = slay.meta, slay.vals.detach().contiguous()
-        n_tiles = lay.n_tx * lay.n_ty
-        meta, vals = lay.meta, lay.vals.detach().contiguous()
-        counts, data = wlay.counts, wlay.data.detach().contiguous()
-        parts = split_window(wlay)
-        ts, n_tx = lay.tile_size, lay.n_tx
-        bg2 = bg[None].contiguous()
-        bounds.update(kernel_bounds(d, ts * ts, lay, slay, wlay))
-        with torch.no_grad():
-            out = cr.tilegrid_forward(meta, vals, bg2, ts, n_tx)
-            gen = torch.Generator(device=dev).manual_seed(1)
-            cot = [torch.randn(x.shape, generator=gen, device=dev) * 1e-3 for x in out]
-            times[("fwd", d)] = (
-                cuda_ms(lambda: cr.tilegrid_forward(meta, vals, bg2, ts, n_tx)),
-                cuda_ms(lambda: cr.composite_tilegrid_plain_fwd(meta, vals, bg2, ts, n_tx),
-                        iters=5, warmup=1))
-            times[("bwd", d)] = (
-                cuda_ms(lambda: cr.tilegrid_backward(meta, vals, bg2, *out, *cot, ts, n_tx)),
-                cuda_ms(lambda: cr.composite_tilegrid_plain_bwd(meta, vals, bg2, *out, *cot,
-                                                                ts, n_tx),
-                        iters=5, warmup=1))
-            times[("bwd_exact", d)] = (
-                cuda_ms(lambda: cr.tilegrid_backward(meta, vals, bg2, *out, *cot, ts, n_tx,
-                                                     exact_total=True)),
-                cuda_ms(lambda: cr.composite_tilegrid_plain_bwd(meta, vals, bg2, *out, *cot,
-                                                                ts, n_tx, exact_total=True),
-                        iters=5, warmup=1))
-            sout = sr.stream_forward(smeta, svals, bg2, ts, n_tx, n_tiles)
-            times[("stream_fwd", d)] = (
-                cuda_ms(lambda: sr.stream_forward(smeta, svals, bg2, ts, n_tx, n_tiles)),
-                cuda_ms(lambda: sr.composite_stream_plain_fwd(smeta, svals, bg2, ts, n_tx,
-                                                              n_tiles), iters=5, warmup=1))
-            times[("stream_bwd", d)] = (
-                cuda_ms(lambda: sr.stream_backward(smeta, svals, bg2, sout[3], *cot, ts, n_tx)),
-                cuda_ms(lambda: sr.composite_stream_plain_bwd(smeta, svals, bg2, sout[3], *cot,
-                                                              ts, n_tx), iters=5, warmup=1))
-            wout = wr.window_chunked_forward(counts, data, bg2, ts, n_tx)
-            times[("window_chunked_fwd", d)] = (
-                cuda_ms(lambda: wr.window_chunked_forward(counts, data, bg2, ts, n_tx)),
-                cuda_ms(lambda: wr.composite_window_chunked_plain_fwd(counts, data, bg2, ts,
-                                                                      n_tx),
-                        iters=5, warmup=1))
-            times[("window_chunked_bwd", d)] = (
-                cuda_ms(lambda: wr.window_chunked_backward(counts, data, bg2, wout[3], *cot, ts,
+    times, bounds = {}, {}
+    for main_frame, cam in ((True, vid.cameras[0]), (False, frame_1080(vid.cameras[0]))):
+        cfg = auto_tile_config(model, cam)
+        proj = project_gaussians(model.params.xyz, model.covariance(), cam.viewmat, cam.fx,
+                                 cam.fy, cam.cx, cam.cy, cam.width, cam.height,
+                                 valid_mask=model.aux.alive)
+        for d, cols, bg in ((3, model_colors(model), torch.zeros(3, device=dev)),
+                            (1, model.params.label, torch.zeros(1, device=dev))):
+            lay = tilegrid_layout(proj, cols, opac, cam.width, cam.height, cfg)
+            if int(lay.dropped):
+                raise AssertionError(f"timing frame {cam.width}x{cam.height}: pairs dropped")
+            case = f"timing_{cam.width}x{cam.height}_d{d}"
+            cots = check_layout(case, lay, d, bg, FWD_TOL, cam.width, cam.height, errs)
+            meta, vals = lay.meta, lay.vals.detach().contiguous()
+            ts, n_tx = lay.tile_size, lay.n_tx
+            p, n_tiles = ts * ts, lay.n_tx * lay.n_ty
+            bg2 = bg[None].contiguous()
+            with torch.no_grad():
+                t, nocull, _, cot = time_tilegrid(meta, vals, bg2, ts, n_tx, dev)
+            if main_frame:
+                slay = stream_layout(proj, cols, opac, cam.width, cam.height,
+                                     dataclasses.replace(cfg, compositor="stream"))
+                check_stream(case, slay, cots, d, bg, FWD_TOL, errs)
+                wlay = window_layout(proj, cols, opac, cam.width, cam.height, cfg)
+                check_window(case, wlay, bg, FWD_TOL, cam.width, cam.height, errs)
+                b, counts = kernel_bounds(d, p, lay, slay, wlay, instr_per_s)
+                smeta, svals = slay.meta, slay.vals.detach().contiguous()
+                counts_w, data = wlay.counts, wlay.data.detach().contiguous()
+                parts = split_window(wlay)
+                with torch.no_grad():
+                    sout = sr.stream_forward(smeta, svals, bg2, ts, n_tx, n_tiles)
+                    t["stream_fwd"] = (
+                        cuda_ms(lambda: sr.stream_forward(smeta, svals, bg2, ts, n_tx, n_tiles)),
+                        cuda_ms(lambda: sr.composite_stream_plain_fwd(smeta, svals, bg2, ts, n_tx,
+                                                                      n_tiles), iters=5, warmup=1))
+                    t["stream_bwd"] = (
+                        cuda_ms(lambda: sr.stream_backward(smeta, svals, bg2, sout[3], *cot, ts,
                                                            n_tx)),
-                cuda_ms(lambda: wr.composite_window_chunked_plain_bwd(counts, data, bg2,
-                                                                      wout[3], *cot, ts, n_tx),
-                        iters=5, warmup=1))
-            times[("window_fwd", d)] = (
-                cuda_ms(lambda: wr.window_forward(*parts, bg2, ts, n_tx)),
-                cuda_ms(lambda: wr.composite_window_plain_fwd(*parts, bg2, ts, n_tx, 16),
-                        iters=3, warmup=1))
-            times[("window_bwd", d)] = (
-                cuda_ms(lambda: wr.window_backward(*parts, bg2, *cot, ts, n_tx)),
-                cuda_ms(lambda: wr.composite_window_plain_bwd(*parts, bg2, *cot, ts, n_tx, 16),
-                        iters=3, warmup=1))
-        emit("timing", d=d, tile_size=ts, gaussians=int(model.num_alive),
-             tiles=meta.shape[1], slots=vals.shape[0], window_rows=data.shape[1],
-             deepest_tile=int(meta[1].max()), pairs=int(meta[1].sum()),
-             dropped=int(lay.dropped) + int(wlay.dropped),
-             **{f"{k}_ms": times[(k, d)][0] for k in KERNELS},
-             **{f"{k}_plain_ms": times[(k, d)][1] for k in KERNELS},
-             **{f"{k}_bound_ms": bounds[(k, d)][0] for k in KERNELS})
+                        cuda_ms(lambda: sr.composite_stream_plain_bwd(smeta, svals, bg2, sout[3],
+                                                                      *cot, ts, n_tx),
+                                iters=5, warmup=1))
+                    wout = wr.window_chunked_forward(counts_w, data, bg2, ts, n_tx)
+                    t["window_chunked_fwd"] = (
+                        cuda_ms(lambda: wr.window_chunked_forward(counts_w, data, bg2, ts, n_tx)),
+                        cuda_ms(lambda: wr.composite_window_chunked_plain_fwd(counts_w, data, bg2,
+                                                                              ts, n_tx),
+                                iters=5, warmup=1))
+                    t["window_chunked_bwd"] = (
+                        cuda_ms(lambda: wr.window_chunked_backward(counts_w, data, bg2, wout[3],
+                                                                   *cot, ts, n_tx)),
+                        cuda_ms(lambda: wr.composite_window_chunked_plain_bwd(
+                            counts_w, data, bg2, wout[3], *cot, ts, n_tx), iters=5, warmup=1))
+                    t["window_fwd"] = (
+                        cuda_ms(lambda: wr.window_forward(*parts, bg2, ts, n_tx)),
+                        cuda_ms(lambda: wr.composite_window_plain_fwd(*parts, bg2, ts, n_tx, 16),
+                                iters=3, warmup=1))
+                    t["window_bwd"] = (
+                        cuda_ms(lambda: wr.window_backward(*parts, bg2, *cot, ts, n_tx)),
+                        cuda_ms(lambda: wr.composite_window_plain_bwd(*parts, bg2, *cot, ts, n_tx,
+                                                                      16), iters=3, warmup=1))
+                extra = dict(slots=vals.shape[0], window_rows=data.shape[1],
+                             dropped=int(lay.dropped) + int(wlay.dropped))
+                times.update({(k, d): v for k, v in t.items()})
+                bounds.update(b)
+            else:
+                b, cov, dense = tilegrid_bounds(d, p, lay, instr_per_s)
+                counts = {"tilegrid": cov, "dense": dense}
+                extra = dict(slots=vals.shape[0], dropped=int(lay.dropped))
+            # what rows 1-2 evaluate after their per-warp cull
+            counts["tilegrid_patches"] = patch_evaluations(meta, vals, ts, n_tx)
+            keys = [k for k in KERNELS if k in t]
+            emit("timing", frame=f"{cam.width}x{cam.height}", d=d, tile_size=ts,
+                 gaussians=int(model.num_alive), tiles=n_tiles, deepest_tile=int(meta[1].max()),
+                 pairs=int(meta[1].sum()), evaluations=counts,
+                 measured_fp32_gflops=peak_gflops, **extra,
+                 **{f"{k}_ms": t[k][0] for k in keys},
+                 **{f"{k}_nocull_ms": v for k, v in nocull.items()},
+                 **{f"{k}_plain_ms": t[k][1] for k in keys},
+                 **{f"{k}_bound_ms": b[(k, d)][0] for k in keys},
+                 **{f"{k}_dense_bound_ms": b[(k, d)][2] for k in keys},
+                 **{f"{k}_bound_ms_at_measured_rate": b[(k, d)][3] for k in keys})
     return times, bounds
+
+
+def phase_peak(dev):
+    """Row 10's path: the card's float32 FMA rate through its entry point,
+    fma_peak_gflops (fma_chain at n_loop 120,000 on a block that fills
+    every SM), beside the published 67 TFLOP/s and the card's power
+    limit. Returns GFLOP/s."""
+    from egogaussian_tpu_torch.utils.peak import (
+        FP32_FLOPS,
+        PEAK_LOOP,
+        default_rows,
+        fma_peak_gflops,
+    )
+
+    gflops = fma_peak_gflops(dev)
+    emit("peak", fp32_gflops=gflops, share_of_published=gflops * 1e9 / FP32_FLOPS,
+         published_gflops=FP32_FLOPS / 1e9, rows=default_rows(dev), n_loop=PEAK_LOOP,
+         nvidia_smi=nvidia_smi_line())
+    return gflops
+
+
+def check_peak(dev, errs):
+    """fma_chain against its twin on a seeded [64, 128] block in [1, 1.45)
+    at n_loop 1,000 (relative 1e-6), then its time, its twin's and its
+    bound at the peak phase's shapes. Returns (ms, plain_ms, bound)."""
+    import torch
+
+    from egogaussian_tpu_torch.utils.peak import (
+        PEAK_LOOP,
+        bound_fma,
+        default_rows,
+        fma_chain,
+        fma_chain_plain,
+    )
+
+    x = torch.as_tensor(np.random.RandomState(0).uniform(1.0, 1.45, (64, 128)).astype(np.float32),
+                        device=dev)
+    k, p = fma_chain(x, 1000), fma_chain_plain(x, 1000)
+    rel = float(((k - p).abs() / p.abs()).max())
+    errs[("fma_peak", None)] = [max_err(k, p)]
+    rows = default_rows(dev)
+    big = torch.ones((rows, 128), dtype=torch.float32, device=dev)
+    ms = cuda_ms(lambda: fma_chain(big, PEAK_LOOP), iters=3, warmup=1)
+    plain_ms = cuda_ms(lambda: fma_chain_plain(big, PEAK_LOOP), iters=1, warmup=0)
+    b = bound_fma(rows, PEAK_LOOP)
+    ok = rel <= 1e-6
+    emit("peak_check", max_rel_err=rel, max_abs_err=max_err(k, p), tol=1e-6, ms=ms,
+         plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], ok=ok)
+    if not ok:
+        raise AssertionError(f"fma_chain differs from its twin: {rel}")
+    return ms, plain_ms, b
 
 
 def phase_profile(dev, vid, extent, out_dir, iters: int = 40, skip: int = 10):
@@ -1432,13 +1687,15 @@ KERNELS = {
                    "egogaussian_tpu/render/pallas_raster.py:105"),
     "window_bwd": ("window_bwd", "egogaussian_tpu_torch/csrc/window_bwd.cu",
                    "egogaussian_tpu/render/pallas_raster.py:133"),
+    "fma_peak": ("fma_peak", "egogaussian_tpu_torch/csrc/fma_peak.cu", "bench.py:273"),
 }
 # the path whose launch counts the kernels line reports for each kernel (per
 # D where they differ: evaluation renders images only, the tiled step's
 # label mode runs the D = 1 forward)
 PATH_OF = {"fwd": "slice", "bwd": "slice", "bwd_exact": "coarse", "stream_fwd": "coarse",
            "stream_bwd": "coarse", "window_chunked_fwd": {3: "eval", 1: "tiled_step"},
-           "window_chunked_bwd": "tiled_step", "window_fwd": "entry", "window_bwd": "entry"}
+           "window_chunked_bwd": "tiled_step", "window_fwd": "entry", "window_bwd": "entry",
+           "fma_peak": "peak"}
 
 
 def main(argv=None) -> int:
@@ -1456,6 +1713,11 @@ def main(argv=None) -> int:
     from egogaussian_tpu_torch.render import cuda_raster as cr
 
     dev = torch.device("cuda", 0)
+    out_dir = os.path.join("chiprun_out", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    # every phase line also goes to phases.jsonl: the output's tail is cut
+    PHASE_LOG.append(os.path.join(out_dir, "phases.jsonl"))
+    open(PHASE_LOG[0], "w").close()
     smi = nvidia_smi_line()
     print(smi, flush=True)
     emit("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
@@ -1464,6 +1726,8 @@ def main(argv=None) -> int:
     t0 = time.time()
     path, log = cr.build_library()
     cr.kernel_library()
+    with open(os.path.join(out_dir, "ptxas.log"), "w") as f:
+        f.write(log)
     emit("build", seconds=time.time() - t0, library=os.path.relpath(path),
          ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln])
 
@@ -1472,8 +1736,6 @@ def main(argv=None) -> int:
     if args.kernels_only:
         return 0
 
-    out_dir = os.path.join("chiprun_out", "chip_smoke")
-    os.makedirs(out_dir, exist_ok=True)
     # path 1: stage-1.0 static training
     reset_launch_counts()
     vid, extent, _, slice_model = phase_slice(dev, out_dir)
@@ -1498,6 +1760,10 @@ def main(argv=None) -> int:
     reset_launch_counts()
     entry = phase_entry(eval_model, vid.cameras[0])
     path_launches["entry"] = launch_counts()
+    # row 10's path: the FMA peak that bounds are read against
+    reset_launch_counts()
+    peak_gflops = phase_peak(dev)
+    path_launches["peak"] = launch_counts()
     frames = 2 * len(vid.cameras)  # the eval CLI's frames and the full-width frames
     # per mode (std: D = 3, label: D = 1) and backend: the gradient check
     # and the steps
@@ -1511,13 +1777,16 @@ def main(argv=None) -> int:
     compare_eval_frames(vid, eval_model, eval_seq, buckets)
     check_entry(entry, vid.cameras[0], errs)
     phase_frame_kernels(model, fr, errs)
-    times, bounds = phase_timing(dev, vid, extent, errs)
+    ms, plain_ms, b = check_peak(dev, errs)
+    times, bounds = phase_timing(dev, vid, extent, errs, peak_gflops)
+    times[("fma_peak", None)] = (ms, plain_ms)
+    bounds[("fma_peak", None)] = (b[0], b[1], b[0], None)
     phase_profile(dev, vid, extent, out_dir)
 
     table = []
     for key, (stem, src, replaces) in KERNELS.items():
-        for d in (3, 1):
-            name = f"{stem}_d{d}"
+        for d in ((None,) if key == "fma_peak" else (3, 1)):
+            name = stem if d is None else f"{stem}_d{d}"
             path = PATH_OF[key][d] if isinstance(PATH_OF[key], dict) else PATH_OF[key]
             table.append({
                 "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -1525,7 +1794,9 @@ def main(argv=None) -> int:
                 "max_abs_err": max(errs[(key, d)]),
                 "ms": times[(key, d)][0], "plain_ms": times[(key, d)][1],
                 "bound_ms": bounds[(key, d)][0], "bound_by": bounds[(key, d)][1],
-                # no single PyTorch call composites Gaussians
+                "dense_bound_ms": bounds[(key, d)][2],
+                "bound_ms_at_measured_rate": bounds[(key, d)][3],
+                # no single PyTorch call composites Gaussians or chains FMAs
                 "library_ms": None,
             })
     missing = [k["name"] for k in table if k["launches"] <= 0]

@@ -23,22 +23,26 @@
 //     telescopes to exactly 0 at a tile's last pair. State is reset and the
 //     gradient sweep runs. The pre-sweep costs one more pass over the chunks.
 //
-// What bounds it on the card: per pair and pixel ~50 FMAs and one expf,
-// plus the per-pair reduction of 7 + D values over the tile's pixels,
-// which costs more than the arithmetic when few pixels of a warp are
-// covered. Device-memory traffic (pair chunk in, gradient chunk out) is
-// small next to both.
+// What bounds it on the card: per covered pair and pixel ~50 instructions
+// and one expf, plus the per-pair reduction of 7 + D values over the
+// tile's pixels, which costs more than the arithmetic where few pixels of
+// a warp are covered. Device-memory traffic (pair chunk in, gradient chunk
+// out) is small next to both.
 //
-// Design: the forward's block and pixel mapping (one block per tile, 256
-// threads, ts*ts/256 pixels per thread, chunks staged in shared memory).
-// Each pair's gradient values are reduced in a FIXED order: first over a
-// thread's own pixels, then a warp shuffle tree, then the 8 per-warp
-// partials land in shared memory and one thread per output value adds them
-// in warp order. No float atomics, so runs repeat bit for bit. A warp in
-// which no pixel sees the pair (alpha == 0 everywhere, so every term is an
-// exact zero) skips the shuffles. The chunk-padded layout gives each tile
-// its own slots, so no reduction crosses blocks.
-#include "tilegrid_common.cuh"
+// Design: the forward's (tilegrid_fwd.cu): one cluster per tile, one pixel
+// per thread, 8x4 warp patches, the cluster-wide vote, the bulk-copy
+// ring, and the per-warp cull by reach box (bit-identical to CULL =
+// false). Each pair's gradient rows are reduced in a FIXED order:
+//   1. per warp, over its 32 pixels, by a halving exchange that leaves
+//      lane f with field f (warp_sum_fields); a warp in which no pixel sees
+//      the pair skips it and marks it absent;
+//   2. per CTA, the present warps' partials in warp order, into a
+//      double-buffered chunk partial [7 + D][128] in shared memory;
+//   3. per cluster, the CTAs' partials in rank order, read from
+//      distributed shared memory after the next vote's cluster barrier;
+//      each CTA writes a quarter of the chunk's rows.
+// No float atomics, so runs repeat bit for bit.
+#include "tilegrid_cluster.cuh"
 
 namespace egogs {
 
@@ -61,8 +65,21 @@ __device__ __forceinline__ void advance(float alpha, float w, float dld,
   T = __fmul_rn(T, 1.0f - alpha);
 }
 
-template <int D, int TS, bool EXACT>
-__global__ void __launch_bounds__(kThreads)
+namespace {
+
+constexpr int kBwdHead = 2240;  // barriers | flags | warp masks | reach boxes
+
+template <int D>
+constexpr int bwd_smem_bytes() {
+  // head | two chunk stages | warp partials | two CTA chunk partials
+  return kBwdHead + 2 * ch16_of(D) * kChunk * 4 + kWarps * (7 + D) * kChunk * 4 +
+         2 * (7 + D) * kChunk * 4;
+}
+
+}  // namespace
+
+template <int D, int TS, bool EXACT, bool CULL>
+__global__ void __launch_bounds__(kThreads, 2)
     tilegrid_bwd_kernel(const int* __restrict__ meta,
                         const float* __restrict__ vals,
                         const float* __restrict__ bg,
@@ -73,215 +90,236 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ galpha,
                         const float* __restrict__ gdepth,
                         float* __restrict__ dvals, int n_tiles, int n_tx) {
+  constexpr int NCTA = tg::ctas_per_tile<TS>();
   constexpr int P = TS * TS;
-  static_assert(P % kThreads == 0, "tile pixels must split evenly");
-  constexpr int PPT = P / kThreads;
   constexpr int CH = ch16_of(D);
   constexpr int NV = 7 + D;  // gradient rows per pair
-  extern __shared__ __align__(16) float smem[];
-  float* blk = smem;                // [CH][kChunk] staged pair chunk
-  float* part = smem + CH * kChunk; // [kWarps][NV][kChunk] warp partials
+  constexpr int kShare = CH * kChunk / NCTA;  // output floats of a chunk per CTA
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  unsigned* flags = reinterpret_cast<unsigned*>(smem + 16);          // [2][NCTA]
+  unsigned* present = reinterpret_cast<unsigned*>(smem + 48);        // [kWarps][kWords]
+  float4* box = reinterpret_cast<float4*>(smem + 192);               // [kChunk]
+  float* stage0 = reinterpret_cast<float*>(smem + kBwdHead);         // [CH][kChunk]
+  float* stage1 = stage0 + CH * kChunk;
+  float* part = stage1 + CH * kChunk;                                // [kWarps][NV][kChunk]
+  float* cpart = part + kWarps * NV * kChunk;                        // [2][NV][kChunk]
+  static_assert(192 + kChunk * 16 <= kBwdHead, "shared-memory head");
 
-  const int t = blockIdx.x;
+  const int t = blockIdx.x / NCTA;
+  const int rank = blockIdx.x % NCTA;
   const int start = meta[t];
   const int cnt = meta[n_tiles + t];
   const int n_chunks = (cnt + kChunk - 1) / kChunk;
-  const int tx = t % n_tx;
-  const int ty = t / n_tx;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const tg::Pixel pix = tg::pixel_of<TS>(t, n_tx, rank);
+  const size_t idx = static_cast<size_t>(t) * P + pix.local;
 
-  float bgv[D];
+  float bgv[D], gi[D];
+  float g_dot_bg = 0.0f, total = 0.0f, base_s = 0.0f;
 #pragma unroll
-  for (int d = 0; d < D; ++d) bgv[d] = bg[d];
-
-  float px[PPT], py[PPT], T[PPT], pre[PPT], total[PPT], base_s[PPT];
-  float gi[PPT][D], ga[PPT], gz[PPT], g_dot_bg[PPT];
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    const int pix = threadIdx.x + k * kThreads;
-    const size_t idx = static_cast<size_t>(t) * P + pix;
-    px[k] = static_cast<float>(tx * TS + pix % TS) + 0.5f;
-    py[k] = static_cast<float>(ty * TS + pix / TS) + 0.5f;
-    T[k] = 1.0f;
-    pre[k] = 0.0f;
-    g_dot_bg[k] = 0.0f;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      gi[k][d] = gimg[idx * D + d];
-      g_dot_bg[k] += gi[k][d] * bgv[d];
-    }
-    ga[k] = galpha[idx];
-    gz[k] = gdepth[idx];
-    if (!EXACT) {
-      const float a_out = alpha_out[idx];
-      const float t_total = 1.0f - a_out;
-      float tot = 0.0f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) tot += (img[idx * D + d] - t_total * bgv[d]) * gi[k][d];
-      total[k] = tot + depth_out[idx] * gz[k] + a_out * ga[k];
-      base_s[k] = t_total * g_dot_bg[k];
-    }
+  for (int d = 0; d < D; ++d) {
+    bgv[d] = bg[d];
+    gi[d] = gimg[idx * D + d];
+    g_dot_bg += gi[d] * bgv[d];
   }
+  const float ga = galpha[idx];
+  const float gz = gdepth[idx];
+  if (!EXACT) {
+    const float a_out = alpha_out[idx];
+    const float t_total = 1.0f - a_out;
+    float tot = 0.0f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) tot += (img[idx * D + d] - t_total * bgv[d]) * gi[d];
+    total = tot + depth_out[idx] * gz + a_out * ga;
+    base_s = t_total * g_dot_bg;
+  }
+  float T = 1.0f, pre = 0.0f;
+
+  tg::Ring ring;
+  ring.init(stage0, stage1, bar, CH * kChunk * 4);
+  __syncthreads();
+  tg::cluster_sync<NCTA>();  // the cluster's CTAs run before flags are written
+  const float* src_part[NCTA];
+  if constexpr (NCTA > 1) {
+    tg::cg::cluster_group cl = tg::cg::this_cluster();
+#pragma unroll
+    for (int r = 0; r < NCTA; ++r) src_part[r] = cl.map_shared_rank(cpart, r);
+  } else {
+    src_part[0] = cpart;
+  }
+
+  const float* chunk0 = vals + static_cast<size_t>(start) * CH * kChunk;
+  int votes = 0;
+  // the staged chunk of load L, its reach boxes, and the warp's pair masks
+  auto stage_chunk = [&](int L, int c, unsigned (&m)[tg::kWords]) -> const float* {
+    ring.wait(L);
+    const float* blk = (L & 1) ? stage1 : stage0;
+    const int n_valid = min(kChunk, cnt - c * kChunk);
+    if (CULL && static_cast<int>(threadIdx.x) < n_valid) {
+      const int j = threadIdx.x;
+      box[j] = tg::reach_box(blk[j], blk[kChunk + j], blk[2 * kChunk + j],
+                             blk[3 * kChunk + j], blk[4 * kChunk + j], blk[5 * kChunk + j]);
+    }
+    __syncthreads();
+    tg::patch_pairs<CULL>(box, n_valid, pix, m);
+    return blk;
+  };
+
+  const float* blk = stage0;  // the staged chunk being walked
+  auto alpha_of = [&](int j) {
+    return pair_alpha(pix.px, pix.py, blk[j], blk[kChunk + j], blk[2 * kChunk + j],
+                      blk[3 * kChunk + j], blk[4 * kChunk + j], blk[5 * kChunk + j]);
+  };
+  auto col_of = [&](int j, float (&col)[D]) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) col[d] = blk[(6 + d) * kChunk + j];
+  };
 
   if (EXACT) {
     // value-only pre-sweep: the gradient sweep's value path and votes
-    for (int c = 0; c < n_chunks; ++c) {
-      bool live = false;
-#pragma unroll
-      for (int k = 0; k < PPT; ++k) live |= T[k] >= kSatSkipEps;
-      if (!__syncthreads_or(live)) break;
-      load_chunk(blk, vals + static_cast<size_t>(start + c) * CH * kChunk, CH * kChunk);
-      __syncthreads();
-      const int n_valid = min(kChunk, cnt - c * kChunk);
-      for (int j = 0; j < n_valid; ++j) {
-        const float mx = blk[0 * kChunk + j];
-        const float my = blk[1 * kChunk + j];
-        const float a = blk[2 * kChunk + j];
-        const float b = blk[3 * kChunk + j];
-        const float cc = blk[4 * kChunk + j];
-        const float op = blk[5 * kChunk + j];
-        float col[D];
-#pragma unroll
-        for (int d = 0; d < D; ++d) col[d] = blk[(6 + d) * kChunk + j];
-        const float z = blk[(6 + D) * kChunk + j];
-#pragma unroll
-        for (int k = 0; k < PPT; ++k) {
-          const PairAlpha r = pair_alpha(px[k], py[k], mx, my, a, b, cc, op);
-          if (r.alpha == 0.0f) continue;
-          const float w = __fmul_rn(r.alpha, T[k]);
-          advance(r.alpha, w, pair_dld<D>(z, col, gz[k], ga[k], gi[k]), pre[k], T[k]);
-        }
-      }
+    const int base = ring.issued;
+    if (n_chunks > 0) ring.issue(chunk0);
+    int c = 0;
+    for (; c < n_chunks; ++c) {
+      if (!tg::tile_vote<NCTA>(T >= kSatSkipEps, flags, votes++)) break;
+      if (c + 1 < n_chunks) ring.issue(chunk0 + static_cast<size_t>(c + 1) * CH * kChunk);
+      unsigned m[tg::kWords];
+      blk = stage_chunk(base + c, c, m);
+      tg::walk_pairs(
+          m,
+          [&](int j) {
+            const PairAlpha r = alpha_of(j);
+            if (r.alpha == 0.0f) return false;
+            float col[D];
+            col_of(j, col);
+            const float w = __fmul_rn(r.alpha, T);
+            advance(r.alpha, w, pair_dld<D>(blk[(6 + D) * kChunk + j], col, gz, ga, gi), pre, T);
+            return false;
+          },
+          [](int, unsigned) {});
     }
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) {
-      total[k] = pre[k];
-      base_s[k] = T[k] * g_dot_bg[k];
-      T[k] = 1.0f;
-      pre[k] = 0.0f;
-    }
+    if (c < n_chunks) ring.wait(base + c);  // prefetched behind a saturated tile
+    total = pre;
+    base_s = T * g_dot_bg;
+    T = 1.0f;
+    pre = 0.0f;
   }
 
-  int c = 0;
-  for (; c < n_chunks; ++c) {
-    // same tile-wide saturation test as the forward; also the barrier that
-    // keeps the previous chunk's readers of blk/part ahead of this chunk
-    bool live = false;
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) live |= T[k] >= kSatSkipEps;
-    if (!__syncthreads_or(live)) break;
-    load_chunk(blk, vals + static_cast<size_t>(start + c) * CH * kChunk, CH * kChunk);
-    __syncthreads();
-
-    const int n_valid = min(kChunk, cnt - c * kChunk);
-    for (int j = 0; j < n_valid; ++j) {
-      const float mx = blk[0 * kChunk + j];
-      const float my = blk[1 * kChunk + j];
-      const float a = blk[2 * kChunk + j];
-      const float b = blk[3 * kChunk + j];
-      const float cc = blk[4 * kChunk + j];
-      const float op = blk[5 * kChunk + j];
-      float col[D];
-#pragma unroll
-      for (int d = 0; d < D; ++d) col[d] = blk[(6 + d) * kChunk + j];
-      const float z = blk[(6 + D) * kChunk + j];
-
-      float s[NV];
-#pragma unroll
-      for (int v = 0; v < NV; ++v) s[v] = 0.0f;
-      bool touched = false;
-#pragma unroll
-      for (int k = 0; k < PPT; ++k) {
-        const PairAlpha r = pair_alpha(px[k], py[k], mx, my, a, b, cc, op);
-        // alpha == 0 leaves T and the prefix unchanged and every term zero
-        if (r.alpha == 0.0f) continue;
-        touched = true;
-        const float t_excl = T[k];
-        const float w = __fmul_rn(r.alpha, t_excl);
-        const float dld = pair_dld<D>(z, col, gz[k], ga[k], gi[k]);
-        advance(r.alpha, w, dld, pre[k], T[k]);
-        const float S = (total[k] - pre[k]) + base_s[k];
-        const float one_minus = 1.0f - r.alpha;
-        float dalpha = t_excl * dld - S / one_minus;
-        if (!(r.raw >= kAlphaEps && r.raw < kAlphaMax)) dalpha = 0.0f;
-        const float dpower = r.raw * dalpha;
-        s[0] += (a * r.dx + b * r.dy) * dpower;
-        s[1] += (cc * r.dy + b * r.dx) * dpower;
-        s[2] += -0.5f * r.dx * r.dx * dpower;
-        s[3] += -r.dx * r.dy * dpower;
-        s[4] += -0.5f * r.dy * r.dy * dpower;
-        s[5] += expf(r.power) * dalpha;
-#pragma unroll
-        for (int d = 0; d < D; ++d) s[6 + d] += w * gi[k][d];
-        s[6 + D] += w * gz[k];
-      }
-      if (__any_sync(0xffffffffu, touched)) {
-#pragma unroll
-        for (int v = 0; v < NV; ++v) s[v] = warp_sum(s[v]);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int v = 0; v < NV; ++v) part[(warp * NV + v) * kChunk + j] = s[v];
-      }
-    }
-    __syncthreads();
-
-    // fixed-order sum of the warp partials; lanes past the tile's count and
-    // the padding rows are zeros
-    float* out = dvals + static_cast<size_t>(start + c) * CH * kChunk;
-    for (int i = threadIdx.x; i < CH * kChunk; i += kThreads) {
-      const int v = i / kChunk;
-      const int j = i % kChunk;
+  // chunk cc's rows of this CTA's share: the CTAs' partials summed in rank
+  // order (zeros in the padding rows)
+  auto write_chunk = [&](int cc) {
+    float* out = dvals + static_cast<size_t>(start + cc) * CH * kChunk;
+    const int off = (cc & 1) * NV * kChunk;
+    for (int i = rank * kShare + threadIdx.x; i < (rank + 1) * kShare; i += kThreads) {
       float acc = 0.0f;
-      if (v < NV && j < n_valid) {
+      if (i < NV * kChunk) {
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) acc += part[(w * NV + v) * kChunk + j];
+        for (int r = 0; r < NCTA; ++r) acc += src_part[r][off + i];
       }
       out[i] = acc;
     }
+  };
+
+  const int base = ring.issued;
+  if (n_chunks > 0) ring.issue(chunk0);
+  int c = 0;
+  for (;; ++c) {
+    // the vote for chunk c; its barrier also orders every CTA's partial of
+    // chunk c - 1 before the reads that sum it
+    const bool go = tg::tile_vote<NCTA>(c < n_chunks && T >= kSatSkipEps, flags, votes++);
+    if (c > 0) write_chunk(c - 1);
+    if (!go) break;
+    if (c + 1 < n_chunks) ring.issue(chunk0 + static_cast<size_t>(c + 1) * CH * kChunk);
+    unsigned m[tg::kWords];
+    blk = stage_chunk(base + c, c, m);
+    tg::walk_pairs(
+        m,
+        [&](int j) {
+          const PairAlpha r = alpha_of(j);
+          float s[NV];
+#pragma unroll
+          for (int v = 0; v < NV; ++v) s[v] = 0.0f;
+          // alpha == 0 leaves T and the prefix unchanged and every term zero
+          const bool touched = r.alpha != 0.0f;
+          if (touched) {
+            const float a = blk[2 * kChunk + j];
+            const float b = blk[3 * kChunk + j];
+            const float cc = blk[4 * kChunk + j];
+            float col[D];
+            col_of(j, col);
+            const float t_excl = T;
+            const float w = __fmul_rn(r.alpha, t_excl);
+            const float dld = pair_dld<D>(blk[(6 + D) * kChunk + j], col, gz, ga, gi);
+            advance(r.alpha, w, dld, pre, T);
+            const float S = (total - pre) + base_s;
+            const float one_minus = 1.0f - r.alpha;
+            float dalpha = t_excl * dld - S / one_minus;
+            if (!(r.raw >= kAlphaEps && r.raw < kAlphaMax)) dalpha = 0.0f;
+            const float dpower = r.raw * dalpha;
+            s[0] = (a * r.dx + b * r.dy) * dpower;
+            s[1] = (cc * r.dy + b * r.dx) * dpower;
+            s[2] = -0.5f * r.dx * r.dx * dpower;
+            s[3] = -r.dx * r.dy * dpower;
+            s[4] = -0.5f * r.dy * r.dy * dpower;
+            s[5] = r.e * dalpha;
+#pragma unroll
+            for (int d = 0; d < D; ++d) s[6 + d] = w * gi[d];
+            s[6 + D] = w * gz;
+          }
+          if (!__any_sync(0xffffffffu, touched)) return false;
+          const float sum = tg::warp_sum_fields<NV>(s);
+          if (lane < NV) part[(warp * NV + lane) * kChunk + j] = sum;
+          return true;
+        },
+        [&](int k, unsigned seen) {
+          if (lane == 0) present[warp * tg::kWords + k] = seen;
+        });
+    __syncthreads();
+    // the CTA's partial of chunk c: present warps in warp order
+    float* cp = cpart + (c & 1) * NV * kChunk;
+    for (int i = threadIdx.x; i < NV * kChunk; i += kThreads) {
+      const int v = i / kChunk, j = i % kChunk;
+      const unsigned bit = 1u << (j & 31);
+      float acc = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        if (present[w * tg::kWords + (j >> 5)] & bit) acc += part[(w * NV + v) * kChunk + j];
+      cp[i] = acc;
+    }
   }
+  if (c < n_chunks) ring.wait(base + c);  // prefetched behind a saturated tile
   // chunks behind a saturated tile were skipped: their gradients are zeros
-  for (; c < n_chunks; ++c) {
-    float* out = dvals + static_cast<size_t>(start + c) * CH * kChunk;
-    for (int i = threadIdx.x; i < CH * kChunk; i += kThreads) out[i] = 0.0f;
+  for (int cz = c; cz < n_chunks; ++cz) {
+    float* out = dvals + static_cast<size_t>(start + cz) * CH * kChunk;
+    for (int i = rank * kShare + threadIdx.x; i < (rank + 1) * kShare; i += kThreads)
+      out[i] = 0.0f;
   }
+  tg::cluster_sync<NCTA>();  // no CTA leaves while another reads its partials
 }
 
-template <int D, int TS, bool EXACT>
+template <int D, int TS, bool EXACT, bool CULL>
 int launch_bwd(const int* meta, const float* vals, const float* bg,
                const float* img, const float* alpha, const float* depth,
                const float* gimg, const float* galpha, const float* gdepth,
                float* dvals, int n_tiles, int n_tx, cudaStream_t stream) {
-  constexpr int smem =
-      (ch16_of(D) * kChunk + kWarps * (7 + D) * kChunk) * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      tilegrid_bwd_kernel<D, TS, EXACT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tilegrid_bwd_kernel<D, TS, EXACT><<<n_tiles, kThreads, smem, stream>>>(
-      meta, vals, bg, img, alpha, depth, gimg, galpha, gdepth, dvals, n_tiles, n_tx);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(tg::launch_tiles<tg::ctas_per_tile<TS>()>(
+      tilegrid_bwd_kernel<D, TS, EXACT, CULL>, n_tiles, bwd_smem_bytes<D>(), stream, meta,
+      vals, bg, img, alpha, depth, gimg, galpha, gdepth, dvals, n_tiles, n_tx));
 }
 
-}  // namespace egogs
-
-// Returns cudaGetLastError() after the launch (0 = launched), or -1 for a
-// (d, ts) the library was not built for. Writes only the chunk slots of the
-// tiles in meta; the caller zeroes the rest. exact_total selects the flavor.
-extern "C" int egogs_tilegrid_bwd(const int* meta, const float* vals,
-                                  const float* bg, const float* img,
-                                  const float* alpha, const float* depth,
-                                  const float* gimg, const float* galpha,
-                                  const float* gdepth, float* dvals,
-                                  int n_tiles, int n_tx, int ts, int d,
-                                  int exact_total, void* stream) {
-  using namespace egogs;
+template <bool CULL>
+int dispatch_bwd(const int* meta, const float* vals, const float* bg, const float* img,
+                 const float* alpha, const float* depth, const float* gimg,
+                 const float* galpha, const float* gdepth, float* dvals, int n_tiles,
+                 int n_tx, int ts, int d, int exact_total, void* stream) {
   if (n_tiles == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define EGOGS_BWD(D_, TS_, EX_)                                              \
-  if (d == D_ && ts == TS_ && (exact_total != 0) == EX_)                     \
-    return launch_bwd<D_, TS_, EX_>(meta, vals, bg, img, alpha, depth, gimg, \
-                                    galpha, gdepth, dvals, n_tiles, n_tx, s);
+#define EGOGS_BWD(D_, TS_, EX_)                                                      \
+  if (d == D_ && ts == TS_ && (exact_total != 0) == EX_)                             \
+    return launch_bwd<D_, TS_, EX_, CULL>(meta, vals, bg, img, alpha, depth, gimg,   \
+                                          galpha, gdepth, dvals, n_tiles, n_tx, s);
   EGOGS_BWD(3, 16, false)
   EGOGS_BWD(3, 32, false)
   EGOGS_BWD(1, 16, false)
@@ -292,4 +330,34 @@ extern "C" int egogs_tilegrid_bwd(const int* meta, const float* vals,
   EGOGS_BWD(1, 32, true)
 #undef EGOGS_BWD
   return -1;
+}
+
+}  // namespace egogs
+
+// Returns cudaGetLastError() after the launch (0 = launched), or -1 for a
+// (d, ts) the library was not built for. Writes only the chunk slots of the
+// tiles in meta; the caller zeroes the rest. exact_total selects the flavor.
+// vals must be 16-byte aligned.
+extern "C" int egogs_tilegrid_bwd(const int* meta, const float* vals,
+                                  const float* bg, const float* img,
+                                  const float* alpha, const float* depth,
+                                  const float* gimg, const float* galpha,
+                                  const float* gdepth, float* dvals,
+                                  int n_tiles, int n_tx, int ts, int d,
+                                  int exact_total, void* stream) {
+  return egogs::dispatch_bwd<true>(meta, vals, bg, img, alpha, depth, gimg, galpha, gdepth,
+                                   dvals, n_tiles, n_tx, ts, d, exact_total, stream);
+}
+
+// The same kernels with the per-warp cull compiled out: check instances,
+// whose gradients must equal egogs_tilegrid_bwd's bit for bit.
+extern "C" int egogs_tilegrid_bwd_nocull(const int* meta, const float* vals,
+                                         const float* bg, const float* img,
+                                         const float* alpha, const float* depth,
+                                         const float* gimg, const float* galpha,
+                                         const float* gdepth, float* dvals,
+                                         int n_tiles, int n_tx, int ts, int d,
+                                         int exact_total, void* stream) {
+  return egogs::dispatch_bwd<false>(meta, vals, bg, img, alpha, depth, gimg, galpha, gdepth,
+                                    dvals, n_tiles, n_tx, ts, d, exact_total, stream);
 }

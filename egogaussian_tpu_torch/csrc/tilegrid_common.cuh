@@ -28,21 +28,32 @@ __host__ __device__ constexpr int ch16_of(int d) { return ((7 + d) + 7) / 8 * 8;
 
 struct PairAlpha {
   float alpha;  // gated alpha
-  float raw;    // op * exp(power), before the gates
+  float raw;    // op * e, before the gates
   float power;  // min(-Q, 0)
+  float e;      // exp(power)
   float dx, dy;
 };
 
-// alpha = min(op * exp(min(power, 0)), 0.99), zeroed below 1/255
+// alpha = min(op * exp(min(power, 0)), 0.99), zeroed below 1/255, with
+// every rounding pinned in the plain twins' order
+// (render/cuda_raster.py:_chunk_alphas: power = -0.5 * (a*dx*dx + c*dy*dy)
+// - b*dx*dy, one rounding per operation, no contraction into FMAs). Every
+// kernel's alpha is then the twins' float, so a pair whose alpha lands at
+// the 1/255 gate falls on the same side in every kernel and twin;
+// contracted, an ulp of power flips such gates (~4e-3 of alpha each) on a
+// 1920x1080 frame of the kNN model.
 __device__ __forceinline__ PairAlpha pair_alpha(float px, float py, float mx,
                                                 float my, float a, float b,
                                                 float c, float op) {
   PairAlpha r;
-  r.dx = px - mx;
-  r.dy = py - my;
-  const float power = -0.5f * (a * r.dx * r.dx + c * r.dy * r.dy) - b * r.dx * r.dy;
+  r.dx = __fsub_rn(px, mx);
+  r.dy = __fsub_rn(py, my);
+  const float quad = __fadd_rn(__fmul_rn(__fmul_rn(a, r.dx), r.dx),
+                               __fmul_rn(__fmul_rn(c, r.dy), r.dy));
+  const float power = __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(b, r.dx), r.dy));
   r.power = fminf(power, 0.0f);
-  r.raw = op * expf(r.power);
+  r.e = expf(r.power);
+  r.raw = __fmul_rn(op, r.e);
   const float alpha = fminf(r.raw, kAlphaMax);
   r.alpha = alpha < kAlphaEps ? 0.0f : alpha;
   return r;

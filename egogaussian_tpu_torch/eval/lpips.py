@@ -108,7 +108,7 @@ class LPIPS(torch.nn.Module):
         weights: Optional[LPIPSWeights] = None,
         weights_path: Optional[str] = None,
         allow_random: bool = False,
-        device: torch.device = torch.device("cpu"),
+        device: torch.device = torch.device("cuda"),
     ):
         super().__init__()
         if weights is None and weights_path is not None:

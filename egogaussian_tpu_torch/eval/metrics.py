@@ -30,7 +30,7 @@ def evaluate_metrics(
     gts: Sequence[np.ndarray],
     hands: Sequence[np.ndarray],
     lpips_fn=None,
-    device: torch.device = torch.device("cpu"),
+    device: torch.device = torch.device("cuda"),
 ) -> Dict[str, float]:
     """Mean PSNR / SSIM (and LPIPS when a callable is given) over a split;
     each [C, H, W] frame is moved to `device` for its metrics."""

@@ -105,7 +105,7 @@ def calculate_metric(
     buckets: Dict[str, List[dict]],
     save_dir: Optional[str] = None,
     lpips_fn=None,
-    device: torch.device = torch.device("cpu"),
+    device: torch.device = torch.device("cuda"),
 ) -> Dict[str, Dict[str, float]]:
     """Hand-masked PSNR/SSIM/LPIPS per eval bucket, computed on `device`,
     and results.txt in the JAX package's layout (eval_metric.py:129-175)."""

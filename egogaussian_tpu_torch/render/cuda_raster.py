@@ -47,9 +47,9 @@ SUPPORTED_TS = (16, 32)
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-_SOURCES = ("tilegrid_common.cuh", "tilegrid_fwd.cu", "tilegrid_bwd.cu",
-            "stream_fwd.cu", "stream_bwd.cu", "window_chunked_fwd.cu",
-            "window_chunked_bwd.cu", "window_fwd.cu", "window_bwd.cu")
+_SOURCES = ("tilegrid_common.cuh", "tilegrid_cluster.cuh", "tilegrid_fwd.cu",
+            "tilegrid_bwd.cu", "stream_fwd.cu", "stream_bwd.cu", "window_chunked_fwd.cu",
+            "window_chunked_bwd.cu", "window_fwd.cu", "window_bwd.cu", "fma_peak.cu")
 # compile flags of each source; the objects are then linked with -shared
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -130,10 +130,12 @@ def kernel_library() -> ctypes.CDLL:
     path, _ = build_library()
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.egogs_tilegrid_fwd.restype = i
-    lib.egogs_tilegrid_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
-    lib.egogs_tilegrid_bwd.restype = i
-    lib.egogs_tilegrid_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    for fn in (lib.egogs_tilegrid_fwd, lib.egogs_tilegrid_fwd_nocull):
+        fn.restype = i
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    for fn in (lib.egogs_tilegrid_bwd, lib.egogs_tilegrid_bwd_nocull):
+        fn.restype = i
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.egogs_stream_fwd.restype = i
     lib.egogs_stream_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
     lib.egogs_stream_bwd.restype = i
@@ -146,6 +148,8 @@ def kernel_library() -> ctypes.CDLL:
     lib.egogs_window_fwd.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.egogs_window_bwd.restype = i
     lib.egogs_window_bwd.argtypes = [p] * 14 + [i] * 5 + [p]
+    lib.egogs_fma_chain.restype = i
+    lib.egogs_fma_chain.argtypes = [p, p, i, i, p]
     return lib
 
 
@@ -179,6 +183,8 @@ def _check(meta, vals, bg, ts, tensors=()):
             raise ValueError("all compositor inputs must be on one device")
         if not x.is_contiguous():
             raise ValueError("compositor inputs must be contiguous")
+    if vals.device.type == "cuda" and vals.data_ptr() % 16:
+        raise ValueError("vals must be 16-byte aligned (chunks load by bulk copy)")
     return n_tiles, d
 
 
@@ -351,26 +357,51 @@ def composite_tilegrid_plain_bwd(meta, vals, bg, img, alpha, depth,
 # Wrappers: kernel on CUDA tensors, plain twin on CPU tensors
 # ---------------------------------------------------------------------------
 
-def tilegrid_forward(meta, vals, bg, ts: int, n_tx: int):
-    """Forward compositor. CUDA tensors launch the kernel; CPU tensors run
-    composite_tilegrid_plain_fwd."""
-    n_tiles, d = _check(meta, vals, bg, ts)
-    if vals.device.type == "cpu":
-        return composite_tilegrid_plain_fwd(meta, vals, bg, ts, n_tx)
-    if vals.device.type != "cuda":
-        raise ValueError(f"no tile-grid compositor for device {vals.device}")
+def _launch_fwd(symbol, meta, vals, bg, ts, n_tx):
+    n_tiles, d = meta.shape[1], bg.shape[1]
     p = ts * ts
     img = torch.empty((n_tiles, p, d), dtype=torch.float32, device=vals.device)
     alpha = torch.empty((n_tiles, p, 1), dtype=torch.float32, device=vals.device)
     depth = torch.empty((n_tiles, p, 1), dtype=torch.float32, device=vals.device)
-    lib = kernel_library()
     stream = torch.cuda.current_stream(vals.device).cuda_stream
-    rc = lib.egogs_tilegrid_fwd(
+    rc = getattr(kernel_library(), symbol)(
         meta.data_ptr(), vals.data_ptr(), bg.data_ptr(), img.data_ptr(),
         alpha.data_ptr(), depth.data_ptr(), n_tiles, n_tx, ts, d, stream)
     _launch_check(rc, "tilegrid forward")
-    TileGridCompositor.fwd_launches[d] += 1
     return img, alpha, depth
+
+
+def tilegrid_forward(meta, vals, bg, ts: int, n_tx: int):
+    """Forward compositor. CUDA tensors launch the kernel; CPU tensors run
+    composite_tilegrid_plain_fwd."""
+    _, d = _check(meta, vals, bg, ts)
+    if vals.device.type == "cpu":
+        return composite_tilegrid_plain_fwd(meta, vals, bg, ts, n_tx)
+    if vals.device.type != "cuda":
+        raise ValueError(f"no tile-grid compositor for device {vals.device}")
+    out = _launch_fwd("egogs_tilegrid_fwd", meta, vals, bg, ts, n_tx)
+    TileGridCompositor.fwd_launches[d] += 1
+    return out
+
+
+def tilegrid_forward_nocull(meta, vals, bg, ts: int, n_tx: int):
+    """The forward kernel instantiated with its per-warp cull compiled out
+    (CUDA tensors only; not counted). A check instance: its outputs must
+    equal tilegrid_forward's bit for bit."""
+    _check(meta, vals, bg, ts)
+    if vals.device.type != "cuda":
+        raise ValueError("the cull-free check instance runs on CUDA tensors only")
+    return _launch_fwd("egogs_tilegrid_fwd_nocull", meta, vals, bg, ts, n_tx)
+
+
+def _launch_bwd(symbol, meta, vals, bg, tensors, ts, n_tx, exact_total):
+    dvals = torch.empty_like(vals)
+    stream = torch.cuda.current_stream(vals.device).cuda_stream
+    rc = getattr(kernel_library(), symbol)(
+        *(x.data_ptr() for x in (meta, vals, bg, *tensors, dvals)),
+        meta.shape[1], n_tx, ts, bg.shape[1], int(exact_total), stream)
+    _launch_check(rc, "tilegrid backward")
+    return dvals
 
 
 def tilegrid_backward(meta, vals, bg, img, alpha, depth, gimg, galpha, gdepth,
@@ -379,25 +410,31 @@ def tilegrid_backward(meta, vals, bg, img, alpha, depth, gimg, galpha, gdepth,
     flavor `exact_total` names (it writes only the slots of tiles in meta);
     CPU tensors run composite_tilegrid_plain_bwd."""
     d = bg.shape[1]
-    _check(meta, vals, bg, ts, tensors=[(img, d), (alpha, 1), (depth, 1),
-                                         (gimg, d), (galpha, 1), (gdepth, 1)])
+    tensors = (img, alpha, depth, gimg, galpha, gdepth)
+    _check(meta, vals, bg, ts, tensors=list(zip(tensors, (d, 1, 1, d, 1, 1))))
     if vals.device.type == "cpu":
-        return composite_tilegrid_plain_bwd(meta, vals, bg, img, alpha, depth,
-                                            gimg, galpha, gdepth, ts, n_tx, exact_total)
+        return composite_tilegrid_plain_bwd(meta, vals, bg, *tensors, ts, n_tx, exact_total)
     if vals.device.type != "cuda":
         raise ValueError(f"no tile-grid compositor for device {vals.device}")
-    dvals = torch.empty_like(vals)
-    lib = kernel_library()
-    stream = torch.cuda.current_stream(vals.device).cuda_stream
-    rc = lib.egogs_tilegrid_bwd(
-        *(x.data_ptr() for x in (meta, vals, bg, img, alpha, depth, gimg, galpha,
-                                 gdepth, dvals)),
-        meta.shape[1], n_tx, ts, d, int(exact_total), stream)
-    _launch_check(rc, "tilegrid backward")
+    dvals = _launch_bwd("egogs_tilegrid_bwd", meta, vals, bg, tensors, ts, n_tx, exact_total)
     counts = (TileGridCompositor.bwd_exact_launches if exact_total
               else TileGridCompositor.bwd_launches)
     counts[d] += 1
     return dvals
+
+
+def tilegrid_backward_nocull(meta, vals, bg, img, alpha, depth, gimg, galpha, gdepth,
+                             ts: int, n_tx: int, exact_total: bool = False):
+    """The backward kernel of either flavor instantiated with its per-warp
+    cull compiled out (CUDA tensors only; not counted). A check instance:
+    its gradients must equal tilegrid_backward's bit for bit."""
+    d = bg.shape[1]
+    tensors = (img, alpha, depth, gimg, galpha, gdepth)
+    _check(meta, vals, bg, ts, tensors=list(zip(tensors, (d, 1, 1, d, 1, 1))))
+    if vals.device.type != "cuda":
+        raise ValueError("the cull-free check instance runs on CUDA tensors only")
+    return _launch_bwd("egogs_tilegrid_bwd_nocull", meta, vals, bg, tensors, ts, n_tx,
+                       exact_total)
 
 
 class TileGridCompositor(torch.autograd.Function):

@@ -341,3 +341,105 @@ def test_tiled_render_matches_oracle(dev):
     torch.cuda.synchronize()
     assert wr.WindowChunkedCompositor.fwd_launches[3] == 1
     assert wr.WindowChunkedCompositor.bwd_launches[3] == 1
+
+
+def _chip_smoke():
+    """chip_smoke.py at the root of the checkout (its hand-made layouts)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _deep_layout(dev, d, tile_size):
+    """1,000 Gaussians at 48x32: tiles of 170-630 pairs, two to five chunks."""
+    means, cov3d, colors, ops = _scene(dev, n=1000, seed=9)
+    lay = tilegrid_layout(_project(dev, means, cov3d), colors[:, :d], ops, W, H,
+                          TileConfig(max_pairs=16384, tile_size=tile_size))
+    return lay.meta, lay.vals.detach().contiguous(), lay.n_tx
+
+
+@pytest.mark.parametrize("tile_size", [16, 32])
+@pytest.mark.parametrize("d", [3, 1])
+def test_tilegrid_cull_is_exact(dev, d, tile_size):
+    """The redesigned pair (one cluster per tile, the per-warp reach-box
+    cull) against the same kernels with the cull compiled out: forward and
+    both backward flavors bit for bit, and against the twins."""
+    meta, vals, n_tx = _deep_layout(dev, d, tile_size)
+    bg = torch.rand((1, d), device=dev)
+    out = cr.tilegrid_forward(meta, vals, bg, tile_size, n_tx)
+    for a, b in zip(out, cr.tilegrid_forward_nocull(meta, vals, bg, tile_size, n_tx)):
+        assert torch.equal(a, b)
+    p_out = cr.composite_tilegrid_plain_fwd(meta, vals, bg, tile_size, n_tx)
+    for k, p, tol in zip(out, p_out, (3e-4, 3e-4, 3e-3)):
+        torch.testing.assert_close(k, p, atol=tol, rtol=0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cots = [torch.randn(o.shape, generator=gen, device=dev) * 1e-2 for o in out]
+    fit = int(meta[2, 0])
+    for exact in (False, True):
+        k_d = cr.tilegrid_backward(meta, vals, bg, *out, *cots, tile_size, n_tx,
+                                   exact_total=exact)[:fit]
+        n_d = cr.tilegrid_backward_nocull(meta, vals, bg, *out, *cots, tile_size, n_tx,
+                                          exact_total=exact)[:fit]
+        assert torch.equal(k_d, n_d)
+        p_d = cr.composite_tilegrid_plain_bwd(meta, vals, bg, *out, *cots, tile_size, n_tx,
+                                              exact_total=exact)[:fit]
+        torch.testing.assert_close(k_d, p_d, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("exact_total", [False, True])
+def test_tilegrid_backwards_repeat_bit_for_bit(dev, exact_total):
+    """Both flavors at ts 32 (four CTAs per tile, the cluster-ordered sum):
+    two runs are identical."""
+    meta, vals, n_tx = _deep_layout(dev, 3, 32)
+    bg = torch.zeros((1, 3), device=dev)
+    out = cr.tilegrid_forward(meta, vals, bg, 32, n_tx)
+    cots = [torch.ones_like(o) for o in out]
+    fit = int(meta[2, 0])
+    a, b = (cr.tilegrid_backward(meta, vals, bg, *out, *cots, 32, n_tx,
+                                 exact_total=exact_total)[:fit] for _ in range(2))
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [3, 1])
+def test_tile_wide_saturation_vote(dev, d):
+    """chip_smoke.quadrant_scene: one quadrant of a tile saturates after two
+    chunks while the rest stays live. The third chunk's gradient rows are
+    zero exactly where the twin's are: nonzero for the splats seen only in
+    the saturated quadrant (the vote is the tile's, not the quadrant's), and
+    all zero in the other tile's skipped chunk."""
+    meta, vals, bg, n_tx, _, _ = (torch.as_tensor(x, device=dev) if not isinstance(x, int)
+                                  else x for x in _chip_smoke().quadrant_scene(d))
+    out = cr.composite_tilegrid_plain_fwd(meta, vals, bg, 32, n_tx)
+    for k, p, tol in zip(cr.tilegrid_forward(meta, vals, bg, 32, n_tx), out, (3e-4, 3e-4, 3e-3)):
+        torch.testing.assert_close(k, p, atol=tol, rtol=0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cots = [torch.randn(o.shape, generator=gen, device=dev) * 1e-3 for o in out]
+    for exact in (False, True):
+        k_d = cr.tilegrid_backward(meta, vals, bg, *out, *cots, 32, n_tx, exact_total=exact)
+        p_d = cr.composite_tilegrid_plain_bwd(meta, vals, bg, *out, *cots, 32, n_tx,
+                                              exact_total=exact)
+        torch.testing.assert_close(k_d, p_d, atol=2e-4, rtol=1e-3)
+        assert torch.equal(k_d[[2, 4]] == 0, p_d[[2, 4]] == 0)
+        assert bool((p_d[2, :7 + d, :20] != 0).any(dim=0).all())
+        assert bool((k_d[4] == 0).all())
+
+
+def test_fma_chain_matches_twin(dev):
+    """The FMA-peak probe against its twin at n_loop 1,000 (relative 1e-6),
+    and the measured rate is a positive number."""
+    from egogaussian_tpu_torch.utils import peak
+
+    x = torch.as_tensor(np.random.RandomState(0).uniform(1.0, 1.45, (64, 128)).astype(np.float32),
+                        device=dev)
+    peak.FmaChain.reset_launch_counts()
+    k = peak.fma_chain(x, 1000)
+    torch.cuda.synchronize()
+    assert peak.FmaChain.launches == 1
+    torch.testing.assert_close(k, peak.fma_chain_plain(x, 1000), atol=0, rtol=1e-6)
+    assert peak.fma_peak_gflops(dev, n_loop=10_000) > 0

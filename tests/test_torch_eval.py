@@ -10,6 +10,7 @@ difference of ~1e-6 can flip a level: quantized renders may differ by one
 level (1/255), PSNR by 0.01 dB and SSIM by 1e-4.
 """
 import dataclasses
+import inspect
 import json
 import os
 import shutil
@@ -42,6 +43,7 @@ from egogaussian_tpu_torch.eval import lpips
 from egogaussian_tpu_torch.eval.metrics import evaluate_metrics, masked_psnr, masked_ssim
 from egogaussian_tpu_torch.eval.render_results import (
     _quantize8,
+    calculate_metric,
     render_novel_view,
     render_results,
 )
@@ -69,11 +71,20 @@ def test_metrics_match_jax():
     np.testing.assert_allclose(float(masked_ssim(r, g, h)),
                                float(j_ssim(*(jnp.asarray(x[0]) for x in (renders, gts, hands)))),
                                rtol=1e-5)
-    tm = evaluate_metrics(renders, gts, hands, lpips_fn=lpips.LPIPS(allow_random=True))
+    tm = evaluate_metrics(renders, gts, hands, lpips_fn=lpips.LPIPS(allow_random=True, device=CPU),
+                          device=CPU)
     jm = j_evaluate(renders, gts, hands, lpips_fn=j_lpips.LPIPS(allow_random=True))
     assert set(tm) == set(jm) == {"psnr", "ssim", "lpips"}
     for k in tm:
         np.testing.assert_allclose(tm[k], jm[k], rtol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("fn", [evaluate_metrics, calculate_metric, lpips.LPIPS.__init__],
+                         ids=["evaluate_metrics", "calculate_metric", "LPIPS"])
+def test_eval_entry_points_default_to_the_card(fn):
+    """Like JAX's, which run on the default device (the accelerator), the
+    port's metric entry points compute on CUDA unless given a device."""
+    assert inspect.signature(fn).parameters["device"].default == torch.device("cuda")
 
 
 def test_lpips_weights_match_jax_and_round_trip(tmp_path):
@@ -98,7 +109,7 @@ def test_lpips_weights_match_jax_and_round_trip(tmp_path):
     for a, b in zip(tw.convs + tw.biases + tw.lins, again.convs + again.biases + again.lins):
         np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError, match="calibrated weights"):
-        lpips.LPIPS()
+        lpips.LPIPS(device=CPU)
 
 
 @pytest.fixture(scope="module")

@@ -39,7 +39,8 @@ def test_port_modules_found():
                      "egogaussian_tpu_torch.eval.render_results",
                      "egogaussian_tpu_torch.data.colmap",
                      "egogaussian_tpu_torch.data.export_colmap",
-                     "egogaussian_tpu_torch.cli.eval"):
+                     "egogaussian_tpu_torch.cli.eval",
+                     "egogaussian_tpu_torch.utils.peak"):
         assert expected in names
 
 
@@ -79,3 +80,20 @@ def test_no_jax_import_statements():
                         if mod.split(".")[0] in ("jax", "jaxlib", "egogaussian_tpu"):
                             bad.append(f"{path}:{i}: {s}")
     assert not bad, bad
+
+
+def test_peak_module_imports_without_jax_triton_or_bench():
+    """The FMA-peak probe is the port of bench.py's `_vpu_peak_gflops`; it
+    keeps its own copy of what it needs and builds its kernel with nvcc."""
+    script = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'jaxlib', 'egogaussian_tpu', 'triton', 'bench'):\n"
+        "    sys.modules[m] = None\n"
+        "importlib.import_module('egogaussian_tpu_torch.utils.peak')\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
