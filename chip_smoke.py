@@ -18,7 +18,8 @@ nonzero and no result line is printed):
               default one; the tile-grid kernels against themselves with
               the per-warp cull compiled out and both backwards twice, bit
               for bit; a hand-made layout that pins the tile-wide
-              saturation vote (quadrant_scene); the simple windowed pair
+              saturation vote (render/probe_layouts.py:quadrant_scene);
+              the simple windowed pair
               also against the chunked one, and both windowed backwards
               twice, bit for bit; the cuda render (tile-grid and stream)
               against the oracle; the exact-total render's gradients
@@ -52,7 +53,8 @@ nonzero and no result line is printed):
  11. checks after the paths: path 3's frames against backend="cuda"
               (DEEP_FWD_TOL, 0 dropped pairs), path 4 against the twins and
               the chunked pair, every kernel against its twin at path 2's
-              own shapes, the FMA chain against its twin
+              own shapes, the FMA chain against its twin at the peak
+              path's shapes (bit for bit) and the SM clock under an FMA load
  12. timing:  kernel vs plain twin (CUDA events) at the slice's shapes
               (rows 1-3 also at 1920x1080), and each kernel's bound (bytes
               over the HBM rate or instructions over the float32
@@ -269,66 +271,16 @@ def cull_and_repeat(meta, vals, bg2, k_out, saved, cots, k_d, k_e, ts, n_tx):
             "bwd_repeat": torch.equal(k_d, r_d), "bwd_exact_repeat": torch.equal(k_e, r_e)}
 
 
-def quadrant_scene(d: int, seed: int = 5):
-    """A hand-made tile-grid layout that pins the tile-wide saturation vote
-    (ts 32, 64x32 pixels, two tiles; float32 numpy):
-      tile 0, chunks 0-1: one steep splat (conic 20, op 1e4: alpha 0.99 at
-        the 4 pixels of its 2x2 block, 0 at every other pixel) per 2x2
-        block of quadrant (0, 0), 4 layers, so that quadrant's T falls to
-        ~1e-8 while the rest of the tile stays at 1. Chunk 2 holds 20
-        splats seen only inside that quadrant and 20 in the lower half. The
-        tile-wide rule composites chunk 2 everywhere, so the first 20 get
-        tiny nonzero gradients; a per-quadrant vote would zero them.
-      tile 1: chunk 0 saturates the whole tile (broad op-1e6 splats on an
-        8-px grid, 8 layers); its chunk 1 (30 pairs) is skipped: zeros.
-    Returns (meta [3, 2] int32, vals [5, ch16, 128], bg [1, D], n_tx, W, H);
-    slots 2 and 4 are the later chunks."""
-    rng = np.random.RandomState(seed)
-    ch16 = ((7 + d) + 7) // 8 * 8
-
-    def rows(mx, my, a, op):
-        n = len(mx)
-        r = np.zeros((n, ch16), np.float32)
-        r[:, 0], r[:, 1], r[:, 2], r[:, 4], r[:, 5] = mx, my, a, a, op
-        r[:, 3] = rng.uniform(-0.1, 0.1, n) * a
-        r[:, 6:6 + d] = rng.rand(n, d)
-        r[:, 6 + d] = rng.uniform(1.0, 5.0, n)
-        return r
-
-    def grid(x0, step, n_side, layers, a, op, x_off=0.0):
-        g = np.arange(n_side) * step + x0
-        mx, my = np.meshgrid(g + x_off, g, indexing="xy")
-        n = n_side * n_side * layers
-        return rows(np.tile(mx.ravel(), layers) + rng.uniform(-0.1, 0.1, n),
-                    np.tile(my.ravel(), layers) + rng.uniform(-0.1, 0.1, n),
-                    np.full(n, a), np.full(n, op))
-
-    def splats(n, x_lo, x_hi, y_lo, y_hi):
-        return rows(rng.uniform(x_lo, x_hi, n), rng.uniform(y_lo, y_hi, n), np.full(n, 0.5),
-                    rng.uniform(0.3, 0.9, n))
-
-    quad = grid(1.0, 2.0, 8, 4, 20.0, 1e4)  # 256 pairs: chunks 0 and 1
-    later0 = np.concatenate([splats(20, 3.0, 10.0, 3.0, 10.0), splats(20, 2.0, 30.0, 20.0, 28.0)])
-    full1 = grid(4.0, 8.0, 4, 8, 0.5, 1e6, x_off=32.0)
-    later1 = splats(30, 34.0, 62.0, 2.0, 30.0)
-    chunks = [quad[:128], quad[128:], later0, full1, later1]
-    vals = np.zeros((len(chunks), ch16, 128), np.float32)
-    for slot, r in enumerate(chunks):
-        vals[slot, :, :len(r)] = r.T
-    meta = np.array([[0, 3], [256 + len(later0), 128 + len(later1)], [5, 5]], np.int32)
-    bg = np.array([[0.2, 0.1, 0.4][:d]], np.float32)
-    return meta, vals, bg, 2, 64, 32
-
-
 def check_quadrant_vote(dev, errs):
-    """The tile-grid kernels on quadrant_scene at D = 3 and 1: outputs and
-    both backward flavors against the twins; the later chunks' gradient
-    rows zero exactly where the twin's are (tile 0's quadrant-only splats
-    nonzero, tile 1's skipped chunk all zeros); cull-off and repeat bit
-    for bit."""
+    """The tile-grid kernels on render/probe_layouts.py:quadrant_scene at
+    D = 3 and 1: outputs and both backward flavors against the twins; the
+    later chunks' gradient rows zero exactly where the twin's are (tile
+    0's quadrant-only splats nonzero, tile 1's skipped chunk all zeros);
+    cull-off and repeat bit for bit."""
     import torch
 
     from egogaussian_tpu_torch.render import cuda_raster as cr
+    from egogaussian_tpu_torch.render.probe_layouts import quadrant_scene
 
     for d in (3, 1):
         meta, vals, bg, n_tx, _, _ = (torch.as_tensor(x, device=dev) if isinstance(x, np.ndarray)
@@ -1371,49 +1323,41 @@ def bounds_of(kind, d, covered, dense, n_bytes, instr_per_s):
 
 def kernel_bounds(d, p, lay, slay, wlay, instr_per_s):
     """Each kernel's bounds on this run's layouts (tilegrid_bounds for rows
-    1-3): the evaluations the data needs (gated alpha > 0, counted on each
-    layout) and the bytes each kernel must move (the pair rows it needs
-    read once, per-pixel planes, every gradient row it writes)."""
-    from egogaussian_tpu_torch.utils.peak import (
-        covered_evaluations_stream,
-        covered_evaluations_window,
-    )
-
+    1-3): the evaluations the data needs (gated alpha > 0; the three
+    layouts come from one binning that dropped no pair, so they hold the
+    same pairs and the tile-grid layout's count is every row's) and the
+    bytes each kernel must move (the pair rows it needs read once,
+    per-pixel planes, every gradient row it writes)."""
     f = 4
     out, cov, dense = tilegrid_bounds(d, p, lay, instr_per_s)
     n_tiles, pp = lay.meta.shape[1], lay.n_tx * lay.n_ty * p
-    ts, n_tx = lay.tile_size, lay.n_tx
     ch = 7 + d
     cnt = lay.meta[1].long()
     used_slots = int(((cnt + CHUNK_ROWS - 1) // CHUNK_ROWS).sum())
     srow_bytes = used_slots * CHUNK_ROWS * ch * f
     out_bytes = pp * (d + 2) * f
     cot_bytes = out_bytes
-    scov = covered_evaluations_stream(slay.meta, slay.vals, ts, n_tx, n_tiles)
     wcnt = wlay.counts.long()
-    wcov = covered_evaluations_window(wlay.counts, wlay.data, ts, n_tx)
-    wdense = int(wcnt.sum()) * p
     t_rows = wlay.data.shape[0] * wlay.data.shape[1]
     need_rows = int(wcnt.sum()) * ch * f
     out.update({
-        ("stream_fwd", d): bounds_of("fwd", d, scov, dense, 16 * slay.meta.shape[1]
+        ("stream_fwd", d): bounds_of("fwd", d, cov, dense, 16 * slay.meta.shape[1]
                                      + srow_bytes + out_bytes + pp * f, instr_per_s),
-        ("stream_bwd", d): bounds_of("bwd", d, scov, dense, 16 * slay.meta.shape[1]
+        ("stream_bwd", d): bounds_of("bwd", d, cov, dense, 16 * slay.meta.shape[1]
                                      + srow_bytes + pp * f + cot_bytes
                                      + slay.vals.numel() * f, instr_per_s),
-        ("window_chunked_fwd", d): bounds_of("fwd", d, wcov, wdense, 4 * n_tiles + need_rows
+        ("window_chunked_fwd", d): bounds_of("fwd", d, cov, dense, 4 * n_tiles + need_rows
                                              + out_bytes + pp * f, instr_per_s),
-        ("window_chunked_bwd", d): bounds_of("bwd", d, wcov, wdense, 4 * n_tiles + need_rows
+        ("window_chunked_bwd", d): bounds_of("bwd", d, cov, dense, 4 * n_tiles + need_rows
                                              + pp * f + cot_bytes + t_rows * ch * f,
                                              instr_per_s),
         # the simple pair reads every row's op to find the masked ones
-        ("window_fwd", d): bounds_of("fwd", d, wcov, wdense, t_rows * f + need_rows
+        ("window_fwd", d): bounds_of("fwd", d, cov, dense, t_rows * f + need_rows
                                      + out_bytes, instr_per_s),
-        ("window_bwd", d): bounds_of("bwd2", d, wcov, wdense, t_rows * f + need_rows
+        ("window_bwd", d): bounds_of("bwd2", d, cov, dense, t_rows * f + need_rows
                                      + cot_bytes + t_rows * ch * f, instr_per_s),
     })
-    return out, {"tilegrid": cov, "stream": scov, "window": wcov, "dense": dense,
-                 "window_dense": wdense}
+    return out, {"covered": cov, "dense": dense}
 
 
 CHUNK_ROWS = 128  # pairs per chunk of the padded layouts
@@ -1475,7 +1419,6 @@ def phase_timing(dev, vid, extent, errs, peak_gflops):
     from egogaussian_tpu_torch.render.project import project_gaussians
     from egogaussian_tpu_torch.render.tiled import stream_layout, tilegrid_layout, window_layout
     from egogaussian_tpu_torch.train.common import auto_tile_config, model_colors
-    from egogaussian_tpu_torch.utils.peak import patch_evaluations
 
     instr_per_s = peak_gflops * 1e9 / 2  # FMA = 2 flops, 1 instruction
     model = knn_model(dev, vid, extent)
@@ -1505,6 +1448,8 @@ def phase_timing(dev, vid, extent, errs, peak_gflops):
                 check_stream(case, slay, cots, d, bg, FWD_TOL, errs)
                 wlay = window_layout(proj, cols, opac, cam.width, cam.height, cfg)
                 check_window(case, wlay, bg, FWD_TOL, cam.width, cam.height, errs)
+                if int(slay.dropped) or int(wlay.dropped):
+                    raise AssertionError(f"timing frame {case}: stream or window pairs dropped")
                 b, counts = kernel_bounds(d, p, lay, slay, wlay, instr_per_s)
                 smeta, svals = slay.meta, slay.vals.detach().contiguous()
                 counts_w, data = wlay.counts, wlay.data.detach().contiguous()
@@ -1540,16 +1485,13 @@ def phase_timing(dev, vid, extent, errs, peak_gflops):
                         cuda_ms(lambda: wr.window_backward(*parts, bg2, *cot, ts, n_tx)),
                         cuda_ms(lambda: wr.composite_window_plain_bwd(*parts, bg2, *cot, ts, n_tx,
                                                                       16), iters=3, warmup=1))
-                extra = dict(slots=vals.shape[0], window_rows=data.shape[1],
-                             dropped=int(lay.dropped) + int(wlay.dropped))
+                extra = dict(slots=vals.shape[0], window_rows=data.shape[1], dropped=0)
                 times.update({(k, d): v for k, v in t.items()})
                 bounds.update(b)
             else:
                 b, cov, dense = tilegrid_bounds(d, p, lay, instr_per_s)
-                counts = {"tilegrid": cov, "dense": dense}
-                extra = dict(slots=vals.shape[0], dropped=int(lay.dropped))
-            # what rows 1-2 evaluate after their per-warp cull
-            counts["tilegrid_patches"] = patch_evaluations(meta, vals, ts, n_tx)
+                counts = {"covered": cov, "dense": dense}
+                extra = dict(slots=vals.shape[0], dropped=0)
             keys = [k for k in KERNELS if k in t]
             emit("timing", frame=f"{cam.width}x{cam.height}", d=d, tile_size=ts,
                  gaussians=int(model.num_alive), tiles=n_tiles, deepest_tile=int(meta[1].max()),
@@ -1583,10 +1525,13 @@ def phase_peak(dev):
     return gflops
 
 
-def check_peak(dev, errs):
-    """fma_chain against its twin on a seeded [64, 128] block in [1, 1.45)
-    at n_loop 1,000 (relative 1e-6), then its time, its twin's and its
-    bound at the peak phase's shapes. Returns (ms, plain_ms, bound)."""
+def check_peak(dev, errs, peak_gflops):
+    """fma_chain against its twin at the peak path's shapes: a seeded
+    [default_rows, 128] block in [1, 1.45) at n_loop 120,000, bit for bit
+    (each step moves x by 1-2 ulp, so a skipped step shows); the twin's
+    timed run is the one compared. Then the kernel's time and bound, and
+    the SM clock under a sustained FMA load (sm_clock_under_load) with the
+    issue-rate peak at that clock. Returns (ms, plain_ms, bound)."""
     import torch
 
     from egogaussian_tpu_torch.utils.peak import (
@@ -1597,22 +1542,53 @@ def check_peak(dev, errs):
         fma_chain_plain,
     )
 
-    x = torch.as_tensor(np.random.RandomState(0).uniform(1.0, 1.45, (64, 128)).astype(np.float32),
-                        device=dev)
-    k, p = fma_chain(x, 1000), fma_chain_plain(x, 1000)
-    rel = float(((k - p).abs() / p.abs()).max())
-    errs[("fma_peak", None)] = [max_err(k, p)]
     rows = default_rows(dev)
-    big = torch.ones((rows, 128), dtype=torch.float32, device=dev)
-    ms = cuda_ms(lambda: fma_chain(big, PEAK_LOOP), iters=3, warmup=1)
-    plain_ms = cuda_ms(lambda: fma_chain_plain(big, PEAK_LOOP), iters=1, warmup=0)
+    x = torch.as_tensor(np.random.RandomState(0).uniform(1.0, 1.45, (rows, 128))
+                        .astype(np.float32), device=dev)
+    k = fma_chain(x, PEAK_LOOP)
+    plain = []
+    plain_ms = cuda_ms(lambda: plain.append(fma_chain_plain(x, PEAK_LOOP)), iters=1, warmup=0)
+    err = max_err(k, plain[0])
+    same = torch.equal(k, plain[0])
+    errs[("fma_peak", None)] = [err]
+    ms = cuda_ms(lambda: fma_chain(x, PEAK_LOOP), iters=3, warmup=1)
     b = bound_fma(rows, PEAK_LOOP)
-    ok = rel <= 1e-6
-    emit("peak_check", max_rel_err=rel, max_abs_err=max_err(k, p), tol=1e-6, ms=ms,
-         plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], ok=ok)
-    if not ok:
-        raise AssertionError(f"fma_chain differs from its twin: {rel}")
+    emit("peak_check", rows=rows, n_loop=PEAK_LOOP, max_abs_err=err, tol=0.0,
+         bit_identical=same, ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], ok=same)
+    if not same:
+        raise AssertionError(f"fma_chain differs from its twin: max abs err {err}")
+    clock, max_clock, loaded = sm_clock_under_load(dev, rows)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    at_clock = sms * 128 * 2 * clock * 1e6 / 1e9  # FMA lanes x 2 flops x clock
+    emit("peak_clock", sm_clock_mhz=clock, max_sm_clock_mhz=max_clock, read_under_load=loaded,
+         issue_peak_gflops_at_clock=at_clock, fp32_gflops=peak_gflops,
+         share_of_issue_peak_at_clock=peak_gflops / at_clock, nvidia_smi=nvidia_smi_line())
     return ms, plain_ms, b
+
+
+def sm_clock_under_load(dev, rows, launches: int = 300):
+    """nvidia-smi's SM clock and maximum SM clock (MHz) read 0.5 s into a
+    queue of back-to-back fma_chain launches (rows x 128 chains of
+    10 x 120,000 FMAs each, ~4 s of work), and whether that work was still
+    running when the reading returned."""
+    import torch
+
+    from egogaussian_tpu_torch.utils.peak import PEAK_LOOP, fma_chain
+
+    x = torch.ones((rows, 128), dtype=torch.float32, device=dev)
+    torch.cuda.synchronize(dev)
+    for _ in range(launches):
+        fma_chain(x, 10 * PEAK_LOOP)
+    done = torch.cuda.Event()
+    done.record()
+    time.sleep(0.5)
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    loaded = not done.query()
+    torch.cuda.synchronize(dev)
+    clock, max_clock = (float(v) for v in res.stdout.strip().splitlines()[0].split(","))
+    return clock, max_clock, loaded
 
 
 def phase_profile(dev, vid, extent, out_dir, iters: int = 40, skip: int = 10):
@@ -1777,7 +1753,7 @@ def main(argv=None) -> int:
     compare_eval_frames(vid, eval_model, eval_seq, buckets)
     check_entry(entry, vid.cameras[0], errs)
     phase_frame_kernels(model, fr, errs)
-    ms, plain_ms, b = check_peak(dev, errs)
+    ms, plain_ms, b = check_peak(dev, errs, peak_gflops)
     times, bounds = phase_timing(dev, vid, extent, errs, peak_gflops)
     times[("fma_peak", None)] = (ms, plain_ms)
     bounds[("fma_peak", None)] = (b[0], b[1], b[0], None)

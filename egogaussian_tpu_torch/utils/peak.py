@@ -8,7 +8,7 @@ hand-written CUDA kernel (`csrc/fma_peak.cu`, built into the library of
 `render/cuda_raster.py`); `fma_chain_plain` is its twin;
 `fma_peak_gflops` times it with CUDA events.
 
-The bounds (`bound`, `ops_per_eval`, the covered-evaluation counts) are
+The bounds (`bound`, `ops_per_eval`, `covered_evaluations`) are
 the yardstick each compositor kernel's time is held against: the larger
 of the bytes it must move over the HBM rate and its operations over the
 float32 issue rate. Operations are counted as instructions (an add,
@@ -50,6 +50,7 @@ FMA_ADD = float(np.float32(1e-9))
 PEAK_LOOP = 120_000  # bench.py:257
 PEAK_REPS = 3  # bench.py:287
 THREADS_PER_SM = 2048  # resident threads per SM on Hopper
+TILE_BATCH = 256  # tiles per step of covered_evaluations (bounds its memory)
 
 
 # ---------------------------------------------------------------------------
@@ -87,115 +88,25 @@ def bound_fma(rows: int, n_loop: int, instr_per_s: float = FP32_INSTR_PER_S):
     return _larger(8 * n / HBM_BYTES_PER_S, n * n_loop / instr_per_s)
 
 
-def _count(alpha):
-    return torch.count_nonzero(alpha > 0)
-
-
-def covered_evaluations(meta, vals, ts: int, n_tx: int, tile_batch: int = 256) -> int:
+def covered_evaluations(meta, vals, ts: int, n_tx: int) -> int:
     """Pair-pixel evaluations of a tile-grid layout (meta [3, T], vals
     [n_slots, ch16, 128]) with gated alpha > 0, over every chunk of every
-    tile (no saturation skip), from the twin's own alpha."""
+    tile (no saturation skip), from the twin's own alpha. The stream layout
+    and the gather window of the same binning hold the same pairs, so when
+    no pair is dropped this is their count too."""
     start, cnt, n_chunks, _ = _chunk_schedule(meta)
     n_tiles = meta.shape[1]
     px, py = _pixel_coords(n_tiles, ts, n_tx, vals.device)
     lane = torch.arange(CHUNK, device=vals.device)
     total = torch.zeros((), dtype=torch.int64, device=vals.device)
     with torch.no_grad():
-        for b in range(0, n_tiles, tile_batch):
-            sl = slice(b, min(b + tile_batch, n_tiles))
+        for b in range(0, n_tiles, TILE_BATCH):
+            sl = slice(b, min(b + TILE_BATCH, n_tiles))
             for c in range(int(n_chunks[sl].max()) if n_tiles else 0):
                 live = c < n_chunks[sl]
                 blk = vals[torch.where(live, start[sl] + c, torch.zeros_like(start[sl]))]
                 lane_ok = ((lane[None] + c * CHUNK) < cnt[sl, None]) & live[:, None]
-                total += _count(_chunk_alphas(blk, px[sl], py[sl], lane_ok)[0])
-    return int(total)
-
-
-def _reach_boxes(blk):
-    """The tile-grid kernels' reach boxes (csrc/tilegrid_cluster.cuh:
-    reach_box) of chunks blk [T, ch16, 128], in float64: [T, 128, 4] as
-    (x_lo, x_hi, y_lo, y_hi); +-inf where the kernel never culls, an
-    empty box where it always does."""
-    mx, my, a, b, c, op = (blk[:, i].double() for i in range(6))
-    finite = torch.isfinite(blk[:, :6]).all(dim=1)
-    tau = 2.0 * torch.log(255.0 * op.clamp(min=1e-30)) + 2e-3
-    eta = (a + c) * 2.0 ** -18
-    big_a, big_c = a - eta, c - eta
-    det = big_a * big_c - b * b
-    pd = (big_a > 0) & (big_c > 0) & (det > 0)
-    empty = finite & ((op <= 0) | (tau < 0))
-    rx = torch.sqrt(torch.where(pd & ~empty, tau * big_c / det, 0.0)) + 0.0625
-    ry = torch.sqrt(torch.where(pd & ~empty, tau * big_a / det, 0.0)) + 0.0625
-    box = torch.stack([mx - rx, mx + rx, my - ry, my + ry], dim=-1)
-    inf = float("inf")
-    box = torch.where((~finite | ~pd)[..., None], box.new_tensor([-inf, inf, -inf, inf]), box)
-    return torch.where(empty[..., None], box.new_tensor([inf, -inf, inf, -inf]), box)
-
-
-def patch_evaluations(meta, vals, ts: int, n_tx: int, tile_batch: int = 256) -> int:
-    """Pair-pixel evaluations the tile-grid kernels run before their
-    saturation skip: 32 for every (pair, 8x4 warp patch) whose reach box
-    meets the patch (each warp walks only those pairs). Between the
-    covered count and the dense count."""
-    start, cnt, n_chunks, _ = _chunk_schedule(meta)
-    n_tiles, dev = meta.shape[1], vals.device
-    # patch extremes (pixel centers) inside a tile, in warp order per quadrant
-    q = torch.arange((ts // 16) ** 2 * 8, device=dev)
-    quad, warp = q // 8, q % 8
-    wx = (quad % (ts // 16)) * 16 + (warp % 2) * 8
-    wy = (quad // (ts // 16)) * 16 + (warp // 2) * 4
-    t = torch.arange(n_tiles, device=dev)
-    x0 = ((t % n_tx) * ts)[:, None] + wx[None] + 0.5  # [T, patches]
-    y0 = ((t // n_tx) * ts)[:, None] + wy[None] + 0.5
-    lane = torch.arange(CHUNK, device=dev)
-    total = torch.zeros((), dtype=torch.int64, device=dev)
-    with torch.no_grad():
-        for b in range(0, n_tiles, tile_batch):
-            sl = slice(b, min(b + tile_batch, n_tiles))
-            for c in range(int(n_chunks[sl].max()) if n_tiles else 0):
-                live = c < n_chunks[sl]
-                box = _reach_boxes(vals[torch.where(live, start[sl] + c,
-                                                    torch.zeros_like(start[sl]))])
-                lane_ok = ((lane[None] + c * CHUNK) < cnt[sl, None]) & live[:, None]
-                px0, py0 = x0[sl, :, None].double(), y0[sl, :, None].double()
-                hit = ~((box[:, None, :, 1] < px0) | (box[:, None, :, 0] > px0 + 7)
-                        | (box[:, None, :, 3] < py0) | (box[:, None, :, 2] > py0 + 3))
-                total += torch.count_nonzero(hit & lane_ok[:, None, :])
-    return 32 * int(total)
-
-
-def covered_evaluations_stream(meta, vals, ts: int, n_tx: int, n_tiles: int) -> int:
-    """The same count on a stream layout (meta [4, n_slots], vals
-    [n_slots*128, 7+D]): each tile's run of real chunks."""
-    from egogaussian_tpu_torch.render.stream_raster import _run_chunk, _runs
-
-    d = vals.shape[1] - 7
-    c0, n_real, tiles = _runs(meta)
-    px, py = _pixel_coords(n_tiles, ts, n_tx, vals.device)
-    total = torch.zeros((), dtype=torch.int64, device=vals.device)
-    with torch.no_grad():
-        for k in range(int(n_real.max()) if tiles.numel() else 0):
-            live, _, blk, lane_ok = _run_chunk(meta, vals, c0, n_real, k, d)
-            lane_ok = lane_ok & live[:, None]
-            total += _count(_chunk_alphas(blk, px[tiles], py[tiles], lane_ok)[0])
-    return int(total)
-
-
-def covered_evaluations_window(counts, data, ts: int, n_tx: int, tile_batch: int = 256) -> int:
-    """The same count on a gather window (counts [T], data [T, M, 7+D]):
-    each tile's rows below its count."""
-    n_tiles, m, _ = data.shape
-    cnt = torch.clamp(counts.to(torch.int64), 0, m)
-    px, py = _pixel_coords(n_tiles, ts, n_tx, data.device)
-    lane = torch.arange(CHUNK, device=data.device)
-    total = torch.zeros((), dtype=torch.int64, device=data.device)
-    with torch.no_grad():
-        for b in range(0, n_tiles, tile_batch):
-            sl = slice(b, min(b + tile_batch, n_tiles))
-            for k in range(-(-int(cnt[sl].max()) // CHUNK) if n_tiles else 0):
-                blk = data[sl, k * CHUNK:(k + 1) * CHUNK].transpose(1, 2)
-                lane_ok = (lane[None] + k * CHUNK) < cnt[sl, None]
-                total += _count(_chunk_alphas(blk, px[sl], py[sl], lane_ok)[0])
+                total += torch.count_nonzero(_chunk_alphas(blk, px[sl], py[sl], lane_ok)[0] > 0)
     return int(total)
 
 

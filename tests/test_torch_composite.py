@@ -130,3 +130,41 @@ def test_render_label_matches_jax():
     np.testing.assert_allclose(it.detach().numpy(), np.asarray(ij), atol=1e-6)
     np.testing.assert_allclose(tl.grad.numpy(), np.asarray(gl_j), atol=1e-7, rtol=1e-4)
     assert np.abs(np.asarray(gl_j)).max() > 1e-4
+
+
+@pytest.mark.parametrize("d", [3, 1])
+def test_quadrant_scene_matches_jax_tilegrid(d):
+    """render/probe_layouts.py:quadrant_scene, the layout that pins the
+    tile-wide saturation vote, through the port's tile-grid twins and the
+    JAX tile-grid kernel in interpret mode, both backward flavors: the
+    same outputs, and the later chunks' gradient rows zero at the same
+    places (tile 0's quadrant-only splats live, tile 1's skipped chunk all
+    zeros), so the card checks that hold the kernels to the twins on this
+    layout hold them to the TPU kernel's vote. Gradients reach 0.18 here
+    (the steep splats), 18x the file's other scenes, so their atol is 2e-5
+    of the largest one (float32 reassociation; 8e-6 measured)."""
+    import egogaussian_tpu.render.pallas_raster as j_pallas
+    from egogaussian_tpu_torch.render import cuda_raster as cr
+    from egogaussian_tpu_torch.render.probe_layouts import quadrant_scene
+
+    meta, vals, bg, n_tx, _, _ = quadrant_scene(d)
+    tm, tv, tb = (torch.as_tensor(x) for x in (meta, vals, bg))
+    out = cr.composite_tilegrid_plain_fwd(tm, tv, tb, 32, n_tx)
+    rng = np.random.RandomState(3)
+    cots = [(rng.randn(*o.shape) * 1e-3).astype(np.float32) for o in out]
+    for exact in (False, True):
+        comp = j_pallas.make_tilegrid_compositor(vals.shape[0], meta.shape[1], d, 32, n_tx,
+                                                 interpret=True, exact_total=exact)
+        jout, vjp = jax.vjp(lambda v: comp(jnp.asarray(meta), v, jnp.asarray(bg)),
+                            jnp.asarray(vals))
+        for a, b, atol in zip(out, jout, (1e-6, 1e-6, 1e-5)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=atol)
+        (gj,) = vjp(tuple(jnp.asarray(c) for c in cots))
+        gj = np.asarray(gj)
+        gt = cr.composite_tilegrid_plain_bwd(tm, tv, tb, *[o.detach() for o in out],
+                                             *(torch.as_tensor(c) for c in cots), 32, n_tx,
+                                             exact_total=exact).numpy()
+        np.testing.assert_allclose(gt, gj, atol=2e-5 * np.abs(gj).max(), rtol=1e-4)
+        np.testing.assert_array_equal(gt[[2, 4]] == 0, gj[[2, 4]] == 0)
+        assert (gj[2, :7 + d, :20] != 0).any(axis=0).all()
+        assert (gj[4] == 0).all()

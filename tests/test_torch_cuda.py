@@ -21,6 +21,7 @@ from egogaussian_tpu_torch.render import stream_raster as sr
 from egogaussian_tpu_torch.render import window_raster as wr
 from egogaussian_tpu_torch.render.api import render
 from egogaussian_tpu_torch.render.camera import Camera, look_at
+from egogaussian_tpu_torch.render.probe_layouts import quadrant_scene
 from egogaussian_tpu_torch.render.tiled import (
     TileConfig,
     stream_layout,
@@ -343,19 +344,6 @@ def test_tiled_render_matches_oracle(dev):
     assert wr.WindowChunkedCompositor.bwd_launches[3] == 1
 
 
-def _chip_smoke():
-    """chip_smoke.py at the root of the checkout (its hand-made layouts)."""
-    import importlib.util
-    import os
-
-    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                        "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def _deep_layout(dev, d, tile_size):
     """1,000 Gaussians at 48x32: tiles of 170-630 pairs, two to five chunks."""
     means, cov3d, colors, ops = _scene(dev, n=1000, seed=9)
@@ -408,13 +396,13 @@ def test_tilegrid_backwards_repeat_bit_for_bit(dev, exact_total):
 
 @pytest.mark.parametrize("d", [3, 1])
 def test_tile_wide_saturation_vote(dev, d):
-    """chip_smoke.quadrant_scene: one quadrant of a tile saturates after two
+    """probe_layouts.quadrant_scene: one quadrant of a tile saturates after two
     chunks while the rest stays live. The third chunk's gradient rows are
     zero exactly where the twin's are: nonzero for the splats seen only in
     the saturated quadrant (the vote is the tile's, not the quadrant's), and
     all zero in the other tile's skipped chunk."""
     meta, vals, bg, n_tx, _, _ = (torch.as_tensor(x, device=dev) if not isinstance(x, int)
-                                  else x for x in _chip_smoke().quadrant_scene(d))
+                                  else x for x in quadrant_scene(d))
     out = cr.composite_tilegrid_plain_fwd(meta, vals, bg, 32, n_tx)
     for k, p, tol in zip(cr.tilegrid_forward(meta, vals, bg, 32, n_tx), out, (3e-4, 3e-4, 3e-3)):
         torch.testing.assert_close(k, p, atol=tol, rtol=0)
@@ -431,8 +419,9 @@ def test_tile_wide_saturation_vote(dev, d):
 
 
 def test_fma_chain_matches_twin(dev):
-    """The FMA-peak probe against its twin at n_loop 1,000 (relative 1e-6),
-    and the measured rate is a positive number."""
+    """The FMA-peak probe against its twin at n_loop 1,000, bit for bit
+    (each step moves x by 1-2 ulp, so a skipped step shows), and the
+    measured rate is a positive number."""
     from egogaussian_tpu_torch.utils import peak
 
     x = torch.as_tensor(np.random.RandomState(0).uniform(1.0, 1.45, (64, 128)).astype(np.float32),
@@ -441,5 +430,5 @@ def test_fma_chain_matches_twin(dev):
     k = peak.fma_chain(x, 1000)
     torch.cuda.synchronize()
     assert peak.FmaChain.launches == 1
-    torch.testing.assert_close(k, peak.fma_chain_plain(x, 1000), atol=0, rtol=1e-6)
+    assert torch.equal(k, peak.fma_chain_plain(x, 1000))
     assert peak.fma_peak_gflops(dev, n_loop=10_000) > 0

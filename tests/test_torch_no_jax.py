@@ -40,7 +40,8 @@ def test_port_modules_found():
                      "egogaussian_tpu_torch.data.colmap",
                      "egogaussian_tpu_torch.data.export_colmap",
                      "egogaussian_tpu_torch.cli.eval",
-                     "egogaussian_tpu_torch.utils.peak"):
+                     "egogaussian_tpu_torch.utils.peak",
+                     "egogaussian_tpu_torch.render.probe_layouts"):
         assert expected in names
 
 
