@@ -17,8 +17,10 @@ nonzero and no result line is printed):
               at 320x240); the exact-total backward also against the
               default one; the tile-grid kernels against themselves with
               the per-warp cull compiled out and both backwards twice, bit
-              for bit; a hand-made layout that pins the tile-wide
-              saturation vote (render/probe_layouts.py:quadrant_scene);
+              for bit, and so the chunked windowed pair; a hand-made
+              layout that pins the tile-wide saturation vote
+              (render/probe_layouts.py:quadrant_scene) and a hand-made
+              window of the chunked pair's edge cases (window_probe);
               the simple windowed pair
               also against the chunked one, and both windowed backwards
               twice, bit for bit; the cuda render (tile-grid and stream)
@@ -51,19 +53,26 @@ nonzero and no result line is printed):
  10. peak:    (row 10's path) the card's float32 FMA rate through
               utils/peak.py:fma_peak_gflops, beside the published 67 TFLOP/s
  11. checks after the paths: path 3's frames against backend="cuda"
-              (DEEP_FWD_TOL, 0 dropped pairs), path 4 against the twins and
-              the chunked pair, every kernel against its twin at path 2's
-              own shapes, the FMA chain against its twin at the peak
-              path's shapes (bit for bit) and the SM clock under an FMA load
+              (DEEP_FWD_TOL, 0 dropped pairs) and, on each frame's gather
+              window, the chunked pair against its cull-off instances bit
+              for bit; path 4 against the twins and the chunked pair,
+              every kernel against its twin at path 2's own shapes, the
+              FMA chain against its twin at the peak path's shapes (bit
+              for bit) and the SM clock under an FMA load
  12. timing:  kernel vs plain twin (CUDA events) at the slice's shapes
-              (rows 1-3 also at 1920x1080), and each kernel's bound (bytes
-              over the HBM rate or instructions over the float32
+              (rows 1-3 and 6-7 also at 1920x1080, rows 6-7 also with
+              evaluation's own tile config, ts 16), the cull-off
+              instances of rows 1-3 and 6-7, and each kernel's bound
+              (bytes over the HBM rate or instructions over the float32
               instruction rate, whichever is larger) on the covered
               evaluations of the same inputs, beside the dense count's
               bound and the bound at the measured FMA rate
  13. profile: torch.profiler over std-mode steps at the slice's size:
               device time by kernel and the device's busy share
               (table in chiprun_out/chip_smoke/profile.txt)
+ 14. eval profile: torch.profiler over render_results on 8 frames of path
+              3(b): device time by op, busy share, host ops
+              (chiprun_out/chip_smoke/eval_profile.txt)
 Launch counters are set to 0 just before each path and read just after.
 Then the kernel table, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}}.
@@ -315,6 +324,26 @@ def check_quadrant_vote(dev, errs):
         errs.setdefault(("fwd", d), []).append(max(fwd_err.values()))
 
 
+def check_window_probe(dev, errs):
+    """The windowed kernels (check_window) on render/probe_layouts.py:
+    window_probe at D = 3 and 1, ts 16 and 32: a tile three chunks deep,
+    footprints across the quadrant and warp-patch edges, live rows past
+    each count, an empty tile, pairs on either side of the 1/255 gate."""
+    import torch
+
+    from egogaussian_tpu_torch.render.probe_layouts import window_probe
+    from egogaussian_tpu_torch.render.tiled import WindowLayout
+
+    for ts in (16, 32):
+        for d in (3, 1):
+            counts, data, bg, n_tx, w, h = window_probe(d, ts)
+            lay = WindowLayout(torch.as_tensor(counts, device=dev),
+                               torch.as_tensor(data, device=dev),
+                               torch.zeros((), dtype=torch.int64, device=dev), n_tx, 1, ts, 16)
+            check_window("window_probe", lay, torch.as_tensor(bg[0], device=dev), FWD_TOL, w, h,
+                         errs)
+
+
 def max_err(a, b) -> float:
     return float((a - b).abs().max()) if a.numel() else 0.0
 
@@ -387,13 +416,30 @@ def window_cotangents(outs, lay, d, width, height):
     return torch.autograd.grad(loss, leaves)
 
 
+def chunked_exactness(counts, data, bg2, ts, n_tx, k_out, logt, cots, k_d):
+    """The chunked windowed pair's exactness checks on one window: the
+    forward (outputs k_out) and the backward (gradient k_d, from logt and
+    cots) against the same kernels with the per-warp cull compiled out, and
+    the backward run again, all bit for bit."""
+    import torch
+
+    from egogaussian_tpu_torch.render import window_raster as wr
+
+    n_out = wr.window_chunked_forward_nocull(counts, data, bg2, ts, n_tx)
+    n_d = wr.window_chunked_backward_nocull(counts, data, bg2, logt, *cots, ts, n_tx)
+    r_d = wr.window_chunked_backward(counts, data, bg2, logt, *cots, ts, n_tx)
+    return {"fwd_cull_off": all(torch.equal(a, b) for a, b in zip(k_out, n_out)),
+            "bwd_cull_off": torch.equal(k_d, n_d), "bwd_repeat": torch.equal(k_d, r_d)}
+
+
 def check_window(name, lay, bg, tol, width, height, errs):
     """The four windowed kernels on one window (window_layout): each against
     its plain twin (forward within `tol`, gradients within GRAD_ATOL +
-    GRAD_RTOL), each backward run twice and bit-identical, and the simple
-    pair against the chunked pair on the same window (forward within `tol`,
-    gradients within FLAVOR_TOL norm-relative: the simple backward takes
-    the suffix as total - prefix, the chunked one sums it)."""
+    GRAD_RTOL), each backward run twice and bit-identical, the chunked pair
+    against its cull-off instances bit for bit (chunked_exactness), and the
+    simple pair against the chunked pair on the same window (forward within
+    `tol`, gradients within FLAVOR_TOL norm-relative: the simple backward
+    takes the suffix as total - prefix, the chunked one sums it)."""
     import torch
 
     from egogaussian_tpu_torch.render import window_raster as wr
@@ -408,7 +454,7 @@ def check_window(name, lay, bg, tol, width, height, errs):
     fwd_err = {k: max_err(a, b) for k, a, b in zip(keys, k_out, p_out)}
     cots = window_cotangents(p_out[:3], lay, d, width, height)
     k_d = wr.window_chunked_backward(counts, data, bg2, p_out[3], *cots, ts, n_tx)
-    k_d2 = wr.window_chunked_backward(counts, data, bg2, p_out[3], *cots, ts, n_tx)
+    same = chunked_exactness(counts, data, bg2, ts, n_tx, k_out, p_out[3], cots, k_d)
     p_d = wr.composite_window_chunked_plain_bwd(counts, data, bg2, p_out[3], *cots, ts, n_tx,
                                                 twin_batch)
     parts = split_window(lay)
@@ -422,18 +468,18 @@ def check_window(name, lay, bg, tol, width, height, errs):
     cross_fwd = {k: max_err(a, b) for k, a, b in zip(keys, ks_out, k_out)}
     cross_grad = norm_rel(ks_d, k_d)
     fwd_tol = dict(tol, logT=tol["image"])
-    repeat = torch.equal(k_d, k_d2) and torch.equal(ks_d, ks_d2)
+    same["simple_bwd_repeat"] = torch.equal(ks_d, ks_d2)
     ok = (all(fwd_err[k] <= fwd_tol[k] for k in fwd_tol)
           and all(sfwd_err[k] <= tol[k] for k in tol)
           and all(cross_fwd[k] <= tol[k] for k in tol)
           and grad_excess(k_d, p_d) <= 0.0 and grad_excess(ks_d, ps_d) <= 0.0
-          and cross_grad <= FLAVOR_TOL and repeat)
+          and cross_grad <= FLAVOR_TOL and all(same.values()))
     emit("window_check", case=name, d=d, tile_size=ts, window_rows=data.shape[1],
          deepest_tile=int(counts.max()), chunked_fwd_err=fwd_err,
          chunked_grad_max_abs_err=max_err(k_d, p_d), simple_fwd_err=sfwd_err,
          simple_grad_max_abs_err=max_err(ks_d, ps_d), simple_vs_chunked_fwd_err=cross_fwd,
          simple_vs_chunked_grad_norm_rel=cross_grad, grad_scale=float(p_d.abs().max()),
-         backward_repeats_bit_for_bit=repeat, ok=ok)
+         bit_identical=same, ok=ok)
     if not ok:
         raise AssertionError(f"windowed kernels out of tolerance: {name} d={d} ts={ts}")
     errs.setdefault(("window_chunked_fwd", d), []).append(max(fwd_err.values()))
@@ -518,8 +564,10 @@ def phase_kernels(dev, errs):
                     raise AssertionError(f"{name}: pairs dropped in the check window")
                 check_window(name, wlay, bg, tol, cam.width, cam.height, errs)
 
-    # 0) the tile-wide saturation vote, pinned on a hand-made layout
+    # 0) the tile-wide saturation vote and the chunked windowed pair's edge
+    # cases, pinned on hand-made layouts
     check_quadrant_vote(dev, errs)
+    check_window_probe(dev, errs)
     # 1) 60 Gaussians at 48x32 (tests/test_pallas_raster.py:23-36)
     cam = look_at_camera(48, 32, dev)
     means, cov3d, colors, ops = random_scene(60, 11, dev)
@@ -946,13 +994,14 @@ def phase_frame_kernels(model, fr, errs):
     flavor frame's state `fr`: the posed object model's cropped
     projection, built as pose_loss_grads renders it (D = 3, crop window
     with a partial bottom tile row), and the label render's full-frame
-    projection (D = 1)."""
+    projection (D = 1); the windowed kernels on the gather windows of the
+    same projections and tile config."""
     import torch
 
     from egogaussian_tpu_torch.models.pose import pose_to_se3
     from egogaussian_tpu_torch.render.crop import crop_window, mask_rect
     from egogaussian_tpu_torch.render.project import project_gaussians
-    from egogaussian_tpu_torch.render.tiled import stream_layout, tilegrid_layout
+    from egogaussian_tpu_torch.render.tiled import stream_layout, tilegrid_layout, window_layout
     from egogaussian_tpu_torch.train.common import model_colors
 
     cam, _, _, obj_mask = fr.batch.frame(fr.f)
@@ -988,8 +1037,12 @@ def phase_frame_kernels(model, fr, errs):
             slay = stream_layout(pr, cols, opac, cw, ch, scfg)
             if int(lay.dropped) or int(slay.dropped):
                 raise AssertionError(f"{case}: pairs dropped")
+            wlay = window_layout(pr, cols, opac, cw, ch, fr.base)
+            if int(wlay.dropped):
+                raise AssertionError(f"{case}: window pairs dropped")
             with torch.enable_grad():
                 cots = check_layout(case, lay, cols.shape[1], bg, FWD_TOL, cw, ch, errs)
+                check_window(case, wlay, bg, FWD_TOL, cw, ch, errs)
             check_stream(case, slay, cots, cols.shape[1], bg, FWD_TOL, errs)
 
 
@@ -1114,11 +1167,22 @@ def compare_eval_frames(vid, model, seq, buckets):
     evaluation rendered again through the tiled backend ("auto", no tile
     config) and through "cuda" with auto_tile_config, within DEEP_FWD_TOL,
     with 0 dropped pairs in both; render_results' image must be the
-    8-bit quantization of the tiled render."""
+    8-bit quantization of the tiled render. On each frame's gather window
+    (built as the tiled render builds it; the chunked forward on it must
+    give the render's image bit for bit) the chunked pair against its
+    cull-off instances and the backward repeated, bit for bit
+    (chunked_exactness, cotangents of scale 1e-3)."""
     import torch
 
     from egogaussian_tpu_torch.eval.render_results import _quantize8
-    from egogaussian_tpu_torch.train.common import auto_tile_config, render_gaussians
+    from egogaussian_tpu_torch.render import window_raster as wr
+    from egogaussian_tpu_torch.render.project import project_gaussians
+    from egogaussian_tpu_torch.render.tiled import _untile, window_layout
+    from egogaussian_tpu_torch.train.common import (
+        auto_tile_config,
+        model_colors,
+        render_gaussians,
+    )
 
     accum_T, accum_R = seq.accum_T(), seq.accum_R()
     bg = torch.zeros(3, device=model.device)
@@ -1126,6 +1190,9 @@ def compare_eval_frames(vid, model, seq, buckets):
     worst = {k: 0.0 for k in DEEP_FWD_TOL}
     dropped = {"tiled": 0, "cuda": 0}
     same_as_results = True
+    exact = {"window_gives_the_render": True}
+    gen = torch.Generator(device=model.device).manual_seed(11)
+    is_obj = (model.aux.is_object == 1)[:, None]
     with torch.no_grad():
         for f, cam in enumerate(vid.cameras):
             cfg = auto_tile_config(model, cam)
@@ -1139,12 +1206,33 @@ def compare_eval_frames(vid, model, seq, buckets):
             dropped["cuda"] += int(rc.dropped_pairs)
             same_as_results &= bool(np.array_equal(_quantize8(rt.image.cpu().numpy()),
                                                    by_name[cam.image_name]))
+            # the frame's gather window, as render_gaussians -> composite_tiled build it
+            xyz = model.params.xyz
+            xyz = torch.where(is_obj, xyz @ accum_T[f][:3, :3].T + accum_T[f][:3, 3], xyz)
+            proj = project_gaussians(xyz, model.covariance_rotated(accum_R[f], 1), cam.viewmat,
+                                     cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height,
+                                     valid_mask=model.aux.alive)
+            lay = window_layout(proj, model_colors(model), model.opacity, cam.width, cam.height)
+            data, bg2 = lay.data.contiguous(), bg[None].contiguous()
+            k_out = wr.window_chunked_forward(lay.counts, data, bg2, lay.tile_size, lay.n_tx)
+            exact["window_gives_the_render"] &= torch.equal(
+                _untile(k_out[0], lay.n_tx, lay.n_ty, lay.tile_size, cam.width, cam.height),
+                rt.image)
+            cots = [torch.randn(x.shape, generator=gen, device=x.device) * 1e-3
+                    for x in k_out[:3]]
+            k_d = wr.window_chunked_backward(lay.counts, data, bg2, k_out[3], *cots,
+                                             lay.tile_size, lay.n_tx)
+            for k, v in chunked_exactness(lay.counts, data, bg2, lay.tile_size, lay.n_tx, k_out,
+                                          k_out[3], cots, k_d).items():
+                exact[k] = exact.get(k, True) and v
     ok = (all(worst[k] <= DEEP_FWD_TOL[k] for k in worst) and not any(dropped.values())
-          and same_as_results)
+          and same_as_results and all(exact.values()))
     emit("eval_vs_cuda", frames=len(vid.cameras), max_abs_err=worst, tol=DEEP_FWD_TOL,
-         dropped_pairs=dropped, results_are_quantized_tiled_renders=same_as_results, ok=ok)
+         dropped_pairs=dropped, results_are_quantized_tiled_renders=same_as_results,
+         tile_size=lay.tile_size, tiles=int(lay.counts.shape[0]), bit_identical=exact, ok=ok)
     if not ok:
-        raise AssertionError(f"tiled eval renders disagree with cuda: {worst}, {dropped}")
+        raise AssertionError(f"tiled eval renders disagree with cuda or the cull-off kernels: "
+                             f"{worst}, {dropped}, {exact}")
 
 
 TILED_STEPS = 20
@@ -1323,29 +1411,33 @@ def bounds_of(kind, d, covered, dense, n_bytes, instr_per_s):
 
 def kernel_bounds(d, p, lay, slay, wlay, instr_per_s):
     """Each kernel's bounds on this run's layouts (tilegrid_bounds for rows
-    1-3): the evaluations the data needs (gated alpha > 0; the three
-    layouts come from one binning that dropped no pair, so they hold the
-    same pairs and the tile-grid layout's count is every row's) and the
-    bytes each kernel must move (the pair rows it needs read once,
-    per-pixel planes, every gradient row it writes)."""
+    1-3; the stream rows only with a stream layout slay): the evaluations
+    the data needs (gated alpha > 0; the three layouts come from one
+    binning that dropped no pair, so they hold the same pairs and the
+    tile-grid layout's count is every row's) and the bytes each kernel
+    must move (the pair rows it needs read once, per-pixel planes, every
+    gradient row it writes)."""
     f = 4
     out, cov, dense = tilegrid_bounds(d, p, lay, instr_per_s)
     n_tiles, pp = lay.meta.shape[1], lay.n_tx * lay.n_ty * p
     ch = 7 + d
-    cnt = lay.meta[1].long()
-    used_slots = int(((cnt + CHUNK_ROWS - 1) // CHUNK_ROWS).sum())
-    srow_bytes = used_slots * CHUNK_ROWS * ch * f
     out_bytes = pp * (d + 2) * f
     cot_bytes = out_bytes
+    if slay is not None:
+        cnt = lay.meta[1].long()
+        used_slots = int(((cnt + CHUNK_ROWS - 1) // CHUNK_ROWS).sum())
+        srow_bytes = used_slots * CHUNK_ROWS * ch * f
+        out.update({
+            ("stream_fwd", d): bounds_of("fwd", d, cov, dense, 16 * slay.meta.shape[1]
+                                         + srow_bytes + out_bytes + pp * f, instr_per_s),
+            ("stream_bwd", d): bounds_of("bwd", d, cov, dense, 16 * slay.meta.shape[1]
+                                         + srow_bytes + pp * f + cot_bytes
+                                         + slay.vals.numel() * f, instr_per_s),
+        })
     wcnt = wlay.counts.long()
     t_rows = wlay.data.shape[0] * wlay.data.shape[1]
     need_rows = int(wcnt.sum()) * ch * f
     out.update({
-        ("stream_fwd", d): bounds_of("fwd", d, cov, dense, 16 * slay.meta.shape[1]
-                                     + srow_bytes + out_bytes + pp * f, instr_per_s),
-        ("stream_bwd", d): bounds_of("bwd", d, cov, dense, 16 * slay.meta.shape[1]
-                                     + srow_bytes + pp * f + cot_bytes
-                                     + slay.vals.numel() * f, instr_per_s),
         ("window_chunked_fwd", d): bounds_of("fwd", d, cov, dense, 4 * n_tiles + need_rows
                                              + out_bytes + pp * f, instr_per_s),
         ("window_chunked_bwd", d): bounds_of("bwd", d, cov, dense, 4 * n_tiles + need_rows
@@ -1402,16 +1494,50 @@ def time_tilegrid(meta, vals, bg2, ts, n_tx, dev):
     return times, nocull, out, cot
 
 
+def time_window_chunked(counts, data, bg2, ts, n_tx, dev):
+    """Rows 6-7 (kernel ms, plain twin ms) on one gather window, with random
+    cotangents of scale 1e-3 on the kernel's outputs (time_tilegrid's, on
+    the same shapes); and the cull-off instances' ms."""
+    import torch
+
+    from egogaussian_tpu_torch.render import window_raster as wr
+
+    out = wr.window_chunked_forward(counts, data, bg2, ts, n_tx)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cot = [torch.randn(x.shape, generator=gen, device=dev) * 1e-3 for x in out[:3]]
+    times = {
+        "window_chunked_fwd": (
+            cuda_ms(lambda: wr.window_chunked_forward(counts, data, bg2, ts, n_tx)),
+            cuda_ms(lambda: wr.composite_window_chunked_plain_fwd(counts, data, bg2, ts, n_tx),
+                    iters=5, warmup=1)),
+        "window_chunked_bwd": (
+            cuda_ms(lambda: wr.window_chunked_backward(counts, data, bg2, out[3], *cot, ts,
+                                                       n_tx)),
+            cuda_ms(lambda: wr.composite_window_chunked_plain_bwd(counts, data, bg2, out[3],
+                                                                  *cot, ts, n_tx),
+                    iters=5, warmup=1))}
+    nocull = {
+        "window_chunked_fwd": cuda_ms(lambda: wr.window_chunked_forward_nocull(
+            counts, data, bg2, ts, n_tx)),
+        "window_chunked_bwd": cuda_ms(lambda: wr.window_chunked_backward_nocull(
+            counts, data, bg2, out[3], *cot, ts, n_tx))}
+    return times, nocull
+
+
 def phase_timing(dev, vid, extent, errs, peak_gflops):
     """Kernel vs plain twin (CUDA events) on the kNN-initialized model of the
     slice (its heaviest, ~100k Gaussians, the state std mode starts from),
-    with its auto tile config (ts 32), D = 3 (image) and D = 1 (label):
-    every kernel on frame 0 at 640x480, and rows 1-3 again on the same
-    frame at 1920x1080 (frame_1080), where the grid fills the card. Each
-    kernel's bound on the same inputs: on the covered evaluations (gated
-    alpha > 0) at the published rate, on the dense count (pairs x pixels,
-    PR 3's yardstick), and on the covered evaluations at the FMA rate this
-    run measured. Returns the 640x480 times and bounds."""
+    D = 3 (image) and D = 1 (label), on frame 0 in three configurations:
+      main:        640x480 with its auto tile config (ts 32): every kernel;
+      eval_config: 640x480 with no tile config, as evaluation renders it
+                   (ts 16, 1,200 tiles): rows 6-7;
+      frame_1080:  1920x1080 (frame_1080) with its auto tile config, where
+                   the grid fills the card: rows 1-3 and 6-7.
+    Every layout is checked first (check_layout, check_window), and the
+    cull-off instances are timed beside rows 1-3 and 6-7. Each kernel's
+    bound on the same inputs: on the covered evaluations (gated alpha > 0)
+    at the published rate, on the dense count (pairs x pixels), and on
+    the covered evaluations at the FMA rate this run measured. Returns the main configuration's times and bounds."""
     import torch
 
     from egogaussian_tpu_torch.render import stream_raster as sr
@@ -1424,35 +1550,44 @@ def phase_timing(dev, vid, extent, errs, peak_gflops):
     model = knn_model(dev, vid, extent)
     opac = torch.where(model.aux.alive, model.opacity, torch.zeros_like(model.opacity))
     times, bounds = {}, {}
-    for main_frame, cam in ((True, vid.cameras[0]), (False, frame_1080(vid.cameras[0]))):
-        cfg = auto_tile_config(model, cam)
+    cam0, cam1080 = vid.cameras[0], frame_1080(vid.cameras[0])
+    cases = (("main", cam0, auto_tile_config(model, cam0)), ("eval_config", cam0, None),
+             ("frame_1080", cam1080, auto_tile_config(model, cam1080)))
+    for kind, cam, cfg in cases:
         proj = project_gaussians(model.params.xyz, model.covariance(), cam.viewmat, cam.fx,
                                  cam.fy, cam.cx, cam.cy, cam.width, cam.height,
                                  valid_mask=model.aux.alive)
         for d, cols, bg in ((3, model_colors(model), torch.zeros(3, device=dev)),
                             (1, model.params.label, torch.zeros(1, device=dev))):
             lay = tilegrid_layout(proj, cols, opac, cam.width, cam.height, cfg)
-            if int(lay.dropped):
-                raise AssertionError(f"timing frame {cam.width}x{cam.height}: pairs dropped")
-            case = f"timing_{cam.width}x{cam.height}_d{d}"
-            cots = check_layout(case, lay, d, bg, FWD_TOL, cam.width, cam.height, errs)
+            wlay = window_layout(proj, cols, opac, cam.width, cam.height, cfg)
+            if int(lay.dropped) or int(wlay.dropped):
+                raise AssertionError(f"timing frame {cam.width}x{cam.height} {kind}: "
+                                     "pairs dropped")
             meta, vals = lay.meta, lay.vals.detach().contiguous()
             ts, n_tx = lay.tile_size, lay.n_tx
             p, n_tiles = ts * ts, lay.n_tx * lay.n_ty
+            case = f"timing_{cam.width}x{cam.height}_ts{ts}_d{d}"
             bg2 = bg[None].contiguous()
+            t, nocull = {}, {}
+            if kind != "eval_config":
+                cots = check_layout(case, lay, d, bg, FWD_TOL, cam.width, cam.height, errs)
+                with torch.no_grad():
+                    t, nocull, _, cot = time_tilegrid(meta, vals, bg2, ts, n_tx, dev)
+            check_window(case, wlay, bg, FWD_TOL, cam.width, cam.height, errs)
+            counts_w, data = wlay.counts, wlay.data.detach().contiguous()
             with torch.no_grad():
-                t, nocull, _, cot = time_tilegrid(meta, vals, bg2, ts, n_tx, dev)
-            if main_frame:
+                tw, nw = time_window_chunked(counts_w, data, bg2, ts, n_tx, dev)
+            t.update(tw)
+            nocull.update(nw)
+            slay = None
+            if kind == "main":
                 slay = stream_layout(proj, cols, opac, cam.width, cam.height,
                                      dataclasses.replace(cfg, compositor="stream"))
+                if int(slay.dropped):
+                    raise AssertionError(f"timing frame {case}: stream pairs dropped")
                 check_stream(case, slay, cots, d, bg, FWD_TOL, errs)
-                wlay = window_layout(proj, cols, opac, cam.width, cam.height, cfg)
-                check_window(case, wlay, bg, FWD_TOL, cam.width, cam.height, errs)
-                if int(slay.dropped) or int(wlay.dropped):
-                    raise AssertionError(f"timing frame {case}: stream or window pairs dropped")
-                b, counts = kernel_bounds(d, p, lay, slay, wlay, instr_per_s)
                 smeta, svals = slay.meta, slay.vals.detach().contiguous()
-                counts_w, data = wlay.counts, wlay.data.detach().contiguous()
                 parts = split_window(wlay)
                 with torch.no_grad():
                     sout = sr.stream_forward(smeta, svals, bg2, ts, n_tx, n_tiles)
@@ -1466,17 +1601,6 @@ def phase_timing(dev, vid, extent, errs, peak_gflops):
                         cuda_ms(lambda: sr.composite_stream_plain_bwd(smeta, svals, bg2, sout[3],
                                                                       *cot, ts, n_tx),
                                 iters=5, warmup=1))
-                    wout = wr.window_chunked_forward(counts_w, data, bg2, ts, n_tx)
-                    t["window_chunked_fwd"] = (
-                        cuda_ms(lambda: wr.window_chunked_forward(counts_w, data, bg2, ts, n_tx)),
-                        cuda_ms(lambda: wr.composite_window_chunked_plain_fwd(counts_w, data, bg2,
-                                                                              ts, n_tx),
-                                iters=5, warmup=1))
-                    t["window_chunked_bwd"] = (
-                        cuda_ms(lambda: wr.window_chunked_backward(counts_w, data, bg2, wout[3],
-                                                                   *cot, ts, n_tx)),
-                        cuda_ms(lambda: wr.composite_window_chunked_plain_bwd(
-                            counts_w, data, bg2, wout[3], *cot, ts, n_tx), iters=5, warmup=1))
                     t["window_fwd"] = (
                         cuda_ms(lambda: wr.window_forward(*parts, bg2, ts, n_tx)),
                         cuda_ms(lambda: wr.composite_window_plain_fwd(*parts, bg2, ts, n_tx, 16),
@@ -1485,18 +1609,16 @@ def phase_timing(dev, vid, extent, errs, peak_gflops):
                         cuda_ms(lambda: wr.window_backward(*parts, bg2, *cot, ts, n_tx)),
                         cuda_ms(lambda: wr.composite_window_plain_bwd(*parts, bg2, *cot, ts, n_tx,
                                                                       16), iters=3, warmup=1))
-                extra = dict(slots=vals.shape[0], window_rows=data.shape[1], dropped=0)
+            b, counts = kernel_bounds(d, p, lay, slay, wlay, instr_per_s)
+            if kind == "main":
                 times.update({(k, d): v for k, v in t.items()})
                 bounds.update(b)
-            else:
-                b, cov, dense = tilegrid_bounds(d, p, lay, instr_per_s)
-                counts = {"covered": cov, "dense": dense}
-                extra = dict(slots=vals.shape[0], dropped=0)
             keys = [k for k in KERNELS if k in t]
-            emit("timing", frame=f"{cam.width}x{cam.height}", d=d, tile_size=ts,
+            emit("timing", frame=f"{cam.width}x{cam.height}", config=kind, d=d, tile_size=ts,
                  gaussians=int(model.num_alive), tiles=n_tiles, deepest_tile=int(meta[1].max()),
                  pairs=int(meta[1].sum()), evaluations=counts,
-                 measured_fp32_gflops=peak_gflops, **extra,
+                 measured_fp32_gflops=peak_gflops, slots=vals.shape[0],
+                 window_rows=data.shape[1], dropped=0,
                  **{f"{k}_ms": t[k][0] for k in keys},
                  **{f"{k}_nocull_ms": v for k, v in nocull.items()},
                  **{f"{k}_plain_ms": t[k][1] for k in keys},
@@ -1591,6 +1713,70 @@ def sm_clock_under_load(dev, rows, launches: int = 300):
     return clock, max_clock, loaded
 
 
+def device_rows(prof, n):
+    """(device ms, calls, name) per device op of a torch.profiler run, each
+    per unit of n (iterations or frames), largest first."""
+    import torch
+
+    rows = []
+    for e in prof.key_averages():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.key.startswith("ProfilerStep")):
+            continue  # host-side ops; their device time is their kernels'
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        rows.append((dev_us / n / 1e3, e.count / n, e.key))
+    return sorted(rows, reverse=True)
+
+
+def phase_eval_profile(dev, vid, model, seq, out_dir, frames: int = 8):
+    """Where stage 6 spends its time per frame: render_results (path 3(b)'s
+    call: the tiled backend at 640x480 on the 102k kNN model) on the first
+    `frames` frames, timed unprofiled, then once under torch.profiler:
+    device time by op, the device's busy share of the profiled wall time,
+    and the host ops by self CPU time. Tables in out_dir/eval_profile.txt.
+    A measurement only: nothing in the eval path changes."""
+    import torch
+
+    from egogaussian_tpu_torch.eval.render_results import render_results
+
+    cams = vid.cameras[:frames]
+    render_results(cams[:2], model, seq, backend="auto")  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render_results(cams, model, seq, backend="auto")
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / frames
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        render_results(cams, model, seq, backend="auto")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / frames
+    rows = device_rows(prof, frames)
+    busy_ms = sum(r[0] for r in rows)
+    host = sorted(((e.self_cpu_time_total / frames / 1e3, e.count / frames, e.key)
+                   for e in prof.key_averages() if e.self_cpu_time_total > 0), reverse=True)
+    with open(os.path.join(out_dir, "eval_profile.txt"), "w") as f:
+        f.write(f"render_results, {frames} frames at {cams[0].width}x{cams[0].height}, "
+                f"{int(model.num_alive)} Gaussians; wall {plain_ms:.3f} ms/frame unprofiled, "
+                f"{wall_ms:.3f} profiled; device busy {busy_ms:.3f} ms/frame\n")
+        f.write("device ops:\n")
+        for ms, calls, name in rows:
+            f.write(f"{ms:10.4f} ms/frame  {calls:7.2f} calls/frame  {name}\n")
+        f.write("host ops by self CPU time:\n")
+        for ms, calls, name in host[:40]:
+            f.write(f"{ms:10.4f} ms/frame  {calls:7.2f} calls/frame  {name}\n")
+    emit("eval_profile", frames=frames, wall_ms_per_frame=plain_ms,
+         profiled_wall_ms_per_frame=wall_ms, device_busy_ms_per_frame=busy_ms,
+         device_idle_share=1.0 - busy_ms / wall_ms,
+         top_device=[{"op": n[:80], "ms_per_frame": ms, "calls_per_frame": c}
+                     for ms, c, n in rows[:12]],
+         top_host=[{"op": n[:80], "self_cpu_ms_per_frame": ms, "calls_per_frame": c}
+                   for ms, c, n in host[:12]])
+
+
 def phase_profile(dev, vid, extent, out_dir, iters: int = 40, skip: int = 10):
     """torch.profiler over std-mode iterations skip+1..iters of train_static
     (no densify): device time by kernel, and the device's busy share of the
@@ -1622,22 +1808,13 @@ def phase_profile(dev, vid, extent, out_dir, iters: int = 40, skip: int = 10):
         train_static(vid.cameras, vid.points, vid.colors, cfg, groups, extent, seed=0,
                      first_phase_only=True, device=dev, on_step=on_step)
     wall_ms = (clock[iters] - clock[skip]) * 1e3 / (iters - skip)
-    rows = []
-    for e in prof.key_averages():
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or e.key.startswith("ProfilerStep")):
-            continue  # host-side ops; their device time is their kernels'
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0)
-        rows.append((dev_us / (iters - skip) / 1e3, e.count // (iters - skip), e.key))
-    rows.sort(reverse=True)
+    rows = device_rows(prof, iters - skip)
     busy_ms = sum(r[0] for r in rows)
     with open(os.path.join(out_dir, "profile.txt"), "w") as f:
         f.write(f"std-mode step, {iters - skip} profiled iterations; wall {wall_ms:.3f} ms/it, "
                 f"device busy {busy_ms:.3f} ms/it\n")
         for ms, calls, name in rows:
-            f.write(f"{ms:10.4f} ms/it  {calls:5d} calls/it  {name}\n")
+            f.write(f"{ms:10.4f} ms/it  {calls:7.2f} calls/it  {name}\n")
     emit("profile", wall_ms_per_it=wall_ms, device_busy_ms_per_it=busy_ms,
          device_idle_share=1.0 - busy_ms / wall_ms,
          top=[{"op": n[:80], "ms_per_it": ms, "calls_per_it": c} for ms, c, n in rows[:15]])
@@ -1758,6 +1935,7 @@ def main(argv=None) -> int:
     times[("fma_peak", None)] = (ms, plain_ms)
     bounds[("fma_peak", None)] = (b[0], b[1], b[0], None)
     phase_profile(dev, vid, extent, out_dir)
+    phase_eval_profile(dev, vid, eval_model, eval_seq, out_dir)
 
     table = []
     for key, (stem, src, replaces) in KERNELS.items():

@@ -1,4 +1,5 @@
-// Shared parts of the tile-grid pair (tilegrid_fwd.cu, tilegrid_bwd.cu):
+// Shared parts of the tile-grid pair (tilegrid_fwd.cu, tilegrid_bwd.cu)
+// and the chunked windowed pair (window_chunked_{fwd,bwd}.cu):
 // one thread-block cluster per tile, one pixel per thread, a warp per
 // 8x4 pixel patch, a conservative reach box per pair, the tile-wide
 // saturation vote across the cluster, and the chunk ring fed by bulk
@@ -119,18 +120,26 @@ __device__ __forceinline__ void patch_pairs(const float4* __restrict__ box, int 
   }
 }
 
-// Walk the pairs of the warp's masks in order: step(j) for each; step
-// returns whether it marked the pair (the backward's reduced pairs), and
-// end_word(k, marks) gets each mask word's marks.
-template <class StepF, class EndF>
+// Walk the pairs of the warp's masks in order (REVERSE: last to first):
+// step(j) for each; step returns whether it marked the pair (the
+// backward's reduced pairs), and end_word(k, marks) gets each mask word's
+// marks.
+template <bool REVERSE = false, class StepF, class EndF>
 __device__ __forceinline__ void walk_pairs(const unsigned (&m)[kWords], StepF step,
                                            EndF end_word) {
 #pragma unroll
-  for (int k = 0; k < kWords; ++k) {
+  for (int i = 0; i < kWords; ++i) {
+    const int k = REVERSE ? kWords - 1 - i : i;
     unsigned bits = m[k], marks = 0;
     while (bits) {
-      const int bit = __ffs(bits) - 1;
-      bits &= bits - 1;
+      int bit;
+      if constexpr (REVERSE) {
+        bit = 31 - __clz(bits);
+        bits ^= 1u << bit;
+      } else {
+        bit = __ffs(bits) - 1;
+        bits &= bits - 1;
+      }
       if (step(k * 32 + bit)) marks |= 1u << bit;
     }
     end_word(k, marks);
@@ -270,6 +279,18 @@ __device__ __forceinline__ bool tile_vote(bool live, unsigned* flags, int seq) {
 template <int NCTA>
 __device__ __forceinline__ void cluster_sync() {
   if constexpr (NCTA > 1) cg::this_cluster().sync();
+}
+
+// A barrier over every thread of the tile: the cluster's (which also
+// orders shared-memory writes before other CTAs' reads of them), or the
+// CTA's when the tile has one CTA.
+template <int NCTA>
+__device__ __forceinline__ void tile_sync() {
+  if constexpr (NCTA > 1) {
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
 }
 
 // Launch `kernel` with one cluster of NCTA CTAs per tile.

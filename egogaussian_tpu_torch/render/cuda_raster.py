@@ -140,10 +140,12 @@ def kernel_library() -> ctypes.CDLL:
     lib.egogs_stream_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
     lib.egogs_stream_bwd.restype = i
     lib.egogs_stream_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
-    lib.egogs_window_chunked_fwd.restype = i
-    lib.egogs_window_chunked_fwd.argtypes = [p] * 7 + [i] * 5 + [p]
-    lib.egogs_window_chunked_bwd.restype = i
-    lib.egogs_window_chunked_bwd.argtypes = [p] * 8 + [i] * 5 + [p]
+    for fn in (lib.egogs_window_chunked_fwd, lib.egogs_window_chunked_fwd_nocull):
+        fn.restype = i
+        fn.argtypes = [p] * 7 + [i] * 5 + [p]
+    for fn in (lib.egogs_window_chunked_bwd, lib.egogs_window_chunked_bwd_nocull):
+        fn.restype = i
+        fn.argtypes = [p] * 8 + [i] * 5 + [p]
     lib.egogs_window_fwd.restype = i
     lib.egogs_window_fwd.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.egogs_window_bwd.restype = i

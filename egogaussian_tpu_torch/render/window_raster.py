@@ -28,7 +28,11 @@ bg gets a zero gradient in both, as in the JAX VJPs.
 
 The kernels are CUDA C++ for sm_90a in `egogaussian_tpu_torch/csrc/
 window_chunked_{fwd,bwd}.cu` and `window_{fwd,bwd}.cu`, built into the
-library of `render/cuda_raster.py`.
+library of `render/cuda_raster.py`. The chunked pair runs a 16x16 quadrant
+per 256-thread CTA (ts 32: four per tile, the backward as one cluster)
+with a per-warp reach-box cull; `window_chunked_{forward,backward}_nocull`
+launch the same kernels with the cull compiled out, as check instances
+that must agree bit for bit.
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor takes
 the plain twin, which walks `map_batch` tiles at a time to bound its
@@ -87,7 +91,7 @@ def _check_chunked(counts, data, bg, ts, tensors=()):
     if counts.device != data.device or not counts.is_contiguous():
         raise ValueError("counts must be contiguous and on the data's device")
     if data.device.type == "cuda" and data.data_ptr() % 16:
-        raise ValueError("data must be 16-byte aligned (chunks load as float4)")
+        raise ValueError("data must be 16-byte aligned (chunks load by bulk copy)")
     return n_tiles, m, d
 
 
@@ -303,6 +307,18 @@ def _device_kind(x, what):
     return x.device.type
 
 
+def _launch_chunked_fwd(symbol, counts, data, bg, ts, n_tx, n_tiles, m, d):
+    p = ts * ts
+    outs = [torch.empty(s, dtype=torch.float32, device=data.device)
+            for s in _out_shapes(n_tiles, p, d) + [(n_tiles, 1, p)]]
+    stream = torch.cuda.current_stream(data.device).cuda_stream
+    rc = getattr(kernel_library(), symbol)(
+        counts.data_ptr(), data.data_ptr(), bg.data_ptr(), *(o.data_ptr() for o in outs),
+        n_tiles, m, n_tx, ts, d, stream)
+    _launch_check(rc, "windowed chunked forward")
+    return tuple(outs)
+
+
 def window_chunked_forward(counts, data, bg, ts: int, n_tx: int, map_batch: int = MAP_BATCH):
     """Chunked forward -> (img, alpha, depth, logT), every tile written.
     CUDA tensors launch the kernel; CPU tensors run
@@ -310,16 +326,40 @@ def window_chunked_forward(counts, data, bg, ts: int, n_tx: int, map_batch: int 
     n_tiles, m, d = _check_chunked(counts, data, bg, ts)
     if _device_kind(data, "windowed compositor") == "cpu":
         return composite_window_chunked_plain_fwd(counts, data, bg, ts, n_tx, map_batch)
-    p = ts * ts
-    outs = [torch.empty(s, dtype=torch.float32, device=data.device)
-            for s in _out_shapes(n_tiles, p, d) + [(n_tiles, 1, p)]]
-    stream = torch.cuda.current_stream(data.device).cuda_stream
-    rc = kernel_library().egogs_window_chunked_fwd(
-        counts.data_ptr(), data.data_ptr(), bg.data_ptr(), *(o.data_ptr() for o in outs),
-        n_tiles, m, n_tx, ts, d, stream)
-    _launch_check(rc, "windowed chunked forward")
+    outs = _launch_chunked_fwd("egogs_window_chunked_fwd", counts, data, bg, ts, n_tx,
+                               n_tiles, m, d)
     WindowChunkedCompositor.fwd_launches[d] += 1
-    return tuple(outs)
+    return outs
+
+
+def window_chunked_forward_nocull(counts, data, bg, ts: int, n_tx: int):
+    """The chunked forward kernel instantiated with its per-warp cull
+    compiled out (CUDA tensors only; not counted). A check instance: its
+    outputs must equal window_chunked_forward's bit for bit."""
+    n_tiles, m, d = _check_chunked(counts, data, bg, ts)
+    if data.device.type != "cuda":
+        raise ValueError("the cull-free check instance runs on CUDA tensors only")
+    return _launch_chunked_fwd("egogs_window_chunked_fwd_nocull", counts, data, bg, ts, n_tx,
+                               n_tiles, m, d)
+
+
+def _check_chunked_bwd(counts, data, bg, logt, gimg, galpha, gdepth, ts):
+    n_tiles, p, d = counts.shape[0], ts * ts, bg.shape[1]
+    _, m, _ = _check_chunked(counts, data, bg, ts, tensors=[
+        (logt, (n_tiles, 1, p)), (gimg, (n_tiles, p, d)), (galpha, (n_tiles, p, 1)),
+        (gdepth, (n_tiles, p, 1))])
+    return n_tiles, m, d
+
+
+def _launch_chunked_bwd(symbol, counts, data, bg, logt, gimg, galpha, gdepth, ts, n_tx,
+                        n_tiles, m, d):
+    ddata = torch.empty_like(data)
+    stream = torch.cuda.current_stream(data.device).cuda_stream
+    rc = getattr(kernel_library(), symbol)(
+        *(x.data_ptr() for x in (counts, data, bg, logt, gimg, galpha, gdepth, ddata)),
+        n_tiles, m, n_tx, ts, d, stream)
+    _launch_check(rc, "windowed chunked backward")
+    return ddata
 
 
 def window_chunked_backward(counts, data, bg, logt, gimg, galpha, gdepth, ts: int, n_tx: int,
@@ -327,21 +367,26 @@ def window_chunked_backward(counts, data, bg, logt, gimg, galpha, gdepth, ts: in
     """Chunked backward -> ddata [T, M, 7+D], every row written (zeros at
     or past each tile's count). CUDA tensors launch the kernel; CPU
     tensors run composite_window_chunked_plain_bwd."""
-    n_tiles, p, d = counts.shape[0], ts * ts, bg.shape[1]
-    _, m, _ = _check_chunked(counts, data, bg, ts, tensors=[
-        (logt, (n_tiles, 1, p)), (gimg, (n_tiles, p, d)), (galpha, (n_tiles, p, 1)),
-        (gdepth, (n_tiles, p, 1))])
+    n_tiles, m, d = _check_chunked_bwd(counts, data, bg, logt, gimg, galpha, gdepth, ts)
     if _device_kind(data, "windowed compositor") == "cpu":
         return composite_window_chunked_plain_bwd(counts, data, bg, logt, gimg, galpha, gdepth,
                                                   ts, n_tx, map_batch)
-    ddata = torch.empty_like(data)
-    stream = torch.cuda.current_stream(data.device).cuda_stream
-    rc = kernel_library().egogs_window_chunked_bwd(
-        *(x.data_ptr() for x in (counts, data, bg, logt, gimg, galpha, gdepth, ddata)),
-        n_tiles, m, n_tx, ts, d, stream)
-    _launch_check(rc, "windowed chunked backward")
+    ddata = _launch_chunked_bwd("egogs_window_chunked_bwd", counts, data, bg, logt, gimg,
+                                galpha, gdepth, ts, n_tx, n_tiles, m, d)
     WindowChunkedCompositor.bwd_launches[d] += 1
     return ddata
+
+
+def window_chunked_backward_nocull(counts, data, bg, logt, gimg, galpha, gdepth, ts: int,
+                                   n_tx: int):
+    """The chunked backward kernel instantiated with its per-warp cull
+    compiled out (CUDA tensors only; not counted). A check instance: its
+    gradients must equal window_chunked_backward's bit for bit."""
+    n_tiles, m, d = _check_chunked_bwd(counts, data, bg, logt, gimg, galpha, gdepth, ts)
+    if data.device.type != "cuda":
+        raise ValueError("the cull-free check instance runs on CUDA tensors only")
+    return _launch_chunked_bwd("egogs_window_chunked_bwd_nocull", counts, data, bg, logt, gimg,
+                               galpha, gdepth, ts, n_tx, n_tiles, m, d)
 
 
 def window_forward(mu, con, op, col, z, bg, ts: int, n_tx: int, map_batch: int = MAP_BATCH):

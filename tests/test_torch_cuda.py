@@ -1,6 +1,7 @@
 """The compositor CUDA kernels (tile-grid forward, both tile-grid backward
 flavors, the stream pair, the chunked and simple windowed pairs) against
-their plain twins and the oracle, on the card. Marked `cuda`; without a
+their plain twins and the oracle, and the tile-grid and chunked windowed
+pairs against their cull-off instances, on the card. Marked `cuda`; without a
 CUDA device every test skips.
 
 On a machine with a GPU (no JAX needed there):
@@ -21,7 +22,7 @@ from egogaussian_tpu_torch.render import stream_raster as sr
 from egogaussian_tpu_torch.render import window_raster as wr
 from egogaussian_tpu_torch.render.api import render
 from egogaussian_tpu_torch.render.camera import Camera, look_at
-from egogaussian_tpu_torch.render.probe_layouts import quadrant_scene
+from egogaussian_tpu_torch.render.probe_layouts import quadrant_scene, window_probe
 from egogaussian_tpu_torch.render.tiled import (
     TileConfig,
     stream_layout,
@@ -416,6 +417,43 @@ def test_tile_wide_saturation_vote(dev, d):
         assert torch.equal(k_d[[2, 4]] == 0, p_d[[2, 4]] == 0)
         assert bool((p_d[2, :7 + d, :20] != 0).any(dim=0).all())
         assert bool((k_d[4] == 0).all())
+
+
+def _deep_window(dev, d, tile_size):
+    """1,000 Gaussians at 48x32 as a gather window: tiles of 170-630 rows."""
+    means, cov3d, colors, ops = _scene(dev, n=1000, seed=9)
+    lay = window_layout(_project(dev, means, cov3d), colors[:, :d], ops, W, H,
+                        TileConfig(max_pairs=16384, tile_size=tile_size))
+    return lay.counts, lay.data.detach().contiguous(), torch.rand((1, d), device=dev), lay.n_tx
+
+
+@pytest.mark.parametrize("tile_size", [16, 32])
+@pytest.mark.parametrize("d", [3, 1])
+def test_window_chunked_cull_is_exact(dev, d, tile_size):
+    """The redesigned chunked windowed pair (a 16x16 quadrant per CTA, at
+    ts 32 four per tile and the backward as a cluster, the per-warp
+    reach-box cull) on render/probe_layouts.py:window_probe and on a deep
+    window: forward and backward against the cull-off instances bit for
+    bit, the backward run twice bit for bit, and both against the twins."""
+    counts, data, bg, n_tx, _, _ = window_probe(d, tile_size)
+    probe = tuple(torch.as_tensor(x, device=dev) for x in (counts, data, bg)) + (n_tx,)
+    for counts, data, bg, n_tx in (probe, _deep_window(dev, d, tile_size)):
+        out = wr.window_chunked_forward(counts, data, bg, tile_size, n_tx)
+        for a, b in zip(out, wr.window_chunked_forward_nocull(counts, data, bg, tile_size, n_tx)):
+            assert torch.equal(a, b)
+        p_out = wr.composite_window_chunked_plain_fwd(counts, data, bg, tile_size, n_tx)
+        for k, p, tol in zip(out, p_out, (3e-4, 3e-4, 3e-3, 3e-4)):
+            torch.testing.assert_close(k, p, atol=tol, rtol=0)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        cots = [torch.randn(o.shape, generator=gen, device=dev) * 1e-2 for o in out[:3]]
+        k_d = wr.window_chunked_backward(counts, data, bg, out[3], *cots, tile_size, n_tx)
+        assert torch.equal(k_d, wr.window_chunked_backward_nocull(counts, data, bg, out[3], *cots,
+                                                                  tile_size, n_tx))
+        assert torch.equal(k_d, wr.window_chunked_backward(counts, data, bg, out[3], *cots,
+                                                           tile_size, n_tx))
+        p_d = wr.composite_window_chunked_plain_bwd(counts, data, bg, out[3], *cots, tile_size,
+                                                    n_tx)
+        torch.testing.assert_close(k_d, p_d, atol=2e-4, rtol=1e-3)
 
 
 def test_fma_chain_matches_twin(dev):

@@ -34,6 +34,8 @@ from egogaussian_tpu_torch.ops.covariance import covariance_from_scaling_rotatio
 from egogaussian_tpu_torch.render import window_raster as wr
 from egogaussian_tpu_torch.render.api import render as t_render
 from egogaussian_tpu_torch.render.camera import Camera, look_at
+from egogaussian_tpu_torch.render.cuda_raster import ALPHA_EPS, _chunk_alphas, _pixel_coords
+from egogaussian_tpu_torch.render.probe_layouts import PROBE_GATE, window_probe
 from egogaussian_tpu_torch.render.project import ProjectedGaussians
 from egogaussian_tpu_torch.render.project import project_gaussians as t_project
 from egogaussian_tpu_torch.render.tiled import TileConfig, bin_gaussians, window_layout
@@ -183,6 +185,50 @@ def test_window_twins_match_jax_kernels(d, ts, max_per_tile):
                                rtol=GRAD_RTOL)
 
 
+@pytest.mark.parametrize("d,ts", [(3, 32), (1, 32), (3, 16), (1, 16)])
+def test_probe_window_twins_match_jax_kernel(d, ts):
+    """render/probe_layouts.py:window_probe through the chunked pair's
+    twins (the port's make_tile_compositor_chunked and its autograd
+    Function on the CPU) against JAX's make_tile_compositor_chunked
+    (interpret=True): a tile three chunks
+    deep, footprints across the quadrant and warp-patch edges, live rows
+    past each count, an empty tile, and pairs on either side of the 1/255
+    gate. The probe's own properties are checked first."""
+    counts_np, data_np, bg_np, n_tx, _, _ = window_probe(d, ts)
+    counts, data, bg = (torch.as_tensor(x) for x in (counts_np, data_np, bg_np))
+    n_tiles, m, _ = data.shape
+    p = ts * ts
+    assert int(counts[0]) > 2 * 128 and int(counts[1]) == 0 and m % 128 == 0
+    # the gate pair: alpha exactly 1/255 at its pixel and 0 elsewhere; the
+    # pair one ulp below: 0 everywhere
+    t, row, gx, gy = PROBE_GATE
+    px, py = _pixel_coords(n_tiles, ts, n_tx, CPU)
+    blk = data[t:t + 1, row:row + 2].transpose(1, 2)
+    alpha = _chunk_alphas(blk, px[t:t + 1], py[t:t + 1], torch.ones(1, 2, dtype=torch.bool))[0]
+    gate = np.float32(ALPHA_EPS)
+    assert float(alpha[0, gy * ts + gx, 0]) == gate
+    assert int(torch.count_nonzero(alpha[0, :, 0])) == 1 and not alpha[0, :, 1].any()
+
+    cots = _cotangents([(n_tiles, p, d), (n_tiles, p, 1), (n_tiles, p, 1)], seed=20 + d + ts)
+    jfn = j_pallas.make_tile_compositor_chunked(n_tiles, m, d, ts, n_tx, interpret=True)
+    jout, jvjp = jax.vjp(lambda x: jfn(jnp.asarray(counts_np), x, jnp.asarray(bg_np)),
+                         jnp.asarray(data_np))
+    (jd,) = jvjp(tuple(jnp.asarray(c.numpy()) for c in cots))
+    tdata = data.clone().requires_grad_(True)
+    tout = wr.make_tile_compositor_chunked(n_tiles, m, d, ts, n_tx)(counts, tdata, bg)
+    (td,) = torch.autograd.grad(tout, (tdata,), grad_outputs=cots)
+    for name, a, b in zip(("image", "alpha", "depth"), jout, tout):
+        np.testing.assert_allclose(_np(b), np.asarray(a), atol=FWD_ATOL, rtol=0, err_msg=name)
+    np.testing.assert_allclose(_np(td), np.asarray(jd), atol=GRAD_ATOL, rtol=GRAD_RTOL)
+    # the live rows past each count are masked: no gradient, and the empty
+    # tile is bg
+    rows = torch.arange(m)[None, :]
+    assert not td[rows >= counts[:, None].long()].any()
+    assert td[0, :int(counts[0])].any(dim=1).float().mean() > 0.9
+    np.testing.assert_array_equal(_np(tout[0][1]), np.broadcast_to(bg_np, (p, d)))
+    assert not tout[1][1].any()
+
+
 def _loss_terms(res, target, xp):
     return (xp.mean((res.image - target) ** 2) + 0.3 * xp.mean(res.alpha)
             + 0.1 * xp.mean(res.depth))
@@ -277,3 +323,6 @@ def test_window_wrappers_check_inputs():
         wr.window_forward(*[x.to("meta") for x in parts], bg.to("meta"), 16, 2)
     img, alpha, depth = wr.window_forward(*parts, bg, 16, 2)
     assert img.shape == (2, 256, 3) and not alpha.any() and not depth.any()
+    # the cull-off check instances have no CPU twin
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        wr.window_chunked_forward_nocull(counts, torch.zeros(2, 128, 10), bg, 16, 2)
