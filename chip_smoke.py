@@ -23,7 +23,11 @@ nonzero and no result line is printed):
               window of the chunked pair's edge cases (window_probe);
               the simple windowed pair
               also against the chunked one, and both windowed backwards
-              twice, bit for bit; the cuda render (tile-grid and stream)
+              twice, bit for bit; the stream pair against its cull-off
+              instances and its backward twice, bit for bit, on every
+              stream layout, and on a hand-made layout of its slot-run
+              edge cases (stream_probe, whole and cut at the slot
+              capacity); the cuda render (tile-grid and stream)
               against the oracle; the exact-total render's gradients
               within 5e-6
   4. slice:   (path 1) stage-1.0 static training (train_static) on a
@@ -55,14 +59,16 @@ nonzero and no result line is printed):
  11. checks after the paths: path 3's frames against backend="cuda"
               (DEEP_FWD_TOL, 0 dropped pairs) and, on each frame's gather
               window, the chunked pair against its cull-off instances bit
-              for bit; path 4 against the twins and the chunked pair,
+              for bit, and every owner lookup of the frames' binning
+              against its scan form (cummax) int for int; path 4 against
+              the twins and the chunked pair,
               every kernel against its twin at path 2's own shapes, the
               FMA chain against its twin at the peak path's shapes (bit
               for bit) and the SM clock under an FMA load
  12. timing:  kernel vs plain twin (CUDA events) at the slice's shapes
-              (rows 1-3 and 6-7 also at 1920x1080, rows 6-7 also with
+              (rows 1-7 also at 1920x1080, rows 6-7 also with
               evaluation's own tile config, ts 16), the cull-off
-              instances of rows 1-3 and 6-7, and each kernel's bound
+              instances of rows 1-7, and each kernel's bound
               (bytes over the HBM rate or instructions over the float32
               instruction rate, whichever is larger) on the covered
               evaluations of the same inputs, beside the dense count's
@@ -71,8 +77,10 @@ nonzero and no result line is printed):
               device time by kernel and the device's busy share
               (table in chiprun_out/chip_smoke/profile.txt)
  14. eval profile: torch.profiler over render_results on 8 frames of path
-              3(b): device time by op, busy share, host ops
-              (chiprun_out/chip_smoke/eval_profile.txt)
+              3(b), before (the owner lookups swapped for their cummax
+              scan forms) and after: device time by op, busy share, host
+              ops (chiprun_out/chip_smoke/eval_profile.txt); no cummax
+              after
 Launch counters are set to 0 just before each path and read just after.
 Then the kernel table, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}}.
@@ -82,6 +90,7 @@ Imports no JAX. Writes its outputs under chiprun_out/chip_smoke/.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -358,7 +367,12 @@ def grad_excess(a, b) -> float:
 def check_stream(name, lay, cots, colors_d, bg, tol, errs):
     """Stream kernel pair vs plain twins on one layout. The forward is
     compared on the tiles that own a slot (the kernel leaves the others
-    unwritten, as the TPU kernel does); the backward on every slot."""
+    unwritten, as the TPU kernel does); the backward on every slot. Then
+    the forward (on the tiles the kernel writes) and the backward against
+    the same kernels with the per-warp cull compiled out, and the backward
+    run again, all bit for bit."""
+    import torch
+
     from egogaussian_tpu_torch.render import stream_raster as sr
 
     d = colors_d
@@ -373,16 +387,52 @@ def check_stream(name, lay, cots, colors_d, bg, tol, errs):
                for key, k, p in zip(("image", "alpha", "depth", "logT"), k_out, p_out)}
     k_d = sr.stream_backward(meta, vals, bg2, p_out[3], *cots, ts, n_tx)
     p_d = sr.composite_stream_plain_bwd(meta, vals, bg2, p_out[3], *cots, ts, n_tx)
+    written = torch.zeros(n_tiles, dtype=torch.bool, device=vals.device)
+    written[meta[0].long()] = True
+    n_out = sr.stream_forward_nocull(meta, vals, bg2, ts, n_tx, n_tiles)
+    n_d = sr.stream_backward_nocull(meta, vals, bg2, p_out[3], *cots, ts, n_tx)
+    r_d = sr.stream_backward(meta, vals, bg2, p_out[3], *cots, ts, n_tx)
+    same = {"fwd_cull_off": all(torch.equal(a[written], b[written]) for a, b in zip(k_out, n_out)),
+            "bwd_cull_off": torch.equal(k_d, n_d), "bwd_repeat": torch.equal(k_d, r_d)}
     grad_err = max_err(k_d, p_d)
     fwd_tol = dict(tol, logT=tol["image"])
-    ok = all(fwd_err[k] <= fwd_tol[k] for k in fwd_tol) and grad_excess(k_d, p_d) <= 0.0
+    ok = (all(fwd_err[k] <= fwd_tol[k] for k in fwd_tol) and grad_excess(k_d, p_d) <= 0.0
+          and all(same.values()))
     emit("stream_check", case=name, d=d, tile_size=ts, fwd_err=fwd_err,
          grad_max_abs_err=grad_err, grad_scale=float(p_d.abs().max()),
-         slots=int(meta.shape[1]), ok=ok)
+         slots=int(meta.shape[1]), bit_identical=same, ok=ok)
     if not ok:
-        raise AssertionError(f"stream kernel vs twin out of tolerance: {name} d={d} ts={ts}")
+        raise AssertionError(f"stream kernel vs twin or cull-off out of tolerance: {name} "
+                             f"d={d} ts={ts}")
     errs.setdefault(("stream_fwd", d), []).append(max(fwd_err.values()))
     errs.setdefault(("stream_bwd", d), []).append(grad_err)
+
+
+def check_stream_probe(dev, errs):
+    """The stream pair (check_stream) on render/probe_layouts.py:stream_probe
+    at D = 3 and 1, ts 16 and 32, whole and cut at the slot capacity:
+    empty tiles between runs, a run of exactly two chunks, a one-pair tile,
+    the empty last tile over the pure-padding tail, a run cut at n_slots,
+    opaque rows past each count. Cotangents: seeded, scale 1e-2."""
+    import torch
+
+    from egogaussian_tpu_torch.render.probe_layouts import stream_probe
+    from egogaussian_tpu_torch.render.tiled import StreamLayout
+
+    for ts in (16, 32):
+        for d in (3, 1):
+            for cut in (False, True):
+                meta, vals, bg, n_tx, _, _ = stream_probe(d, ts, cut)
+                meta, vals = torch.as_tensor(meta, device=dev), torch.as_tensor(vals, device=dev)
+                real = torch.zeros(n_tx, dtype=torch.bool, device=dev)
+                real[meta[0].long()[meta[1] < meta[2]]] = True
+                lay = StreamLayout(meta, vals, ~real, torch.zeros((), dtype=torch.int64,
+                                                                  device=dev), n_tx, 1, ts)
+                gen = torch.Generator(device=dev).manual_seed(13)
+                cots = [torch.randn((n_tx, ts * ts, c), generator=gen, device=dev) * 1e-2
+                        for c in (d, 1, 1)]
+                check_stream(f"stream_probe{'_cut' if cut else ''}", lay, cots, d,
+                             torch.as_tensor(bg[0], device=dev), FWD_TOL, errs)
 
 
 def split_window(lay):
@@ -564,10 +614,11 @@ def phase_kernels(dev, errs):
                     raise AssertionError(f"{name}: pairs dropped in the check window")
                 check_window(name, wlay, bg, tol, cam.width, cam.height, errs)
 
-    # 0) the tile-wide saturation vote and the chunked windowed pair's edge
-    # cases, pinned on hand-made layouts
+    # 0) the tile-wide saturation vote and the chunked windowed and stream
+    # pairs' edge cases, pinned on hand-made layouts
     check_quadrant_vote(dev, errs)
     check_window_probe(dev, errs)
+    check_stream_probe(dev, errs)
     # 1) 60 Gaussians at 48x32 (tests/test_pallas_raster.py:23-36)
     cam = look_at_camera(48, 32, dev)
     means, cov3d, colors, ops = random_scene(60, 11, dev)
@@ -1171,7 +1222,10 @@ def compare_eval_frames(vid, model, seq, buckets):
     (built as the tiled render builds it; the chunked forward on it must
     give the render's image bit for bit) the chunked pair against its
     cull-off instances and the backward repeated, bit for bit
-    (chunked_exactness, cotangents of scale 1e-3)."""
+    (chunked_exactness, cotangents of scale 1e-3). Every owner lookup of
+    these frames' binning (bin_pairs' pair expansion, the tile-grid
+    layout's slot streams) against its scan form, int for int
+    (owner_lookups "check")."""
     import torch
 
     from egogaussian_tpu_torch.eval.render_results import _quantize8
@@ -1193,7 +1247,8 @@ def compare_eval_frames(vid, model, seq, buckets):
     exact = {"window_gives_the_render": True}
     gen = torch.Generator(device=model.device).manual_seed(11)
     is_obj = (model.aux.is_object == 1)[:, None]
-    with torch.no_grad():
+    owners = {}
+    with torch.no_grad(), owner_lookups("check", owners):
         for f, cam in enumerate(vid.cameras):
             cfg = auto_tile_config(model, cam)
             rt = render_gaussians(model, cam, bg, pose_T=accum_T[f], extra_rot=accum_R[f],
@@ -1225,14 +1280,81 @@ def compare_eval_frames(vid, model, seq, buckets):
             for k, v in chunked_exactness(lay.counts, data, bg2, lay.tile_size, lay.n_tx, k_out,
                                           k_out[3], cots, k_d).items():
                 exact[k] = exact.get(k, True) and v
+    owners_equal = (set(owners) == {"pair_owner", "slot_owner"}
+                    and not any(v["mismatched"] for v in owners.values()))
     ok = (all(worst[k] <= DEEP_FWD_TOL[k] for k in worst) and not any(dropped.values())
-          and same_as_results and all(exact.values()))
+          and same_as_results and all(exact.values()) and owners_equal)
     emit("eval_vs_cuda", frames=len(vid.cameras), max_abs_err=worst, tol=DEEP_FWD_TOL,
          dropped_pairs=dropped, results_are_quantized_tiled_renders=same_as_results,
-         tile_size=lay.tile_size, tiles=int(lay.counts.shape[0]), bit_identical=exact, ok=ok)
+         tile_size=lay.tile_size, tiles=int(lay.counts.shape[0]), bit_identical=exact,
+         owner_lookup_vs_scan=owners, ok=ok)
     if not ok:
-        raise AssertionError(f"tiled eval renders disagree with cuda or the cull-off kernels: "
-                             f"{worst}, {dropped}, {exact}")
+        raise AssertionError(f"tiled eval renders disagree with cuda, the cull-off kernels or "
+                             f"the owner scan: {worst}, {dropped}, {exact}, {owners}")
+
+
+def _scan_owner(n_slots, starts, vals):
+    """vals scattered with max at their start slots (starts outside
+    [0, n_slots) drop out), then a running max over the slots."""
+    import torch
+
+    idx = torch.where((starts >= 0) & (starts < n_slots), starts,
+                      torch.full_like(starts, n_slots))
+    buf = torch.zeros(n_slots + 1, dtype=torch.int64, device=starts.device)
+    buf.scatter_reduce_(0, idx, vals.to(torch.int64), reduce="amax", include_self=True)
+    return torch.cummax(buf[:n_slots], 0).values
+
+
+def scan_pair_owner(offsets, counts, n_slots):
+    """The scan form of render/tiled.py:pair_owner, as the port computed it
+    before the parallel lookup (and the JAX package still does): each
+    Gaussian of count > 0 marked with g + 1 at its start slot, a running
+    max, minus one. A check only: the port does not call it."""
+    import torch
+
+    n = offsets.shape[0]
+    start = torch.where(counts > 0, offsets, torch.full_like(offsets, n_slots))
+    marks = torch.arange(1, n + 1, dtype=torch.int64, device=offsets.device)
+    return torch.clamp(_scan_owner(n_slots, start, marks) - 1, 0, max(n - 1, 0))
+
+
+def scan_slot_owner(starts2, n_slots):
+    """The scan form of render/tiled.py:slot_owner (check only)."""
+    import torch
+
+    tiles = torch.arange(starts2.shape[0], dtype=torch.int64, device=starts2.device)
+    return _scan_owner(n_slots, starts2, tiles)
+
+
+@contextlib.contextmanager
+def owner_lookups(mode, stats=None):
+    """Swap render/tiled.py's owner lookups for a while. mode "scan": the
+    scan forms run in their place (the binning as it was before the
+    parallel lookup, for the eval profile's before); mode "check": both
+    forms run and are compared int for int, stats counting calls and
+    mismatches per lookup."""
+    from egogaussian_tpu_torch.render import tiled
+
+    lookups = {"pair_owner": (tiled.pair_owner, scan_pair_owner),
+               "slot_owner": (tiled.slot_owner, scan_slot_owner)}
+
+    def swap(name, new, scan):
+        def checked(*args):
+            out = new(*args)
+            st = stats.setdefault(name, {"calls": 0, "slots": 0, "mismatched": 0})
+            st["calls"] += 1
+            st["slots"] += out.numel()
+            st["mismatched"] += int((out != scan(*args)).sum())
+            return out
+        setattr(tiled, name, scan if mode == "scan" else checked)
+
+    try:
+        for name, (new, scan) in lookups.items():
+            swap(name, new, scan)
+        yield
+    finally:
+        for name, (new, _) in lookups.items():
+            setattr(tiled, name, new)
 
 
 TILED_STEPS = 20
@@ -1524,6 +1646,30 @@ def time_window_chunked(counts, data, bg2, ts, n_tx, dev):
     return times, nocull
 
 
+def time_stream(meta, vals, bg2, ts, n_tx, n_tiles, cot):
+    """Rows 4-5 (kernel ms, plain twin ms) on one stream layout, with the
+    cotangents cot (time_tilegrid's, on the same shapes); and the cull-off
+    instances' ms."""
+    from egogaussian_tpu_torch.render import stream_raster as sr
+
+    out = sr.stream_forward(meta, vals, bg2, ts, n_tx, n_tiles)
+    times = {
+        "stream_fwd": (
+            cuda_ms(lambda: sr.stream_forward(meta, vals, bg2, ts, n_tx, n_tiles)),
+            cuda_ms(lambda: sr.composite_stream_plain_fwd(meta, vals, bg2, ts, n_tx, n_tiles),
+                    iters=5, warmup=1)),
+        "stream_bwd": (
+            cuda_ms(lambda: sr.stream_backward(meta, vals, bg2, out[3], *cot, ts, n_tx)),
+            cuda_ms(lambda: sr.composite_stream_plain_bwd(meta, vals, bg2, out[3], *cot, ts,
+                                                          n_tx), iters=5, warmup=1))}
+    nocull = {
+        "stream_fwd": cuda_ms(lambda: sr.stream_forward_nocull(meta, vals, bg2, ts, n_tx,
+                                                               n_tiles)),
+        "stream_bwd": cuda_ms(lambda: sr.stream_backward_nocull(meta, vals, bg2, out[3], *cot,
+                                                                ts, n_tx))}
+    return times, nocull
+
+
 def phase_timing(dev, vid, extent, errs, peak_gflops):
     """Kernel vs plain twin (CUDA events) on the kNN-initialized model of the
     slice (its heaviest, ~100k Gaussians, the state std mode starts from),
@@ -1532,15 +1678,14 @@ def phase_timing(dev, vid, extent, errs, peak_gflops):
       eval_config: 640x480 with no tile config, as evaluation renders it
                    (ts 16, 1,200 tiles): rows 6-7;
       frame_1080:  1920x1080 (frame_1080) with its auto tile config, where
-                   the grid fills the card: rows 1-3 and 6-7.
-    Every layout is checked first (check_layout, check_window), and the
-    cull-off instances are timed beside rows 1-3 and 6-7. Each kernel's
+                   the grid fills the card: rows 1-7.
+    Every layout is checked first (check_layout, check_window,
+    check_stream), and the cull-off instances are timed beside rows 1-7. Each kernel's
     bound on the same inputs: on the covered evaluations (gated alpha > 0)
     at the published rate, on the dense count (pairs x pixels), and on
     the covered evaluations at the FMA rate this run measured. Returns the main configuration's times and bounds."""
     import torch
 
-    from egogaussian_tpu_torch.render import stream_raster as sr
     from egogaussian_tpu_torch.render import window_raster as wr
     from egogaussian_tpu_torch.render.project import project_gaussians
     from egogaussian_tpu_torch.render.tiled import stream_layout, tilegrid_layout, window_layout
@@ -1581,26 +1726,20 @@ def phase_timing(dev, vid, extent, errs, peak_gflops):
             t.update(tw)
             nocull.update(nw)
             slay = None
-            if kind == "main":
+            if kind != "eval_config":
                 slay = stream_layout(proj, cols, opac, cam.width, cam.height,
                                      dataclasses.replace(cfg, compositor="stream"))
                 if int(slay.dropped):
                     raise AssertionError(f"timing frame {case}: stream pairs dropped")
                 check_stream(case, slay, cots, d, bg, FWD_TOL, errs)
-                smeta, svals = slay.meta, slay.vals.detach().contiguous()
+                with torch.no_grad():
+                    tst, nst = time_stream(slay.meta, slay.vals.detach().contiguous(), bg2, ts,
+                                           n_tx, n_tiles, cot)
+                t.update(tst)
+                nocull.update(nst)
+            if kind == "main":
                 parts = split_window(wlay)
                 with torch.no_grad():
-                    sout = sr.stream_forward(smeta, svals, bg2, ts, n_tx, n_tiles)
-                    t["stream_fwd"] = (
-                        cuda_ms(lambda: sr.stream_forward(smeta, svals, bg2, ts, n_tx, n_tiles)),
-                        cuda_ms(lambda: sr.composite_stream_plain_fwd(smeta, svals, bg2, ts, n_tx,
-                                                                      n_tiles), iters=5, warmup=1))
-                    t["stream_bwd"] = (
-                        cuda_ms(lambda: sr.stream_backward(smeta, svals, bg2, sout[3], *cot, ts,
-                                                           n_tx)),
-                        cuda_ms(lambda: sr.composite_stream_plain_bwd(smeta, svals, bg2, sout[3],
-                                                                      *cot, ts, n_tx),
-                                iters=5, warmup=1))
                     t["window_fwd"] = (
                         cuda_ms(lambda: wr.window_forward(*parts, bg2, ts, n_tx)),
                         cuda_ms(lambda: wr.composite_window_plain_fwd(*parts, bg2, ts, n_tx, 16),
@@ -1730,18 +1869,15 @@ def device_rows(prof, n):
     return sorted(rows, reverse=True)
 
 
-def phase_eval_profile(dev, vid, model, seq, out_dir, frames: int = 8):
-    """Where stage 6 spends its time per frame: render_results (path 3(b)'s
-    call: the tiled backend at 640x480 on the 102k kNN model) on the first
-    `frames` frames, timed unprofiled, then once under torch.profiler:
-    device time by op, the device's busy share of the profiled wall time,
-    and the host ops by self CPU time. Tables in out_dir/eval_profile.txt.
-    A measurement only: nothing in the eval path changes."""
+def profile_eval(cams, model, seq):
+    """render_results on cams, timed unprofiled, then once under
+    torch.profiler: (unprofiled ms/frame, profiled ms/frame, device rows,
+    host rows), rows per frame (device_rows)."""
     import torch
 
     from egogaussian_tpu_torch.eval.render_results import render_results
 
-    cams = vid.cameras[:frames]
+    frames = len(cams)
     render_results(cams[:2], model, seq, backend="auto")  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1754,27 +1890,54 @@ def phase_eval_profile(dev, vid, model, seq, out_dir, frames: int = 8):
         render_results(cams, model, seq, backend="auto")
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / frames
-    rows = device_rows(prof, frames)
-    busy_ms = sum(r[0] for r in rows)
     host = sorted(((e.self_cpu_time_total / frames / 1e3, e.count / frames, e.key)
                    for e in prof.key_averages() if e.self_cpu_time_total > 0), reverse=True)
+    return plain_ms, wall_ms, device_rows(prof, frames), host
+
+
+def phase_eval_profile(dev, vid, model, seq, out_dir, frames: int = 8):
+    """Where stage 6 spends its time per frame: render_results (path 3(b)'s
+    call: the tiled backend at 640x480 on the 102k kNN model) on the first
+    `frames` frames (profile_eval), twice: "before", with bin_pairs' and the
+    layouts' owner lookups swapped for their scan forms (owner_lookups
+    "scan": the binning before the parallel lookup), and "after", the port
+    as it is. Device time by op, the device's busy share of the profiled
+    wall time, and the host ops by self CPU time; tables in
+    out_dir/eval_profile.txt. The "after" profile must show no cummax, on
+    the device or the host. A measurement only: nothing in the eval path
+    changes."""
+    cams = vid.cameras[:frames]
     with open(os.path.join(out_dir, "eval_profile.txt"), "w") as f:
-        f.write(f"render_results, {frames} frames at {cams[0].width}x{cams[0].height}, "
-                f"{int(model.num_alive)} Gaussians; wall {plain_ms:.3f} ms/frame unprofiled, "
-                f"{wall_ms:.3f} profiled; device busy {busy_ms:.3f} ms/frame\n")
-        f.write("device ops:\n")
-        for ms, calls, name in rows:
-            f.write(f"{ms:10.4f} ms/frame  {calls:7.2f} calls/frame  {name}\n")
-        f.write("host ops by self CPU time:\n")
-        for ms, calls, name in host[:40]:
-            f.write(f"{ms:10.4f} ms/frame  {calls:7.2f} calls/frame  {name}\n")
-    emit("eval_profile", frames=frames, wall_ms_per_frame=plain_ms,
-         profiled_wall_ms_per_frame=wall_ms, device_busy_ms_per_frame=busy_ms,
-         device_idle_share=1.0 - busy_ms / wall_ms,
-         top_device=[{"op": n[:80], "ms_per_frame": ms, "calls_per_frame": c}
-                     for ms, c, n in rows[:12]],
-         top_host=[{"op": n[:80], "self_cpu_ms_per_frame": ms, "calls_per_frame": c}
-                   for ms, c, n in host[:12]])
+        for label in ("before", "after"):
+            if label == "before":
+                with owner_lookups("scan"):
+                    plain_ms, wall_ms, rows, host = profile_eval(cams, model, seq)
+            else:
+                plain_ms, wall_ms, rows, host = profile_eval(cams, model, seq)
+            busy_ms = sum(r[0] for r in rows)
+            # the host's aten::cummax and its device kernel (the cumsums' scans stay)
+            scans = [r for r in rows + host
+                     if "cummax" in r[2] or "tensor_kernel_scan_innermost_dim_with_indices" in r[2]]
+            f.write(f"[{label}] render_results, {frames} frames at {cams[0].width}x"
+                    f"{cams[0].height}, {int(model.num_alive)} Gaussians; wall {plain_ms:.3f} "
+                    f"ms/frame unprofiled, {wall_ms:.3f} profiled; device busy {busy_ms:.3f} "
+                    f"ms/frame\ndevice ops:\n")
+            for ms, calls, name in rows:
+                f.write(f"{ms:10.4f} ms/frame  {calls:7.2f} calls/frame  {name}\n")
+            f.write("host ops by self CPU time:\n")
+            for ms, calls, name in host[:40]:
+                f.write(f"{ms:10.4f} ms/frame  {calls:7.2f} calls/frame  {name}\n")
+            emit("eval_profile", owner_lookup="scan form" if label == "before" else "searchsorted",
+                 label=label, frames=frames, wall_ms_per_frame=plain_ms,
+                 profiled_wall_ms_per_frame=wall_ms, device_busy_ms_per_frame=busy_ms,
+                 device_idle_share=1.0 - busy_ms / wall_ms,
+                 scan_rows=[{"op": n[:80], "ms_per_frame": ms} for ms, _, n in scans],
+                 top_device=[{"op": n[:80], "ms_per_frame": ms, "calls_per_frame": c}
+                             for ms, c, n in rows[:12]],
+                 top_host=[{"op": n[:80], "self_cpu_ms_per_frame": ms, "calls_per_frame": c}
+                           for ms, c, n in host[:12]])
+            if label == "after" and scans:
+                raise AssertionError(f"a scan still runs in the eval frame: {scans}")
 
 
 def phase_profile(dev, vid, extent, out_dir, iters: int = 40, skip: int = 10):

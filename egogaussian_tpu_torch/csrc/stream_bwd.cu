@@ -14,206 +14,54 @@
 //   dalpha_i = T_excl_i dL/dw_i - S_i / max(1 - alpha_i, 1e-6),
 //              gated to eps <= raw < 0.99,
 // and emits per pair the 7 + D rows (dmu_x, dmu_y, da, db, dc, dop,
-// dcol x D, dz) summed over the tile's pixels. Every slot of dvals is
-// written: pure-padding chunks (rank >= count) and rows past the count
-// are zeros, as in the TPU kernel.
+// dcol x D, dz) summed over the tile's pixels: the function of the chunked
+// windowed backward (window_chunked_bwd.cu). Every slot of dvals is
+// written: pure-padding chunks (rank >= count, the tail after the last run
+// included) and rows past the count are zeros, as in the TPU kernel.
 //
-// Ordering: the TPU kernel walks the grid backwards and carries the
-// suffix state between steps. Here one block is launched per slot; a
-// padding slot writes its zeros, a slot that is not its tile's first
-// returns, and the first slot's block walks the tile's real chunks from
-// the last to the first, keeping the suffix state in registers.
+// What bounds it on the card: per covered pair and pixel two expf, one
+// log1pf, ~50 other instructions and a division, plus the per-pair
+// reduction of 7 + D values over the tile's pixels. Device-memory traffic
+// is small next to both. The first version launched one block per slot;
+// the block at a tile's first slot walked the tile's chunks alone at four
+// pixels per thread with no cull, and reduced every pair with one shuffle
+// tree per field in every warp.
 //
-// What bounds it on the card: per pair and pixel one expf, one log1pf,
-// ~50 FMAs and a division, plus the per-pair reduction of 7 + D values
-// over the tile's pixels. Device-memory traffic is small next to both.
-//
-// Design: as the tile-grid backward. 256 threads, ts*ts/256 pixels each;
-// the chunk is staged in shared memory; each pair's gradient values are
-// reduced in a FIXED order (own pixels, warp shuffle tree, the 8 warp
-// partials summed in warp order by one thread per value), with no float
-// atomics, so runs repeat bit for bit. Each tile's slots are its own, so
-// no reduction crosses blocks.
-#include "tilegrid_common.cuh"
-
-namespace egogs {
-
-template <int D, int TS>
-__global__ void __launch_bounds__(kThreads)
-    stream_bwd_kernel(const int* __restrict__ meta,
-                      const float* __restrict__ vals,
-                      const float* __restrict__ bg,
-                      const float* __restrict__ logt,
-                      const float* __restrict__ gimg,
-                      const float* __restrict__ galpha,
-                      const float* __restrict__ gdepth,
-                      float* __restrict__ dvals, int n_slots, int n_tx) {
-  constexpr int P = TS * TS;
-  static_assert(P % kThreads == 0, "tile pixels must split evenly");
-  constexpr int PPT = P / kThreads;
-  constexpr int CH = 7 + D;  // fields per pair == gradient rows per pair
-  extern __shared__ __align__(16) float smem[];
-  float* blk = smem;                 // [kChunk][CH] staged pair chunk
-  float* part = smem + kChunk * CH;  // [kWarps][CH][kChunk] warp partials
-
-  const int c0 = blockIdx.x;
-  const int t = meta[c0];
-  const int* rank = meta + n_slots;
-  const int* count = meta + 2 * n_slots;
-  if (rank[c0] >= count[c0]) {
-    // pure padding chunk: zero gradient
-    float* out = dvals + static_cast<size_t>(c0) * kChunk * CH;
-    for (int i = threadIdx.x; i < kChunk * CH; i += kThreads) out[i] = 0.0f;
-    return;
-  }
-  if (c0 > 0 && meta[c0 - 1] == t) return;  // written by the tile's first slot
-  int c_last = c0;
-  while (c_last + 1 < n_slots && meta[c_last + 1] == t && rank[c_last + 1] < count[c_last + 1])
-    ++c_last;
-
-  const int tx = t % n_tx;
-  const int ty = t / n_tx;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-
-  float px[PPT], py[PPT], logT_total[PPT], base_S[PPT], suf_log[PPT], suf_S[PPT];
-  float gi[PPT][D], ga[PPT], gz[PPT];
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    const int pix = threadIdx.x + k * kThreads;
-    const size_t idx = static_cast<size_t>(t) * P + pix;
-    px[k] = static_cast<float>(tx * TS + pix % TS) + 0.5f;
-    py[k] = static_cast<float>(ty * TS + pix / TS) + 0.5f;
-    logT_total[k] = logt[idx];
-    float g_dot_bg = 0.0f;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      gi[k][d] = gimg[idx * D + d];
-      g_dot_bg += gi[k][d] * bg[d];
-    }
-    ga[k] = galpha[idx];
-    gz[k] = gdepth[idx];
-    base_S[k] = expf(logT_total[k]) * g_dot_bg;
-    suf_log[k] = 0.0f;
-    suf_S[k] = 0.0f;
-  }
-
-  for (int c = c_last; c >= c0; --c) {
-    const int cnt = count[c];
-    const int n_valid = min(kChunk, cnt - rank[c]);
-    __syncthreads();  // the previous chunk's readers of blk/part are done
-    load_chunk(blk, vals + static_cast<size_t>(c) * kChunk * CH, kChunk * CH);
-    __syncthreads();
-
-    float ls[PPT], lS[PPT];  // in-chunk suffix sums of log1m and wd
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) ls[k] = lS[k] = 0.0f;
-    for (int j = n_valid - 1; j >= 0; --j) {
-      const float* pr = blk + j * CH;
-      const float mx = pr[0], my = pr[1], a = pr[2], b = pr[3], cc = pr[4], op = pr[5];
-      const float z = pr[6 + D];
-      float s[CH];
-#pragma unroll
-      for (int v = 0; v < CH; ++v) s[v] = 0.0f;
-      bool touched = false;
-#pragma unroll
-      for (int k = 0; k < PPT; ++k) {
-        const PairAlpha r = pair_alpha(px[k], py[k], mx, my, a, b, cc, op);
-        // alpha == 0: log1m == 0, w == 0, dalpha gated to 0: every term zero
-        if (r.alpha == 0.0f) continue;
-        touched = true;
-        const float log1m = log1pf(-r.alpha);
-        ls[k] += log1m;
-        const float U = ls[k] + suf_log[k];
-        const float t_excl = expf(logT_total[k] - U);
-        const float w = r.alpha * t_excl;
-        float dld = z * gz[k] + ga[k];
-#pragma unroll
-        for (int d = 0; d < D; ++d) dld += pr[6 + d] * gi[k][d];
-        const float wd = w * dld;
-        lS[k] += wd;
-        const float S = ((lS[k] - wd) + suf_S[k]) + base_S[k];
-        const float one_minus = fmaxf(1.0f - r.alpha, 1e-6f);
-        float dalpha = t_excl * dld - S / one_minus;
-        if (!(r.raw >= kAlphaEps && r.raw < kAlphaMax)) dalpha = 0.0f;
-        const float dpower = r.raw * dalpha;
-        s[0] += (a * r.dx + b * r.dy) * dpower;
-        s[1] += (cc * r.dy + b * r.dx) * dpower;
-        s[2] += -0.5f * r.dx * r.dx * dpower;
-        s[3] += -r.dx * r.dy * dpower;
-        s[4] += -0.5f * r.dy * r.dy * dpower;
-        s[5] += expf(r.power) * dalpha;
-#pragma unroll
-        for (int d = 0; d < D; ++d) s[6 + d] += w * gi[k][d];
-        s[6 + D] += w * gz[k];
-      }
-      if (__any_sync(0xffffffffu, touched)) {
-#pragma unroll
-        for (int v = 0; v < CH; ++v) s[v] = warp_sum(s[v]);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int v = 0; v < CH; ++v) part[(warp * CH + v) * kChunk + j] = s[v];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) {
-      suf_log[k] += ls[k];
-      suf_S[k] += lS[k];
-    }
-    __syncthreads();
-
-    // fixed-order sum of the warp partials into the row-major chunk; rows
-    // past the tile's count are zeros
-    float* out = dvals + static_cast<size_t>(c) * kChunk * CH;
-    for (int i = threadIdx.x; i < kChunk * CH; i += kThreads) {
-      const int j = i / CH;
-      const int v = i % CH;
-      float acc = 0.0f;
-      if (j < n_valid) {
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) acc += part[(w * CH + v) * kChunk + j];
-      }
-      out[i] = acc;
-    }
-  }
-}
-
-template <int D, int TS>
-int launch_stream_bwd(const int* meta, const float* vals, const float* bg,
-                      const float* logt, const float* gimg, const float* galpha,
-                      const float* gdepth, float* dvals, int n_slots, int n_tx,
-                      cudaStream_t stream) {
-  constexpr int smem = (kChunk * (7 + D) + kWarps * (7 + D) * kChunk) *
-                       static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      stream_bwd_kernel<D, TS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  stream_bwd_kernel<D, TS><<<n_slots, kThreads, smem, stream>>>(
-      meta, vals, bg, logt, gimg, galpha, gdepth, dvals, n_slots, n_tx);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace egogs
+// Design: the shared log-space chunked pair (chunked_pair.cuh, the body of
+// the chunked windowed backward) with the StreamRows source: one cluster
+// per tile (ts 32: four CTAs, a 16x16 quadrant each, one pixel per thread;
+// ts 16: one CTA) that finds its run of slots by a warp search of meta
+// row 0 and walks its real chunks last to first with the per-warp
+// reach-box cull; each pair's gradient reduced in a fixed order (warp
+// exchange, warps in order, CTAs in rank order over distributed shared
+// memory), no float atomics, so repeats are bit for bit. The pure-padding
+// slots (rank >= count) are zeroed by the whole grid, slot q by CTA
+// q mod gridDim: the last tile owns the tail past the last run, 96% of the
+// slots at the default capacity, which its own CTAs took 2.7 ms to zero.
+#include "chunked_pair.cuh"
 
 // Returns cudaGetLastError() after the launch (0 = launched), or -1 for a
-// (d, ts) the library was not built for. Writes every slot of dvals.
-extern "C" int egogs_stream_bwd(const int* meta, const float* vals,
-                                const float* bg, const float* logt,
-                                const float* gimg, const float* galpha,
-                                const float* gdepth, float* dvals, int n_slots,
+// (d, ts) the library was not built for. Writes every slot of dvals. vals
+// must be 16-byte aligned.
+extern "C" int egogs_stream_bwd(const int* meta, const float* vals, const float* bg,
+                                const float* logt, const float* gimg, const float* galpha,
+                                const float* gdepth, float* dvals, int n_slots, int n_tiles,
                                 int n_tx, int ts, int d, void* stream) {
-  using namespace egogs;
+  using namespace egogs::cp;
   if (n_slots == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define EGOGS_SBWD(D_, TS_)                                                  \
-  if (d == D_ && ts == TS_)                                                  \
-    return launch_stream_bwd<D_, TS_>(meta, vals, bg, logt, gimg, galpha,    \
-                                      gdepth, dvals, n_slots, n_tx, s);
-  EGOGS_SBWD(3, 16)
-  EGOGS_SBWD(3, 32)
-  EGOGS_SBWD(1, 16)
-  EGOGS_SBWD(1, 32)
-#undef EGOGS_SBWD
-  return -1;
+  return launch_bwd<true>(StreamRows{meta, n_slots}, vals, bg, logt, gimg, galpha, gdepth,
+                          dvals, n_tiles, n_tx, ts, d, stream);
+}
+
+// The same kernel with the per-warp cull compiled out: a check instance,
+// whose gradients must equal egogs_stream_bwd's bit for bit.
+extern "C" int egogs_stream_bwd_nocull(const int* meta, const float* vals, const float* bg,
+                                       const float* logt, const float* gimg,
+                                       const float* galpha, const float* gdepth,
+                                       float* dvals, int n_slots, int n_tiles, int n_tx,
+                                       int ts, int d, void* stream) {
+  using namespace egogs::cp;
+  if (n_slots == 0) return 0;
+  return launch_bwd<false>(StreamRows{meta, n_slots}, vals, bg, logt, gimg, galpha, gdepth,
+                           dvals, n_tiles, n_tx, ts, d, stream);
 }

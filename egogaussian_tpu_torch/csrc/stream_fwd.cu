@@ -11,145 +11,60 @@
 // img = sum w*col + exp(logT_final)*bg, alpha = sum w, depth = sum w*z, and
 // the final logT per pixel ([T, 1, P]) that the backward starts from.
 // alpha = min(op * exp(min(power, 0)), 0.99), zeroed below 1/255. There is
-// no saturation skip (the TPU stream kernel has none).
+// no saturation skip (the TPU stream kernel has none). This is the
+// function of the chunked windowed forward (window_chunked_fwd.cu); only
+// where a tile's chunks live differs.
 //
 // Interface (the TPU kernel's): meta [4, n_slots] int32 per chunk slot:
-// owning tile, rank of the chunk's first pair within the tile, the tile's
-// pair count, last occupied slot (unused here); vals [n_slots*128, 7+D]
-// row-major (mu_x, mu_y, a, b, c, op, col x D, z).
+// owning tile (nondecreasing; slots past the last run carry the last tile
+// id), rank of the chunk's first pair within the tile, the tile's pair
+// count, last occupied slot (unused here); vals [n_slots*128, 7+D]
+// row-major (mu_x, mu_y, a, b, c, op, col x D, z). A tile's real chunks are
+// the prefix of its run with rank < count. Tiles that own no slot are not
+// written (the caller masks them, as JAX does); a tile whose run holds no
+// real chunk (the last tile over the pure-padding tail) comes out as bg.
 //
-// The TPU kernel runs one grid step per chunk slot IN ORDER and carries a
-// tile's state between steps in scratch. A CUDA grid has no order, so
-// here one block is launched per slot, every block but the one at its
-// tile's first slot returns at once, and that block walks the tile's
-// chunks forward in a loop, keeping the state in registers. Tiles that own
-// no slot are not written (the caller masks them, as JAX does).
+// What bounds it on the card: per covered pair and pixel (gated alpha > 0)
+// one expf for alpha, one log1pf, one expf for the weight and ~20 other
+// instructions; each pair row (40 bytes at D = 3) is read once per CTA.
+// The first version launched one block per chunk slot; every block but the
+// one at its tile's first slot returned at once, and that block walked the
+// tile's whole run alone at four pixels per thread with no cull: 58.0M
+// evaluations on the 640x480 timing frame, of which 9.7M are covered, and
+// the deepest tile (711 pairs) held one SM for the whole launch.
 //
-// What bounds it on the card: per pair and pixel one expf, one log1pf and
-// ~20 FMAs; pair data (~40 bytes per pair) is read once per tile, so
-// device-memory traffic is small next to the arithmetic.
-//
-// Design: 256 threads per block, ts*ts/256 pixels per thread; each chunk
-// is staged in shared memory with one cooperative 16-byte load and read
-// as broadcasts. The log-space prefix is kept per chunk and added to the
-// carry, as the TPU kernel does (prefix scan + carry).
-#include "tilegrid_common.cuh"
-
-namespace egogs {
-
-template <int D, int TS>
-__global__ void __launch_bounds__(kThreads)
-    stream_fwd_kernel(const int* __restrict__ meta,
-                      const float* __restrict__ vals,
-                      const float* __restrict__ bg, float* __restrict__ img,
-                      float* __restrict__ alpha_out,
-                      float* __restrict__ depth_out,
-                      float* __restrict__ logt_out, int n_slots, int n_tx) {
-  constexpr int P = TS * TS;
-  static_assert(P % kThreads == 0, "tile pixels must split evenly");
-  constexpr int PPT = P / kThreads;
-  constexpr int CH = 7 + D;
-  __shared__ __align__(16) float blk[kChunk * CH];
-
-  const int c0 = blockIdx.x;
-  const int t = meta[c0];
-  // only the tile's first slot works; it walks the tile's whole run
-  if (c0 > 0 && meta[c0 - 1] == t) return;
-  const int* rank = meta + n_slots;
-  const int* count = meta + 2 * n_slots;
-  const int tx = t % n_tx;
-  const int ty = t / n_tx;
-
-  float px[PPT], py[PPT], logT[PPT], acc[PPT][D], acc_a[PPT], acc_z[PPT];
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    const int pix = threadIdx.x + k * kThreads;
-    px[k] = static_cast<float>(tx * TS + pix % TS) + 0.5f;
-    py[k] = static_cast<float>(ty * TS + pix / TS) + 0.5f;
-    logT[k] = 0.0f;
-    acc_a[k] = 0.0f;
-    acc_z[k] = 0.0f;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[k][d] = 0.0f;
-  }
-
-  for (int c = c0; c < n_slots && meta[c] == t; ++c) {
-    const int rank_off = rank[c];
-    const int cnt = count[c];
-    if (rank_off >= cnt) break;  // pure padding from here on
-    __syncthreads();  // the previous chunk's readers are done with blk
-    load_chunk(blk, vals + static_cast<size_t>(c) * kChunk * CH, kChunk * CH);
-    __syncthreads();
-
-    float prefix[PPT];
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) prefix[k] = 0.0f;
-    const int n_valid = min(kChunk, cnt - rank_off);
-    for (int j = 0; j < n_valid; ++j) {
-      const float* pr = blk + j * CH;
-      const float mx = pr[0], my = pr[1], a = pr[2], b = pr[3], cc = pr[4], op = pr[5];
-      const float z = pr[6 + D];
-#pragma unroll
-      for (int k = 0; k < PPT; ++k) {
-        const PairAlpha r = pair_alpha(px[k], py[k], mx, my, a, b, cc, op);
-        // alpha == 0: log1m == 0 and w == 0, nothing moves
-        if (r.alpha == 0.0f) continue;
-        const float log1m = log1pf(-r.alpha);
-        prefix[k] += log1m;
-        const float incl = prefix[k] + logT[k];
-        const float w = r.alpha * expf(incl - log1m);
-#pragma unroll
-        for (int d = 0; d < D; ++d) acc[k][d] += w * pr[6 + d];
-        acc_a[k] += w;
-        acc_z[k] += w * z;
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) logT[k] = prefix[k] + logT[k];
-  }
-
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    const int pix = threadIdx.x + k * kThreads;
-    const size_t idx = static_cast<size_t>(t) * P + pix;
-    const float t_final = expf(logT[k]);
-#pragma unroll
-    for (int d = 0; d < D; ++d) img[idx * D + d] = acc[k][d] + t_final * bg[d];
-    alpha_out[idx] = acc_a[k];
-    depth_out[idx] = acc_z[k];
-    logt_out[idx] = logT[k];
-  }
-}
-
-template <int D, int TS>
-int launch_stream_fwd(const int* meta, const float* vals, const float* bg,
-                      float* img, float* alpha, float* depth, float* logt,
-                      int n_slots, int n_tx, cudaStream_t stream) {
-  stream_fwd_kernel<D, TS><<<n_slots, kThreads, 0, stream>>>(
-      meta, vals, bg, img, alpha, depth, logt, n_slots, n_tx);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace egogs
+// Design: the shared log-space chunked pair (chunked_pair.cuh, the body of
+// the chunked windowed forward) with the StreamRows source: a grid over
+// tiles, not slots. Each CTA finds its tile's run of slots by a warp
+// search of meta row 0 (both ends at once, a 16-ary search per half
+// warp) and composites the run's real chunks. A 16x16
+// quadrant per 256-thread CTA (ts 32: a plain grid of four CTAs per tile,
+// ts 16: one), one pixel per thread; the per-warp reach-box cull; each
+// chunk (128 * (7+D) floats at a 16-byte-aligned slot offset) by bulk copy
+// into a two-stage ring.
+#include "chunked_pair.cuh"
 
 // Returns cudaGetLastError() after the launch (0 = launched), or -1 for a
 // (d, ts) the library was not built for. Writes only the tiles that own a
-// chunk slot.
-extern "C" int egogs_stream_fwd(const int* meta, const float* vals,
-                                const float* bg, float* img, float* alpha,
-                                float* depth, float* logt, int n_slots,
-                                int n_tx, int ts, int d, void* stream) {
-  using namespace egogs;
+// chunk slot. vals must be 16-byte aligned.
+extern "C" int egogs_stream_fwd(const int* meta, const float* vals, const float* bg,
+                                float* img, float* alpha, float* depth, float* logt,
+                                int n_slots, int n_tiles, int n_tx, int ts, int d,
+                                void* stream) {
+  using namespace egogs::cp;
   if (n_slots == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define EGOGS_SFWD(D_, TS_)                                                   \
-  if (d == D_ && ts == TS_)                                                   \
-    return launch_stream_fwd<D_, TS_>(meta, vals, bg, img, alpha, depth, logt, \
-                                      n_slots, n_tx, s);
-  EGOGS_SFWD(3, 16)
-  EGOGS_SFWD(3, 32)
-  EGOGS_SFWD(1, 16)
-  EGOGS_SFWD(1, 32)
-#undef EGOGS_SFWD
-  return -1;
+  return launch_fwd<true>(StreamRows{meta, n_slots}, vals, bg, img, alpha, depth, logt,
+                          n_tiles, n_tx, ts, d, stream);
+}
+
+// The same kernel with the per-warp cull compiled out: a check instance,
+// whose outputs must equal egogs_stream_fwd's bit for bit.
+extern "C" int egogs_stream_fwd_nocull(const int* meta, const float* vals, const float* bg,
+                                       float* img, float* alpha, float* depth, float* logt,
+                                       int n_slots, int n_tiles, int n_tx, int ts, int d,
+                                       void* stream) {
+  using namespace egogs::cp;
+  if (n_slots == 0) return 0;
+  return launch_fwd<false>(StreamRows{meta, n_slots}, vals, bg, img, alpha, depth, logt,
+                           n_tiles, n_tx, ts, d, stream);
 }

@@ -1,5 +1,6 @@
 // Shared parts of the tile-grid pair (tilegrid_fwd.cu, tilegrid_bwd.cu)
-// and the chunked windowed pair (window_chunked_{fwd,bwd}.cu):
+// and the log-space chunked pair that the chunked windowed and stream
+// kernels run (chunked_pair.cuh):
 // one thread-block cluster per tile, one pixel per thread, a warp per
 // 8x4 pixel patch, a conservative reach box per pair, the tile-wide
 // saturation vote across the cluster, and the chunk ring fed by bulk

@@ -1,5 +1,6 @@
 // Shared definitions of the compositor kernels (tilegrid_{fwd,bwd}.cu,
-// stream_{fwd,bwd}.cu, window_chunked_{fwd,bwd}.cu, window_{fwd,bwd}.cu).
+// chunked_pair.cuh for stream_{fwd,bwd}.cu and window_chunked_{fwd,bwd}.cu,
+// window_{fwd,bwd}.cu).
 // Every kernel evaluates a
 // pair's alpha through the same inline function, so a backward's replayed
 // transmittance sweep sees its forward's values operation for operation.
@@ -57,15 +58,6 @@ __device__ __forceinline__ PairAlpha pair_alpha(float px, float py, float mx,
   const float alpha = fminf(r.raw, kAlphaMax);
   r.alpha = alpha < kAlphaEps ? 0.0f : alpha;
   return r;
-}
-
-// Copy one chunk (ch * 128 floats, 16-byte aligned) into shared memory.
-__device__ __forceinline__ void load_chunk(float* __restrict__ dst,
-                                           const float* __restrict__ src,
-                                           int n_floats) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-  float4* d4 = reinterpret_cast<float4*>(dst);
-  for (int i = threadIdx.x; i < n_floats / 4; i += kThreads) d4[i] = s4[i];
 }
 
 // Stage rows [off, off + n) of one tile's split window (the simple windowed

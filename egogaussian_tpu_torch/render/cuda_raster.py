@@ -47,9 +47,10 @@ SUPPORTED_TS = (16, 32)
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-_SOURCES = ("tilegrid_common.cuh", "tilegrid_cluster.cuh", "tilegrid_fwd.cu",
-            "tilegrid_bwd.cu", "stream_fwd.cu", "stream_bwd.cu", "window_chunked_fwd.cu",
-            "window_chunked_bwd.cu", "window_fwd.cu", "window_bwd.cu", "fma_peak.cu")
+_SOURCES = ("tilegrid_common.cuh", "tilegrid_cluster.cuh", "chunked_pair.cuh",
+            "tilegrid_fwd.cu", "tilegrid_bwd.cu", "stream_fwd.cu", "stream_bwd.cu",
+            "window_chunked_fwd.cu", "window_chunked_bwd.cu", "window_fwd.cu", "window_bwd.cu",
+            "fma_peak.cu")
 # compile flags of each source; the objects are then linked with -shared
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -136,10 +137,12 @@ def kernel_library() -> ctypes.CDLL:
     for fn in (lib.egogs_tilegrid_bwd, lib.egogs_tilegrid_bwd_nocull):
         fn.restype = i
         fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
-    lib.egogs_stream_fwd.restype = i
-    lib.egogs_stream_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
-    lib.egogs_stream_bwd.restype = i
-    lib.egogs_stream_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+    for fn in (lib.egogs_stream_fwd, lib.egogs_stream_fwd_nocull):
+        fn.restype = i
+        fn.argtypes = [p] * 7 + [i] * 5 + [p]
+    for fn in (lib.egogs_stream_bwd, lib.egogs_stream_bwd_nocull):
+        fn.restype = i
+        fn.argtypes = [p] * 8 + [i] * 5 + [p]
     for fn in (lib.egogs_window_chunked_fwd, lib.egogs_window_chunked_fwd_nocull):
         fn.restype = i
         fn.argtypes = [p] * 7 + [i] * 5 + [p]

@@ -6,8 +6,11 @@ zero pattern for its later chunks. `window_probe` puts the chunked
 windowed pair's edge cases into one gather window: a tile three chunks
 deep, footprints across the 16x16 quadrant and 8x4 warp-patch edges,
 live rows past a tile's count, an empty tile and pairs on either side of
-the 1/255 gate. Both are numpy only, so the kernel checks of
-`chip_smoke.py`, the card tests and the CPU tests share one copy.
+the 1/255 gate. `stream_probe` does the same for the stream pair's slot
+runs: empty tiles between runs, a run of exactly two chunks, a one-pair
+tile, the pure-padding tail and a run cut at the slot capacity. All are
+numpy only, so the kernel checks of `chip_smoke.py`, the card tests and
+the CPU tests share one copy.
 """
 from __future__ import annotations
 
@@ -70,6 +73,56 @@ PROBE_COUNTS = (300, 0, 50)  # pairs of its three tiles
 PROBE_GATE = (2, 0, 5, 4)  # tile, row, pixel (x, y) in the tile of the gate pair
 
 
+class _Splats:
+    """Seeded float32 pair rows mu_x | mu_y | a | b | c | op | col x D | z
+    for the probes of tiles of size ts (x0: the tile's left edge)."""
+
+    def __init__(self, d: int, ts: int, seed: int):
+        self.rng, self.d, self.ts = np.random.RandomState(seed), d, ts
+
+    def rows(self, mx, my, sigma, op):
+        rng, d, n = self.rng, self.d, len(mx)
+        r = np.zeros((n, 7 + d), np.float32)
+        a = 1.0 / sigma ** 2
+        c = a * rng.uniform(0.6, 1.4, n)
+        r[:, 0], r[:, 1], r[:, 2], r[:, 4], r[:, 5] = mx, my, a, c, op
+        r[:, 3] = rng.uniform(-0.4, 0.4, n) * np.sqrt(a * c)
+        r[:, 6:6 + d] = rng.rand(n, d)
+        r[:, 6 + d] = rng.uniform(1.0, 5.0, n)
+        return r
+
+    def edge(self, n, x0):
+        """Centred within half a pixel of a warp-patch edge (x a multiple of
+        8, y of 4, tile-local; at ts 32 also the quadrant edges), 1-5 px
+        footprints that cross it."""
+        rng, ts = self.rng, self.ts
+        mx = x0 + 8.0 * rng.randint(1, ts // 8, n) + rng.uniform(-0.5, 0.5, n)
+        my = 4.0 * rng.randint(1, ts // 4, n) + rng.uniform(-0.5, 0.5, n)
+        return self.rows(mx, my, rng.uniform(1.0, 5.0, n), rng.uniform(0.05, 0.5, n))
+
+    def loose(self, n, x0, margin):
+        """Anywhere in the tile or up to `margin` px outside it."""
+        rng, ts = self.rng, self.ts
+        return self.rows(x0 + rng.uniform(-margin, ts + margin, n),
+                         rng.uniform(-margin, ts + margin, n),
+                         rng.uniform(0.7, 4.0, n), rng.uniform(0.05, 0.6, n))
+
+    def masked(self, n, x0):
+        """Live, opaque splats over the whole tile (op 0.95): rows that must
+        never be read."""
+        rng, ts = self.rng, self.ts
+        return self.rows(x0 + rng.uniform(0, ts, n), rng.uniform(0, ts, n),
+                         np.full(n, ts / 2.0), np.full(n, 0.95))
+
+    def gate(self, live, x0):
+        """Rows 0-1 of `live` on pixel centres (5, 4) and (9, 4): op exactly
+        float32(1/255), alpha at the gate there (kept), and one ulp below
+        it (alpha 0 everywhere)."""
+        g = np.float32(1.0 / 255.0)
+        for k, (px, op) in enumerate(((5.5, g), (9.5, np.nextafter(g, np.float32(0))))):
+            live[k, :6] = (x0 + px, 4.5, 2.0, 0.0, 2.0, op)
+
+
 def window_probe(d: int, ts: int, seed: int = 6):
     """A hand-made gather window for the chunked windowed compositor: three
     tiles of size ts in a row (3ts x ts pixels), PROBE_ROWS rows each,
@@ -88,48 +141,75 @@ def window_probe(d: int, ts: int, seed: int = 6):
     Every row past a tile's count holds a live, opaque splat over the
     tile (op 0.95), which must be masked. Returns (counts [3] int32,
     data [3, PROBE_ROWS, 7+D], bg [1, D], n_tx, width, height)."""
-    rng = np.random.RandomState(seed)
-    ch = 7 + d
-
-    def rows(mx, my, sigma, op):
-        n = len(mx)
-        r = np.zeros((n, ch), np.float32)
-        a = 1.0 / sigma ** 2
-        c = a * rng.uniform(0.6, 1.4, n)
-        r[:, 0], r[:, 1], r[:, 2], r[:, 4], r[:, 5] = mx, my, a, c, op
-        r[:, 3] = rng.uniform(-0.4, 0.4, n) * np.sqrt(a * c)
-        r[:, 6:6 + d] = rng.rand(n, d)
-        r[:, 6 + d] = rng.uniform(1.0, 5.0, n)
-        return r
-
-    def edge_splats(n, x0):
-        mx = x0 + 8.0 * rng.randint(1, ts // 8, n) + rng.uniform(-0.5, 0.5, n)
-        my = 4.0 * rng.randint(1, ts // 4, n) + rng.uniform(-0.5, 0.5, n)
-        return rows(mx, my, rng.uniform(1.0, 5.0, n), rng.uniform(0.05, 0.5, n))
-
-    def loose_splats(n, x0, margin):
-        return rows(x0 + rng.uniform(-margin, ts + margin, n), rng.uniform(-margin, ts + margin, n),
-                    rng.uniform(0.7, 4.0, n), rng.uniform(0.05, 0.6, n))
-
-    def masked_splats(n, x0):
-        return rows(x0 + rng.uniform(0, ts, n), rng.uniform(0, ts, n),
-                    np.full(n, ts / 2.0), np.full(n, 0.95))
-
+    sp = _Splats(d, ts, seed)
     counts = np.array(PROBE_COUNTS, np.int32)
     tiles = []
     for t, cnt in enumerate(counts):
         x0 = float(t * ts)
         if t == 0:
-            live = np.concatenate([edge_splats(200, x0), loose_splats(cnt - 200, x0, 6.0)])
-            live = live[rng.permutation(cnt)]
+            live = np.concatenate([sp.edge(200, x0), sp.loose(cnt - 200, x0, 6.0)])
+            live = live[sp.rng.permutation(cnt)]
         elif t == 2:
-            live = loose_splats(cnt, x0, 3.0)
-            gate = np.float32(1.0 / 255.0)
-            for k, (px, op) in enumerate(((5.5, gate), (9.5, np.nextafter(gate, np.float32(0))))):
-                live[k, :6] = (x0 + px, 4.5, 2.0, 0.0, 2.0, op)
+            live = sp.loose(cnt, x0, 3.0)
+            sp.gate(live, x0)
         else:
-            live = np.zeros((0, ch), np.float32)
-        tiles.append(np.concatenate([live, masked_splats(PROBE_ROWS - cnt, x0)]))
+            live = np.zeros((0, 7 + d), np.float32)
+        tiles.append(np.concatenate([live, sp.masked(PROBE_ROWS - cnt, x0)]))
     data = np.stack(tiles).astype(np.float32)
     bg = np.array([[0.2, 0.1, 0.4][:d]], np.float32)
     return counts, data, bg, 3, 3 * ts, ts
+
+
+STREAM_COUNTS = (256, 0, 1, 0, 300, 0)  # pairs of stream_probe's six tiles
+
+
+def stream_probe(d: int, ts: int, cut: bool = False, seed: int = 7):
+    """A hand-made stream layout (meta [4, n_slots], vals [n_slots*128, 7+D])
+    of six tiles of size ts in a row (6ts x ts pixels), laid out as
+    render/tiled.py:stream_layout lays out their runs:
+      tile 0: exactly 2 x 128 pairs (two full chunks, slots 0-1); rows 0-1
+        are the 1/255 gate pairs of window_probe's tile 2;
+      tiles 1 and 3: empty, between runs (they own no slot);
+      tile 2: one pair (slot 2), near a warp-patch edge;
+      tile 4: 300 pairs (slots 3-5, the last partial), two thirds across
+        warp-patch and quadrant edges;
+      tile 5: empty, the last tile: it owns the pure-padding tail slots 6-7
+        (rank 0 and 128 >= its count 0).
+    With cut=True the slot capacity ends inside tile 4's run (n_slots 5,
+    slots 3-4 at ranks 0 and 128 < 300), as when the padded total overflows
+    the capacity: tile 5 then owns no slot. Every row past a count, in the
+    partial chunks and the tail slots, holds a live, opaque splat over its
+    tile (op 0.95) that would show if it were read. Returns (meta, vals,
+    bg [1, D], n_tx, width, height)."""
+    sp = _Splats(d, ts, seed)
+    counts = np.array(STREAM_COUNTS, np.int32)
+    n_tiles = len(counts)
+    chunks = -(-counts // 128)
+    starts2 = np.concatenate([[0], np.cumsum(chunks)[:-1]])
+    n_used = int(chunks.sum())
+    n_slots = 5 if cut else n_used + 2
+    owner = np.full(n_slots, n_tiles - 1, np.int64)
+    for t in np.nonzero(chunks)[0]:
+        owner[starts2[t]:starts2[t] + chunks[t]] = t
+    rank = (np.arange(n_slots) - starts2[owner]) * 128
+    meta = np.stack([owner, rank, counts[owner], np.full(n_slots, min(n_used, n_slots) - 1)])
+    vals = np.zeros((n_slots * 128, 7 + d), np.float32)
+    for t in range(n_tiles):
+        x0 = float(t * ts)
+        cnt = int(counts[t])
+        if t == 0:
+            live = sp.loose(cnt, x0, 4.0)
+            sp.gate(live, x0)
+        elif t == 4:
+            live = np.concatenate([sp.edge(200, x0), sp.loose(cnt - 200, x0, 6.0)])
+            live = live[sp.rng.permutation(cnt)]
+        else:
+            live = sp.edge(cnt, x0)
+        slots = np.nonzero(owner == t)[0]
+        if not len(slots):
+            continue
+        n_rows = len(slots) * 128
+        rows = np.concatenate([live, sp.masked(max(n_rows - cnt, 0), x0)])[:n_rows]
+        vals[slots[0] * 128:slots[0] * 128 + n_rows] = rows
+    bg = np.array([[0.2, 0.1, 0.4][:d]], np.float32)
+    return meta.astype(np.int32), vals, bg, n_tiles, n_tiles * ts, ts

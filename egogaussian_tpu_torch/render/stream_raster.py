@@ -4,7 +4,10 @@ Port of `make_stream_compositor` in `egogaussian_tpu/render/pallas_raster.py`
 (`_stream_fwd_kernel`, `_stream_bwd_kernel`), selected by
 TileConfig.compositor="stream". The kernels are CUDA C++ for sm_90a in
 `egogaussian_tpu_torch/csrc/stream_{fwd,bwd}.cu`, built into the same
-library as the tile-grid pair (render/cuda_raster.py).
+library as the tile-grid pair (render/cuda_raster.py). They run the body of
+the chunked windowed pair (`csrc/chunked_pair.cuh`) over a grid of tiles,
+each finding its run of slots in meta row 0; `stream_{forward,backward}_nocull`
+launch them with the per-warp cull compiled out (checks only).
 
 Interface (the TPU kernels'):
   meta [4, n_slots] int32 per 128-pair chunk slot: owning tile, rank of the
@@ -210,6 +213,18 @@ def composite_stream_plain_bwd(meta, vals, bg, logt, gimg, galpha, gdepth,
 # Wrappers: kernel on CUDA tensors, plain twin on CPU tensors
 # ---------------------------------------------------------------------------
 
+def _launch_fwd(symbol, meta, vals, bg, ts, n_tx, n_tiles, n_slots, d):
+    p = ts * ts
+    outs = [torch.empty(shape, dtype=torch.float32, device=vals.device)
+            for shape in ((n_tiles, p, d), (n_tiles, p, 1), (n_tiles, p, 1), (n_tiles, 1, p))]
+    stream = torch.cuda.current_stream(vals.device).cuda_stream
+    rc = getattr(kernel_library(), symbol)(
+        meta.data_ptr(), vals.data_ptr(), bg.data_ptr(), *(o.data_ptr() for o in outs),
+        n_slots, n_tiles, n_tx, ts, d, stream)
+    _launch_check(rc, "stream forward")
+    return tuple(outs)
+
+
 def stream_forward(meta, vals, bg, ts: int, n_tx: int, n_tiles: int):
     """Forward compositor -> (img, alpha, depth, logT). CUDA tensors launch
     the kernel (tiles owning no slot stay unwritten); CPU tensors run
@@ -219,42 +234,64 @@ def stream_forward(meta, vals, bg, ts: int, n_tx: int, n_tiles: int):
         return composite_stream_plain_fwd(meta, vals, bg, ts, n_tx, n_tiles)
     if vals.device.type != "cuda":
         raise ValueError(f"no stream compositor for device {vals.device}")
-    p = ts * ts
-    img = torch.empty((n_tiles, p, d), dtype=torch.float32, device=vals.device)
-    alpha = torch.empty((n_tiles, p, 1), dtype=torch.float32, device=vals.device)
-    depth = torch.empty((n_tiles, p, 1), dtype=torch.float32, device=vals.device)
-    logt = torch.empty((n_tiles, 1, p), dtype=torch.float32, device=vals.device)
-    lib = kernel_library()
-    stream = torch.cuda.current_stream(vals.device).cuda_stream
-    rc = lib.egogs_stream_fwd(
-        meta.data_ptr(), vals.data_ptr(), bg.data_ptr(), img.data_ptr(), alpha.data_ptr(),
-        depth.data_ptr(), logt.data_ptr(), n_slots, n_tx, ts, d, stream)
-    _launch_check(rc, "stream forward")
+    outs = _launch_fwd("egogs_stream_fwd", meta, vals, bg, ts, n_tx, n_tiles, n_slots, d)
     StreamCompositor.fwd_launches[d] += 1
-    return img, alpha, depth, logt
+    return outs
 
 
-def stream_backward(meta, vals, bg, logt, gimg, galpha, gdepth, ts: int, n_tx: int):
-    """Backward compositor -> dvals, every slot written. CUDA tensors launch
-    the kernel; CPU tensors run composite_stream_plain_bwd."""
+def stream_forward_nocull(meta, vals, bg, ts: int, n_tx: int, n_tiles: int):
+    """The forward kernel instantiated with its per-warp cull compiled out
+    (CUDA tensors only; not counted). A check instance: on the tiles that
+    own a slot its outputs must equal stream_forward's bit for bit."""
+    n_slots, d = _check(meta, vals, bg, ts, n_tiles)
+    if vals.device.type != "cuda":
+        raise ValueError("the cull-free check instance runs on CUDA tensors only")
+    return _launch_fwd("egogs_stream_fwd_nocull", meta, vals, bg, ts, n_tx, n_tiles, n_slots, d)
+
+
+def _check_bwd(meta, vals, bg, logt, gimg, galpha, gdepth, ts):
     n_tiles, p = logt.shape[0], ts * ts
     d = bg.shape[1]
     n_slots, _ = _check(meta, vals, bg, ts, n_tiles, tensors=[
         (logt, (n_tiles, 1, p)), (gimg, (n_tiles, p, d)), (galpha, (n_tiles, p, 1)),
         (gdepth, (n_tiles, p, 1))])
+    return n_slots, n_tiles, d
+
+
+def _launch_bwd(symbol, meta, vals, bg, logt, gimg, galpha, gdepth, ts, n_tx, n_slots, n_tiles,
+                d):
+    dvals = torch.empty_like(vals)
+    stream = torch.cuda.current_stream(vals.device).cuda_stream
+    rc = getattr(kernel_library(), symbol)(
+        *(x.data_ptr() for x in (meta, vals, bg, logt, gimg, galpha, gdepth, dvals)),
+        n_slots, n_tiles, n_tx, ts, d, stream)
+    _launch_check(rc, "stream backward")
+    return dvals
+
+
+def stream_backward(meta, vals, bg, logt, gimg, galpha, gdepth, ts: int, n_tx: int):
+    """Backward compositor -> dvals, every slot written. CUDA tensors launch
+    the kernel; CPU tensors run composite_stream_plain_bwd."""
+    dims = _check_bwd(meta, vals, bg, logt, gimg, galpha, gdepth, ts)
     if vals.device.type == "cpu":
         return composite_stream_plain_bwd(meta, vals, bg, logt, gimg, galpha, gdepth, ts, n_tx)
     if vals.device.type != "cuda":
         raise ValueError(f"no stream compositor for device {vals.device}")
-    dvals = torch.empty_like(vals)
-    lib = kernel_library()
-    stream = torch.cuda.current_stream(vals.device).cuda_stream
-    rc = lib.egogs_stream_bwd(
-        *(x.data_ptr() for x in (meta, vals, bg, logt, gimg, galpha, gdepth, dvals)),
-        n_slots, n_tx, ts, d, stream)
-    _launch_check(rc, "stream backward")
-    StreamCompositor.bwd_launches[d] += 1
+    dvals = _launch_bwd("egogs_stream_bwd", meta, vals, bg, logt, gimg, galpha, gdepth, ts,
+                        n_tx, *dims)
+    StreamCompositor.bwd_launches[dims[2]] += 1
     return dvals
+
+
+def stream_backward_nocull(meta, vals, bg, logt, gimg, galpha, gdepth, ts: int, n_tx: int):
+    """The backward kernel instantiated with its per-warp cull compiled out
+    (CUDA tensors only; not counted). A check instance: its gradients must
+    equal stream_backward's bit for bit."""
+    dims = _check_bwd(meta, vals, bg, logt, gimg, galpha, gdepth, ts)
+    if vals.device.type != "cuda":
+        raise ValueError("the cull-free check instance runs on CUDA tensors only")
+    return _launch_bwd("egogs_stream_bwd_nocull", meta, vals, bg, logt, gimg, galpha, gdepth,
+                       ts, n_tx, *dims)
 
 
 class StreamCompositor(torch.autograd.Function):

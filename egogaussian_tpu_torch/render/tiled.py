@@ -21,8 +21,9 @@ Port of `egogaussian_tpu/render/tiled.py`:
            stream kernel pair (render/stream_raster.py)
 
 Every static capacity that can lose a pair counts it in `dropped`; nothing
-is dropped silently. Scatters that JAX writes with mode="drop" use a buffer
-with one sentinel slot at the end, which is sliced off.
+is dropped silently. Each pair slot's Gaussian and each layout slot's tile
+are found by a parallel binary search (pair_owner, slot_owner) where JAX
+scatters marks and takes a running max; the owners are the same.
 """
 from __future__ import annotations
 
@@ -161,13 +162,23 @@ def estimate_tile_config(
     )
 
 
-def _scatter_amax(size: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """zeros(size).at[idx].max(vals, mode="drop"): indices outside
-    [0, size) land in a sentinel slot that is sliced off."""
-    idx = torch.where((idx >= 0) & (idx < size), idx, torch.full_like(idx, size))
-    buf = torch.zeros(size + 1, dtype=vals.dtype, device=vals.device)
-    buf.scatter_reduce_(0, idx, vals, reduce="amax", include_self=True)
-    return buf[:size]
+def pair_owner(offsets: torch.Tensor, counts: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """[n_slots] owner of each pair slot p: the Gaussian g with
+    offsets[g] <= p < offsets[g] + counts[g], by a parallel binary search
+    (searchsorted(offsets, p, right=True) - 1; no serial scan, no host
+    sync). Gaussians of count 0 share their offset with the next one, and
+    right=True picks the last index at an offset, the one that owns it.
+    Slots at or past the total get the last Gaussian with count > 0 (0 if
+    there is none), which is what the JAX package's scatter-max and
+    running max give them; they still enter bin_pairs' sort key."""
+    n = offsets.shape[0]
+    p = torch.arange(n_slots, dtype=offsets.dtype, device=offsets.device)
+    if n == 0:
+        return torch.zeros_like(p)
+    idx = torch.arange(n, dtype=offsets.dtype, device=offsets.device)
+    last = torch.amax(torch.where(counts > 0, idx, torch.zeros_like(idx)))
+    g = torch.searchsorted(offsets.contiguous(), p, right=True) - 1
+    return torch.clamp(torch.minimum(g, last), min=0)
 
 
 def bin_pairs(
@@ -240,12 +251,9 @@ def bin_pairs(
         offsets = torch.cumsum(counts, 0) - counts  # exclusive
         total = (offsets[-1] + counts[-1]) if n > 0 else torch.zeros((), dtype=torch.int64, device=dev)
 
-        # pair slot p -> owning Gaussian g: mark each Gaussian at its start
-        # slot, then a running max (searchsorted(offsets, p, 'right') - 1)
+        # pair slot p -> owning Gaussian g
         p_idx = torch.arange(mp, dtype=torch.int64, device=dev)
-        start_slots = torch.where(counts > 0, offsets, torch.full_like(offsets, mp))
-        marks = _scatter_amax(mp, start_slots, torch.arange(1, n + 1, dtype=torch.int64, device=dev))
-        g = torch.clamp(torch.cummax(marks, 0).values - 1, 0, max(n - 1, 0))
+        g = pair_owner(offsets, counts, mp)
 
         if opacities is not None:
             gf = torch.stack(
@@ -483,20 +491,24 @@ def _padded_runs(proj, opacities, width, height, config) -> _PaddedRuns:
                        overflowed, dropped, sc, n_tx, n_ty)
 
 
-def _slot_stream(runs: _PaddedRuns, per_tile: torch.Tensor) -> torch.Tensor:
-    """[sc] value of each slot's owning tile: a scatter at the tiles'
-    padded starts (tiles past the capacity drop out) and a running max;
-    every scattered stream is nondecreasing in tile id, so the owner of a
-    slot run is the largest tile id that starts there."""
-    return torch.cummax(_scatter_amax(runs.sc, runs.starts2, per_tile), 0).values
+def slot_owner(starts2: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """[n_slots] tile that owns each slot of the padded layout: the last
+    tile t with starts2[t] <= q (searchsorted(starts2, q, right=True) - 1;
+    starts2[0] = 0). Empty tiles share their padded start with the next
+    tile and so own nothing inside a run; slots past the last run belong to
+    the last tile id; a tile whose run overflows the capacity still owns
+    the slots up to it. The JAX package's scatter at the padded starts and
+    running max give the same owner."""
+    q = torch.arange(n_slots, dtype=starts2.dtype, device=starts2.device)
+    return torch.searchsorted(starts2.contiguous(), q, right=True) - 1
 
 
-def _slot_sources(runs: _PaddedRuns) -> torch.Tensor:
+def _slot_sources(runs: _PaddedRuns, owner: torch.Tensor) -> torch.Tensor:
     """[sc] index (into the unsorted Gaussian arrays) of the pair in each
-    slot: slot q of tile t holds pair starts[t] + (q - starts2[t])."""
-    q = torch.arange(runs.sc, dtype=torch.int64, device=runs.tile_cnt.device)
-    p_q = torch.clamp(_slot_stream(runs, runs.starts) + (q - _slot_stream(runs, runs.starts2)),
-                      0, runs.config.max_pairs - 1)
+    slot: slot q of tile t = owner[q] holds pair starts[t] + (q - starts2[t])."""
+    q = torch.arange(runs.sc, dtype=torch.int64, device=owner.device)
+    p_q = torch.clamp(runs.starts[owner] + (q - runs.starts2[owner]), 0,
+                      runs.config.max_pairs - 1)
     return runs.order[runs.g_sorted[p_q]]
 
 
@@ -533,7 +545,7 @@ def tilegrid_layout(
             torch.where(runs.overflowed, zero, runs.tile_cnt),
             fit_slots.expand(n_tiles),
         ]).to(torch.int32).contiguous()
-        src = _slot_sources(runs)
+        src = _slot_sources(runs, slot_owner(runs.starts2, runs.sc))
 
     packed = _packed_rows(proj, colors, opacities)
     ch16 = ch16_of(colors.shape[-1])
@@ -559,14 +571,14 @@ def stream_layout(
     Slots past the last tile's run belong to the last tile id with rank >=
     count (pure padding)."""
     runs = _padded_runs(proj, opacities, width, height, config)
-    n_tiles = runs.n_tx * runs.n_ty
     n_slots = runs.sc // CHUNK
     dev = runs.tile_cnt.device
     with torch.no_grad():
-        src = _slot_sources(runs)
+        owner = slot_owner(runs.starts2, runs.sc)
+        src = _slot_sources(runs, owner)
         q0 = torch.arange(0, runs.sc, CHUNK, dtype=torch.int64, device=dev)
-        t_chunk = _slot_stream(runs, torch.arange(n_tiles, dtype=torch.int64, device=dev))[::CHUNK]
-        rank_off = q0 - _slot_stream(runs, runs.starts2)[::CHUNK]
+        t_chunk = owner[::CHUNK]
+        rank_off = q0 - runs.starts2[t_chunk]
         last_used = torch.clamp(torch.sum(runs.padded_cnt) // CHUNK - 1, 0, n_slots - 1)
         meta = torch.stack([
             t_chunk, rank_off, runs.tile_cnt[t_chunk], last_used.expand(n_slots),

@@ -1,7 +1,7 @@
 """The compositor CUDA kernels (tile-grid forward, both tile-grid backward
 flavors, the stream pair, the chunked and simple windowed pairs) against
-their plain twins and the oracle, and the tile-grid and chunked windowed
-pairs against their cull-off instances, on the card. Marked `cuda`; without a
+their plain twins and the oracle, and the tile-grid, chunked windowed and
+stream pairs against their cull-off instances, on the card. Marked `cuda`; without a
 CUDA device every test skips.
 
 On a machine with a GPU (no JAX needed there):
@@ -22,7 +22,7 @@ from egogaussian_tpu_torch.render import stream_raster as sr
 from egogaussian_tpu_torch.render import window_raster as wr
 from egogaussian_tpu_torch.render.api import render
 from egogaussian_tpu_torch.render.camera import Camera, look_at
-from egogaussian_tpu_torch.render.probe_layouts import quadrant_scene, window_probe
+from egogaussian_tpu_torch.render.probe_layouts import quadrant_scene, stream_probe, window_probe
 from egogaussian_tpu_torch.render.tiled import (
     TileConfig,
     stream_layout,
@@ -454,6 +454,54 @@ def test_window_chunked_cull_is_exact(dev, d, tile_size):
         p_d = wr.composite_window_chunked_plain_bwd(counts, data, bg, out[3], *cots, tile_size,
                                                     n_tx)
         torch.testing.assert_close(k_d, p_d, atol=2e-4, rtol=1e-3)
+
+
+def _deep_stream(dev, d, tile_size):
+    """1,000 Gaussians at 48x32 as a stream layout (runs of 2-5 chunks)."""
+    means, cov3d, colors, ops = _scene(dev, n=1000, seed=9)
+    lay = stream_layout(_project(dev, means, cov3d), colors[:, :d], ops, W, H,
+                        TileConfig(max_pairs=16384, tile_size=tile_size, compositor="stream"))
+    return (lay.meta, lay.vals.detach().contiguous(), torch.rand((1, d), device=dev), lay.n_tx,
+            lay.n_tx * lay.n_ty)
+
+
+@pytest.mark.parametrize("tile_size", [16, 32])
+@pytest.mark.parametrize("d", [3, 1])
+def test_stream_cull_is_exact(dev, d, tile_size):
+    """The redesigned stream pair (the chunked windowed pair's body over a
+    grid of tiles, each finding its run of slots by a warp search) on
+    render/probe_layouts.py:stream_probe, whole and cut at the slot
+    capacity, and on a deep layout: on the tiles that own a slot the
+    forward equals its cull-off instance bit for bit; the backward equals
+    its cull-off instance and a second run bit for bit; both match the
+    twins; every padding slot's gradient is zero."""
+    cases = [_deep_stream(dev, d, tile_size)]
+    for cut in (False, True):
+        meta, vals, bg, n_tx, _, _ = stream_probe(d, tile_size, cut)
+        cases.append(tuple(torch.as_tensor(x, device=dev) for x in (meta, vals, bg))
+                     + (n_tx, n_tx))
+    for meta, vals, bg, n_tx, n_tiles in cases:
+        written = torch.zeros(n_tiles, dtype=torch.bool, device=dev)
+        written[meta[0].long()] = True
+        out = sr.stream_forward(meta, vals, bg, tile_size, n_tx, n_tiles)
+        for a, b in zip(out, sr.stream_forward_nocull(meta, vals, bg, tile_size, n_tx, n_tiles)):
+            assert torch.equal(a[written], b[written])
+        p_out = sr.composite_stream_plain_fwd(meta, vals, bg, tile_size, n_tx, n_tiles)
+        real = torch.zeros_like(written)
+        real[meta[0].long()[meta[1] < meta[2]]] = True
+        for k, p, tol in zip(out, p_out, (3e-4, 3e-4, 3e-3, 3e-4)):
+            torch.testing.assert_close(k[real], p[real], atol=tol, rtol=0)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        cots = [torch.randn(o.shape, generator=gen, device=dev) * 1e-2 for o in out[:3]]
+        k_d = sr.stream_backward(meta, vals, bg, out[3], *cots, tile_size, n_tx)
+        assert torch.equal(k_d, sr.stream_backward_nocull(meta, vals, bg, out[3], *cots,
+                                                          tile_size, n_tx))
+        assert torch.equal(k_d, sr.stream_backward(meta, vals, bg, out[3], *cots, tile_size,
+                                                   n_tx))
+        p_d = sr.composite_stream_plain_bwd(meta, vals, bg, out[3], *cots, tile_size, n_tx)
+        torch.testing.assert_close(k_d, p_d, atol=2e-4, rtol=1e-3)
+        pad = (meta[1] >= meta[2]).repeat_interleave(128)
+        assert not k_d[pad].any()
 
 
 def test_fma_chain_matches_twin(dev):

@@ -1,6 +1,8 @@
 """Port render path: projection, oracle and binning against JAX; the
-tile-grid plain twins against autograd, capacity overflow, the saturation
-skip, and the wrapper's dispatch rules.
+owner lookups of the pair expansion and the padded layouts against the
+scatter-max + running-max scan they replace; the tile-grid plain twins
+against autograd, capacity overflow, the saturation skip, and the
+wrapper's dispatch rules.
 
 Tolerances: projection and binning inputs are elementwise float32 math in
 the same order (atol 1e-5 on pixel coordinates); binning outputs are
@@ -14,18 +16,29 @@ import numpy as np
 import pytest
 import torch
 
+import egogaussian_tpu.render.pallas_raster as j_pallas
 from egogaussian_tpu.ops import covariance_from_scaling_rotation as j_cov
 from egogaussian_tpu.render.api import render as j_render
 from egogaussian_tpu.render.camera import Camera as JCamera
+from egogaussian_tpu.render.project import ProjectedGaussians as JProjected
 from egogaussian_tpu.render.project import project_gaussians as j_project
 from egogaussian_tpu.render.tiled import TileConfig as JTileConfig
 from egogaussian_tpu.render.tiled import bin_pairs as j_bin_pairs
+from egogaussian_tpu.render.tiled import composite_pallas as j_composite_pallas
 from egogaussian_tpu_torch.ops.covariance import covariance_from_scaling_rotation as t_cov
 from egogaussian_tpu_torch.render import cuda_raster as cr
 from egogaussian_tpu_torch.render.api import render as t_render
 from egogaussian_tpu_torch.render.camera import Camera, look_at
 from egogaussian_tpu_torch.render.project import project_gaussians as t_project
-from egogaussian_tpu_torch.render.tiled import TileConfig, bin_pairs, tilegrid_layout
+from egogaussian_tpu_torch.render.oracle import ALPHA_EPS
+from egogaussian_tpu_torch.render.tiled import (
+    TileConfig,
+    bin_pairs,
+    pair_owner,
+    slot_owner,
+    stream_layout,
+    tilegrid_layout,
+)
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -82,6 +95,137 @@ def test_bin_pairs_pair_for_pair(tile_size, cull):
     assert bt[6] == bj[6]
     # max_per_tile=16 clamps the deepest tiles: the drop count is exercised
     assert int(bt[5]) > 0
+
+
+def _scan_owner(n_slots, starts, vals):
+    """The owner scan that pair_owner / slot_owner replace (the JAX
+    package's form): vals scattered with max at their start slots (starts
+    at or past n_slots drop out), then a running max over the slots."""
+    idx = torch.where(starts < n_slots, starts, torch.full_like(starts, n_slots))
+    buf = torch.zeros(n_slots + 1, dtype=torch.int64)
+    buf.scatter_reduce_(0, idx, vals, reduce="amax", include_self=True)
+    return torch.cummax(buf[:n_slots], 0).values
+
+
+def _random_counts(rng, n):
+    """Counts with runs of zeros: at the start, inside and at the end."""
+    c = rng.randint(1, 6, n) * (rng.rand(n) < 0.6)
+    c[:rng.randint(0, 4)] = 0
+    c[n - rng.randint(0, 4):] = 0
+    if rng.rand() < 0.15:
+        c[:] = 0  # total 0
+    return torch.as_tensor(c, dtype=torch.int64)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("kind", ["pairs", "slots"])
+def test_owner_lookup_matches_scan_form(kind, seed):
+    """pair_owner (bin_pairs' pair expansion) and slot_owner (the padded
+    layouts' slot streams) equal the scan form int for int on seeded counts
+    with runs of zeros: capacities below, at and past the total (total 0
+    included), and for slot_owner runs cut at the capacity."""
+    rng = np.random.RandomState(seed)
+    cases = 0
+    for _ in range(300):
+        n = int(rng.randint(1, 50))
+        counts = _random_counts(rng, n)
+        if kind == "pairs":
+            offsets = torch.cumsum(counts, 0) - counts
+            total = int(counts.sum())
+            for mp in {1, max(total - 3, 1), max(total, 1), total + 1, 2 * total + 7}:
+                starts = torch.where(counts > 0, offsets, torch.full_like(offsets, mp))
+                ref = torch.clamp(_scan_owner(mp, starts, torch.arange(1, n + 1)) - 1, 0, n - 1)
+                assert torch.equal(pair_owner(offsets, counts, mp), ref), (counts, mp)
+                cases += 1
+        else:
+            padded = ((counts * 100 + 127) // 128) * 128
+            starts2 = torch.cumsum(padded, 0) - padded
+            full = int(padded.sum())
+            for sc in {128, max(full - 128, 128), max(full, 128), full + 256}:
+                ref = _scan_owner(sc, starts2, torch.arange(n))
+                assert torch.equal(slot_owner(starts2, sc), ref), (counts, sc)
+                cases += 1
+    assert cases > 900
+
+
+def _edge_scene(case):
+    """(scene, config) of the binning edge cases: count-0 Gaussians first,
+    in the middle and last in depth order (opacity below 1/255, and two
+    behind the camera); no pair at all; more pairs than max_pairs; a padded
+    total past the slot capacity that cuts a two-chunk tile's run after its
+    first chunk."""
+    if case == "cut_run":
+        s = scene(600, seed=61)
+        s["scales"] = np.exp(np.log(s["scales"]) + 0.5).astype(np.float32)
+        return s, dict(max_per_tile=512, max_pairs=8192, max_slots=640, tile_size=16)
+    s = scene(120, seed=22)
+    cfg = dict(max_per_tile=256, max_pairs=4096, tile_size=16)
+    if case == "zero_counts":
+        z = s["means"][:, 2]
+        near_mid_far = np.concatenate([np.argsort(z)[:3], np.argsort(z)[58:61],
+                                       np.argsort(z)[-3:]])
+        s["ops"][near_mid_far] = 1e-3
+        s["means"][:2, 2] = -6.0  # behind the camera at z = -4: radius 0
+    elif case == "total_zero":
+        s["ops"][:] = 1e-3
+    elif case == "over_max_pairs":
+        cfg["max_pairs"] = 128
+    return s, cfg
+
+
+@pytest.mark.parametrize("case", ["zero_counts", "total_zero", "over_max_pairs", "cut_run"])
+def test_binning_edge_cases_match_jax(monkeypatch, case):
+    """bin_pairs and the stream layout's meta and rows against JAX, int for
+    int, on _edge_scene's cases, from one projection handed to both (one
+    jit per case; the JAX stream kernel is not run: a stub takes the
+    layout)."""
+    s, kw = _edge_scene(case)
+    _, pt = projections(s)
+    ops, cols = s["ops"], s["colors"]
+    jp = JProjected(*(jnp.asarray(x.numpy()) for x in pt))
+    captured = {}
+
+    def stub(n_slots, n_tiles, d, ts, n_tx, interpret=False):
+        def run(meta, vals, bg):
+            captured["meta"], captured["vals"] = meta, vals
+            z = jnp.zeros((n_tiles, ts * ts, 1), jnp.float32)
+            return jnp.zeros((n_tiles, ts * ts, d), jnp.float32), z, z
+        return run
+
+    monkeypatch.setattr(j_pallas, "make_stream_compositor", stub)
+    jcfg = JTileConfig(compositor="stream", **kw)
+
+    @jax.jit
+    def jax_side(jp, o, c):
+        binned = j_bin_pairs(jp, 48, 32, jcfg, opacities=o)
+        r = j_composite_pallas(jp, c, o, jnp.zeros(3), 48, 32, jcfg)
+        return binned[:6], captured["meta"], captured["vals"], r.dropped_pairs
+
+    jb, jmeta, jvals, jdropped = jax_side(jp, jnp.asarray(ops), jnp.asarray(cols))
+    tcfg = TileConfig(compositor="stream", **kw)
+    tb = bin_pairs(pt, 48, 32, tcfg, opacities=torch.as_tensor(ops))
+    for name, a, b in zip(("order", "g_sorted", "tile_sorted", "starts", "tile_cnt", "dropped"),
+                          jb, tb[:6]):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
+    lay = stream_layout(pt, torch.as_tensor(cols), torch.as_tensor(ops), 48, 32, tcfg)
+    meta = lay.meta.numpy()
+    np.testing.assert_array_equal(meta, np.asarray(jmeta))
+    np.testing.assert_array_equal(lay.vals.detach().numpy(), np.asarray(jvals))
+    assert int(lay.dropped) == int(jdropped)
+    # each case is what it claims to be
+    tile_cnt, total = tb[4].numpy(), int((tb[2] < lay.n_tx * lay.n_ty).sum())
+    if case == "zero_counts":
+        o = tb[0].numpy()
+        low = (ops[o] < ALPHA_EPS) | (pt.radii.numpy()[o] == 0)
+        assert low[0] and low[-1] and low[1:-1].any() and not low.all()
+    elif case == "total_zero":
+        assert total == 0 and not tile_cnt.any() and (meta[2] == 0).all()
+    elif case == "over_max_pairs":
+        # no tile is clamped, so every dropped pair is one past max_pairs
+        assert int(tb[5]) > 0 and tile_cnt.max() < kw["max_per_tile"]
+    else:
+        last, rank = meta[0, -1], meta[1, -1]
+        assert tile_cnt[last] > rank + 128, "the last run is not cut inside a tile"
 
 
 def test_oracle_matches_jax():

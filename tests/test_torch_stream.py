@@ -10,7 +10,11 @@ interpret mode and the port's oracle, through the public render API.
   * the exact-total backward on the 64x48 / 300-Gaussian scene, and that
     it reads none of the saved outputs the default flavor rebuilds from;
   * crop-window heights that leave the bottom tile row partial, for both
-    compositors.
+    compositors;
+  * render/probe_layouts.py:stream_probe (empty tiles between runs, a run
+    of exactly two chunks, a one-pair tile, the pure-padding tail, a run cut
+    at the slot capacity, opaque rows past each count) through the twins
+    against the JAX stream kernel in interpret mode.
 
 Tolerances: against the oracle, the JAX suite's cross-backend bounds
 (tests/test_pallas_raster.py:34-36, :77-79: forward 3e-4 / 3e-3 depth,
@@ -37,6 +41,7 @@ from egogaussian_tpu_torch.render import cuda_raster as cr
 from egogaussian_tpu_torch.render import stream_raster as sr
 from egogaussian_tpu_torch.render.api import render as t_render
 from egogaussian_tpu_torch.render.camera import Camera, look_at
+from egogaussian_tpu_torch.render.probe_layouts import stream_probe
 from egogaussian_tpu_torch.render.project import project_gaussians as t_project
 from egogaussian_tpu_torch.render.tiled import TileConfig, stream_layout, tilegrid_layout
 
@@ -174,6 +179,38 @@ def test_stream_capacity_overflow_matches_jax():
     assert int(rt.dropped_pairs) == int(rj.dropped_pairs) > 0
     _assert_fwd(rt, rj, (2e-6, 2e-6, 2e-5))
     _assert_grads(gt, gj, 1e-6, 1e-4)
+
+
+@pytest.mark.parametrize("d,ts,cut", [(3, 32, False), (1, 32, True), (3, 16, True),
+                                      (1, 16, False)])
+def test_stream_probe_twins_match_jax_kernel(d, ts, cut):
+    """render/probe_layouts.py:stream_probe through the port's twins against
+    the JAX stream kernel in interpret mode: the forward on the tiles whose
+    run holds a real chunk (the kernels leave tiles that own no slot
+    unwritten, and the caller masks the empty ones), the gradients through
+    the VJP on every slot (zeros at the padding). Tolerances as
+    test_stream_matches_jax_and_oracle's."""
+    meta, vals, bg, n_tx, _, _ = stream_probe(d, ts, cut)
+    n_tiles, p = n_tx, ts * ts
+    rng = np.random.RandomState(9)
+    cots = [(rng.randn(n_tiles, p, c) * 1e-2).astype(np.float32) for c in (d, 1, 1)]
+    comp = j_pallas.make_stream_compositor(meta.shape[1], n_tiles, d, ts, n_tx, interpret=True)
+    j_out, vjp = jax.vjp(lambda v: comp(jnp.asarray(meta), v, jnp.asarray(bg)),
+                         jnp.asarray(vals))
+    (j_d,) = vjp(tuple(jnp.asarray(c) for c in cots))
+    t_meta, t_vals, t_bg = (torch.as_tensor(x) for x in (meta, vals, bg))
+    t_out = sr.stream_forward(t_meta, t_vals, t_bg, ts, n_tx, n_tiles)
+    t_d = sr.stream_backward(t_meta, t_vals, t_bg, t_out[3], *(torch.as_tensor(c) for c in cots),
+                             ts, n_tx)
+    real = sorted({int(t) for t, r, c in meta[:3].T if r < c})
+    assert real == [0, 2, 4]
+    for name, a, b, atol in zip(("image", "alpha", "depth"), j_out, t_out, (2e-6, 2e-6, 2e-5)):
+        np.testing.assert_allclose(b.numpy()[real], np.asarray(a)[real], atol=atol, rtol=0,
+                                   err_msg=name)
+    np.testing.assert_allclose(t_d.numpy(), np.asarray(j_d), atol=1e-6, rtol=1e-4)
+    assert float(t_out[1][4].max()) > 0.5  # the deep tile is composited
+    pad = np.repeat(meta[1] >= meta[2], 128)
+    assert not t_d.numpy()[pad].any() and np.abs(t_d.numpy()[~pad]).max() > 1e-4
 
 
 def test_exact_total_matches_jax_and_oracle():
