@@ -22,8 +22,13 @@ nonzero and no result line is printed):
               (render/probe_layouts.py:quadrant_scene) and a hand-made
               window of the chunked pair's edge cases (window_probe);
               the simple windowed pair
-              also against the chunked one, and both windowed backwards
-              twice, bit for bit; the stream pair against its cull-off
+              also against the chunked one and against its cull-off
+              instances, bit for bit, and both windowed backwards twice,
+              bit for bit, also on a hand-made window of the simple pair's
+              edge cases (simple_window_probe: 300 and 258 rows, masked
+              rows among live ones, an all-masked chunk and tile, alphas
+              at the 0.99 clamp and the 1/255 gate); the stream pair
+              against its cull-off
               instances and its backward twice, bit for bit, on every
               stream layout, and on a hand-made layout of its slot-run
               edge cases (stream_probe, whole and cut at the slot
@@ -66,9 +71,9 @@ nonzero and no result line is printed):
               FMA chain against its twin at the peak path's shapes (bit
               for bit) and the SM clock under an FMA load
  12. timing:  kernel vs plain twin (CUDA events) at the slice's shapes
-              (rows 1-7 also at 1920x1080, rows 6-7 also with
+              (rows 1-9 also at 1920x1080, rows 6-9 also with
               evaluation's own tile config, ts 16), the cull-off
-              instances of rows 1-7, and each kernel's bound
+              instances of rows 1-9, and each kernel's bound
               (bytes over the HBM rate or instructions over the float32
               instruction rate, whichever is larger) on the covered
               evaluations of the same inputs, beside the dense count's
@@ -482,11 +487,76 @@ def chunked_exactness(counts, data, bg2, ts, n_tx, k_out, logt, cots, k_d):
             "bwd_cull_off": torch.equal(k_d, n_d), "bwd_repeat": torch.equal(k_d, r_d)}
 
 
+def simple_exactness(parts, bg2, ts, n_tx, k_out, cots, k_d):
+    """The simple windowed pair's cull-off checks on one window (its five
+    inputs `parts`): the forward (outputs k_out) and the backward (gradients
+    k_d concatenated, from cots) against the same kernels with the per-warp
+    cull compiled out, bit for bit."""
+    import torch
+
+    from egogaussian_tpu_torch.render import window_raster as wr
+
+    n_out = wr.window_forward_nocull(*parts, bg2, ts, n_tx)
+    n_d = torch.cat(wr.window_backward_nocull(*parts, bg2, *cots, ts, n_tx), dim=2)
+    return {"simple_fwd_cull_off": all(torch.equal(a, b) for a, b in zip(k_out, n_out)),
+            "simple_bwd_cull_off": torch.equal(k_d, n_d)}
+
+
+def check_simple_probe(dev, errs):
+    """The simple windowed pair on render/probe_layouts.py:
+    simple_window_probe at D = 3 and 1, ts 16 and 32, 300 and 258 window
+    rows (not a multiple of 128; not of 4, so staged by plain loads): masked
+    rows among live ones, an all-masked chunk between live chunks, an
+    all-masked tile, alphas at the 0.99 clamp and on either side of 1/255,
+    a mean on a pixel centre, power clamped at 0, footprints across the
+    quadrant and warp-patch edges. Against the twins (FWD_TOL; gradients
+    within GRAD_ATOL + GRAD_RTOL), against the cull-off instances and the
+    backward run twice, bit for bit. Cotangents: the CPU test's (seeded
+    numpy, scale 1)."""
+    import torch
+
+    from egogaussian_tpu_torch.render import window_raster as wr
+    from egogaussian_tpu_torch.render.probe_layouts import SIMPLE_PROBE_ROWS, simple_window_probe
+
+    for ts in (16, 32):
+        for d in (3, 1):
+            for m in SIMPLE_PROBE_ROWS:
+                *parts_np, bg, n_tx, _, _ = simple_window_probe(d, ts, m)
+                parts = [torch.as_tensor(x, device=dev) for x in parts_np]
+                bg2 = torch.as_tensor(bg, device=dev)
+                n_tiles, p = parts[0].shape[0], ts * ts
+                rng = np.random.RandomState(40 + d + ts)
+                cots = [torch.as_tensor(rng.randn(n_tiles, p, c).astype(np.float32), device=dev)
+                        for c in (d, 1, 1)]
+                k_out = wr.window_forward(*parts, bg2, ts, n_tx)
+                p_out = wr.composite_window_plain_fwd(*parts, bg2, ts, n_tx)
+                fwd_err = {k: max_err(a, b) for k, a, b in
+                           zip(("image", "alpha", "depth"), k_out, p_out)}
+                k_d = torch.cat(wr.window_backward(*parts, bg2, *cots, ts, n_tx), dim=2)
+                r_d = torch.cat(wr.window_backward(*parts, bg2, *cots, ts, n_tx), dim=2)
+                p_d = torch.cat(wr.composite_window_plain_bwd(*parts, bg2, *cots, ts, n_tx),
+                                dim=2)
+                same = simple_exactness(parts, bg2, ts, n_tx, k_out, cots, k_d)
+                same["simple_bwd_repeat"] = torch.equal(k_d, r_d)
+                grad_err = max_err(k_d, p_d)
+                ok = (all(fwd_err[k] <= FWD_TOL[k] for k in FWD_TOL)
+                      and grad_excess(k_d, p_d) <= 0.0 and all(same.values()))
+                emit("simple_probe_check", d=d, tile_size=ts, window_rows=m, fwd_err=fwd_err,
+                     grad_max_abs_err=grad_err, grad_scale=float(p_d.abs().max()),
+                     bit_identical=same, ok=ok)
+                if not ok:
+                    raise AssertionError(f"simple window probe: kernel vs twin or cull-off "
+                                         f"d={d} ts={ts} m={m}")
+                errs.setdefault(("window_fwd", d), []).append(max(fwd_err.values()))
+                errs.setdefault(("window_bwd", d), []).append(grad_err)
+
+
 def check_window(name, lay, bg, tol, width, height, errs):
     """The four windowed kernels on one window (window_layout): each against
     its plain twin (forward within `tol`, gradients within GRAD_ATOL +
-    GRAD_RTOL), each backward run twice and bit-identical, the chunked pair
-    against its cull-off instances bit for bit (chunked_exactness), and the
+    GRAD_RTOL), each backward run twice and bit-identical, both pairs
+    against their cull-off instances bit for bit (chunked_exactness,
+    simple_exactness), and the
     simple pair against the chunked pair on the same window (forward within
     `tol`, gradients within FLAVOR_TOL norm-relative: the simple backward
     takes the suffix as total - prefix, the chunked one sums it)."""
@@ -518,6 +588,7 @@ def check_window(name, lay, bg, tol, width, height, errs):
     cross_fwd = {k: max_err(a, b) for k, a, b in zip(keys, ks_out, k_out)}
     cross_grad = norm_rel(ks_d, k_d)
     fwd_tol = dict(tol, logT=tol["image"])
+    same.update(simple_exactness(parts, bg2, ts, n_tx, ks_out, cots, ks_d))
     same["simple_bwd_repeat"] = torch.equal(ks_d, ks_d2)
     ok = (all(fwd_err[k] <= fwd_tol[k] for k in fwd_tol)
           and all(sfwd_err[k] <= tol[k] for k in tol)
@@ -614,10 +685,11 @@ def phase_kernels(dev, errs):
                     raise AssertionError(f"{name}: pairs dropped in the check window")
                 check_window(name, wlay, bg, tol, cam.width, cam.height, errs)
 
-    # 0) the tile-wide saturation vote and the chunked windowed and stream
-    # pairs' edge cases, pinned on hand-made layouts
+    # 0) the tile-wide saturation vote and the windowed and stream pairs'
+    # edge cases, pinned on hand-made layouts
     check_quadrant_vote(dev, errs)
     check_window_probe(dev, errs)
+    check_simple_probe(dev, errs)
     check_stream_probe(dev, errs)
     # 1) 60 Gaussians at 48x32 (tests/test_pallas_raster.py:23-36)
     cam = look_at_camera(48, 32, dev)
@@ -1646,6 +1718,32 @@ def time_window_chunked(counts, data, bg2, ts, n_tx, dev):
     return times, nocull
 
 
+def time_window_simple(parts, bg2, ts, n_tx, dev):
+    """Rows 8-9 (kernel ms, plain twin ms) on one window's five inputs, with
+    random cotangents of scale 1e-3 on the kernel's outputs
+    (time_window_chunked's); and the cull-off instances' ms."""
+    import torch
+
+    from egogaussian_tpu_torch.render import window_raster as wr
+
+    out = wr.window_forward(*parts, bg2, ts, n_tx)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cot = [torch.randn(x.shape, generator=gen, device=dev) * 1e-3 for x in out]
+    times = {
+        "window_fwd": (
+            cuda_ms(lambda: wr.window_forward(*parts, bg2, ts, n_tx)),
+            cuda_ms(lambda: wr.composite_window_plain_fwd(*parts, bg2, ts, n_tx, 16), iters=3,
+                    warmup=1)),
+        "window_bwd": (
+            cuda_ms(lambda: wr.window_backward(*parts, bg2, *cot, ts, n_tx)),
+            cuda_ms(lambda: wr.composite_window_plain_bwd(*parts, bg2, *cot, ts, n_tx, 16),
+                    iters=3, warmup=1))}
+    nocull = {
+        "window_fwd": cuda_ms(lambda: wr.window_forward_nocull(*parts, bg2, ts, n_tx)),
+        "window_bwd": cuda_ms(lambda: wr.window_backward_nocull(*parts, bg2, *cot, ts, n_tx))}
+    return times, nocull
+
+
 def time_stream(meta, vals, bg2, ts, n_tx, n_tiles, cot):
     """Rows 4-5 (kernel ms, plain twin ms) on one stream layout, with the
     cotangents cot (time_tilegrid's, on the same shapes); and the cull-off
@@ -1676,17 +1774,16 @@ def phase_timing(dev, vid, extent, errs, peak_gflops):
     D = 3 (image) and D = 1 (label), on frame 0 in three configurations:
       main:        640x480 with its auto tile config (ts 32): every kernel;
       eval_config: 640x480 with no tile config, as evaluation renders it
-                   (ts 16, 1,200 tiles): rows 6-7;
+                   (ts 16, 1,200 tiles; path 4's window): rows 6-9;
       frame_1080:  1920x1080 (frame_1080) with its auto tile config, where
-                   the grid fills the card: rows 1-7.
+                   the grid fills the card: rows 1-9.
     Every layout is checked first (check_layout, check_window,
-    check_stream), and the cull-off instances are timed beside rows 1-7. Each kernel's
+    check_stream), and the cull-off instances are timed beside rows 1-9. Each kernel's
     bound on the same inputs: on the covered evaluations (gated alpha > 0)
     at the published rate, on the dense count (pairs x pixels), and on
     the covered evaluations at the FMA rate this run measured. Returns the main configuration's times and bounds."""
     import torch
 
-    from egogaussian_tpu_torch.render import window_raster as wr
     from egogaussian_tpu_torch.render.project import project_gaussians
     from egogaussian_tpu_torch.render.tiled import stream_layout, tilegrid_layout, window_layout
     from egogaussian_tpu_torch.train.common import auto_tile_config, model_colors
@@ -1737,17 +1834,10 @@ def phase_timing(dev, vid, extent, errs, peak_gflops):
                                            n_tx, n_tiles, cot)
                 t.update(tst)
                 nocull.update(nst)
-            if kind == "main":
-                parts = split_window(wlay)
-                with torch.no_grad():
-                    t["window_fwd"] = (
-                        cuda_ms(lambda: wr.window_forward(*parts, bg2, ts, n_tx)),
-                        cuda_ms(lambda: wr.composite_window_plain_fwd(*parts, bg2, ts, n_tx, 16),
-                                iters=3, warmup=1))
-                    t["window_bwd"] = (
-                        cuda_ms(lambda: wr.window_backward(*parts, bg2, *cot, ts, n_tx)),
-                        cuda_ms(lambda: wr.composite_window_plain_bwd(*parts, bg2, *cot, ts, n_tx,
-                                                                      16), iters=3, warmup=1))
+            with torch.no_grad():
+                tsw, nsw = time_window_simple(split_window(wlay), bg2, ts, n_tx, dev)
+            t.update(tsw)
+            nocull.update(nsw)
             b, counts = kernel_bounds(d, p, lay, slay, wlay, instr_per_s)
             if kind == "main":
                 times.update({(k, d): v for k, v in t.items()})

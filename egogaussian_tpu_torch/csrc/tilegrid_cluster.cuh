@@ -1,6 +1,7 @@
-// Shared parts of the tile-grid pair (tilegrid_fwd.cu, tilegrid_bwd.cu)
-// and the log-space chunked pair that the chunked windowed and stream
-// kernels run (chunked_pair.cuh):
+// Shared parts of the tile-grid pair (tilegrid_fwd.cu, tilegrid_bwd.cu),
+// the log-space chunked pair that the chunked windowed and stream kernels
+// run (chunked_pair.cuh) and the simple windowed pair (window_fwd.cu,
+// window_bwd.cu):
 // one thread-block cluster per tile, one pixel per thread, a warp per
 // 8x4 pixel patch, a conservative reach box per pair, the tile-wide
 // saturation vote across the cluster, and the chunk ring fed by bulk
@@ -216,22 +217,39 @@ struct Ring {
     }
   }
 
-  // Every thread calls it (the count stays uniform); thread 0 copies.
-  __device__ __forceinline__ void issue(const float* src) {
+  // Every thread calls it (the count stays uniform); thread 0 copies the N
+  // parts (source, byte offset in the stage, bytes: each a multiple of 16
+  // bytes at 16-byte aligned addresses) onto the stage's barrier, which
+  // expects their sum.
+  template <int N>
+  __device__ __forceinline__ void issue_parts(const float* const (&src)[N],
+                                              const int (&off)[N], const int (&nbytes)[N]) {
     const int s = issued & 1;
     if (threadIdx.x == 0) {
+      int total = 0;
+#pragma unroll
+      for (int i = 0; i < N; ++i) total += nbytes[i];
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
                        smem_addr(&bar[s])),
-                   "r"(bytes)
+                   "r"(total)
                    : "memory");
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-          "[%3];" ::"r"(smem_addr(stage[s])),
-          "l"(src), "r"(bytes), "r"(smem_addr(&bar[s]))
-          : "memory");
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+            "[%3];" ::"r"(smem_addr(stage[s]) + static_cast<uint32_t>(off[i])),
+            "l"(src[i]), "r"(nbytes[i]), "r"(smem_addr(&bar[s]))
+            : "memory");
     }
     ++issued;
+  }
+
+  // One whole stage (`bytes`) from src.
+  __device__ __forceinline__ void issue(const float* src) {
+    const float* const part[1] = {src};
+    const int off[1] = {0}, nbytes[1] = {bytes};
+    issue_parts<1>(part, off, nbytes);
   }
 
   // Wait for load L; a fault that keeps it from completing traps after

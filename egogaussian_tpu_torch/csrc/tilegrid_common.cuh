@@ -1,6 +1,6 @@
 // Shared definitions of the compositor kernels (tilegrid_{fwd,bwd}.cu,
 // chunked_pair.cuh for stream_{fwd,bwd}.cu and window_chunked_{fwd,bwd}.cu,
-// window_{fwd,bwd}.cu).
+// window_split.cuh for window_{fwd,bwd}.cu).
 // Every kernel evaluates a
 // pair's alpha through the same inline function, so a backward's replayed
 // transmittance sweep sees its forward's values operation for operation.
@@ -58,39 +58,6 @@ __device__ __forceinline__ PairAlpha pair_alpha(float px, float py, float mx,
   const float alpha = fminf(r.raw, kAlphaMax);
   r.alpha = alpha < kAlphaEps ? 0.0f : alpha;
   return r;
-}
-
-// Stage rows [off, off + n) of one tile's split window (the simple windowed
-// kernels' five inputs, each [M, width] row-major from `row0`) into dst as
-// [n][7 + D] rows mu_x | mu_y | a | b | c | op | col x D | z.
-template <int D>
-__device__ __forceinline__ void load_split_rows(float* __restrict__ dst,
-                                                const float* __restrict__ mu,
-                                                const float* __restrict__ con,
-                                                const float* __restrict__ op,
-                                                const float* __restrict__ col,
-                                                const float* __restrict__ z,
-                                                size_t row0, int n) {
-  constexpr int CH = 7 + D;
-  for (int i = threadIdx.x; i < n * CH; i += blockDim.x) {
-    const size_t r = row0 + i / CH;
-    const int v = i % CH;
-    float x;
-    if (v < 2) x = mu[r * 2 + v];
-    else if (v < 5) x = con[r * 3 + (v - 2)];
-    else if (v == 5) x = op[r];
-    else if (v < 6 + D) x = col[r * D + (v - 6)];
-    else x = z[r];
-    dst[i] = x;
-  }
-}
-
-// Sum over the warp's 32 lanes into lane 0, in a fixed shuffle-tree order
-// (the backwards' deterministic reduction).
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
 }
 
 }  // namespace egogs

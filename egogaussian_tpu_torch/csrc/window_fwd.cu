@@ -12,101 +12,142 @@
 // alpha = min(op * exp(min(power, 0)), 0.99), zeroed below 1/255. There is
 // no saturation skip (the TPU kernel has none). The TPU kernel takes the
 // row prefix as lower-triangular matmuls (_cumsum_rows); here each pixel's
-// thread sums sequentially, which needs no matrix.
+// thread sums it sequentially over the rows it sees.
 //
 // Interface (the TPU kernel's): mu [T, M, 2], con [T, M, 3], op [T, M, 1],
 // col [T, M, D], z [T, M, 1], bg [1, D] -> img [T, P, D], alpha, depth
 // [T, P, 1]. M is any size.
 //
-// What bounds it on the card: per pair and pixel one expf, one log1pf and
-// ~20 FMAs; the window (~40 bytes a row) is read once per tile. Rows with
-// op == 0 (the masked ones) are skipped whole: every term of such a row is
-// exactly 0.
+// What bounds it on the card: per covered pair and pixel (gated alpha > 0)
+// one expf for alpha, one log1pf, one expf for the weight and ~20 other
+// instructions; each needed window row (40 bytes at D = 3) is read once
+// per CTA, and the op column of every row once. The first version (one
+// 256-thread block per tile, four pixels per thread spread over the tile,
+// every row but the masked ones evaluated at every pixel, each chunk
+// gathered by scalar loads between two barriers over the whole 2,048-row
+// window) took 0.50 ms on the 640x480 timing frame, 1.5% of its bound.
 //
-// Design: one block per tile (the TPU kernel's grid step), 256 threads,
-// ts*ts/256 pixels per thread, state in registers; 128-row chunks of the
-// five inputs are staged in shared memory as packed rows and read as
-// broadcasts.
-#include "tilegrid_common.cuh"
+// Design: the Hopper layout of the other compositors
+// (tilegrid_cluster.cuh): a 16x16 quadrant per 256-thread CTA, one pixel
+// per thread (ts 32: a plain grid of four CTAs per tile, ts 16: one), an
+// 8x4 patch per warp; each CTA first scans its tile's op column for live
+// chunks (window_split.cuh) and walks only those, each staged by bulk
+// copies into a two-stage ring (plain loads when M % 4 != 0); per chunk,
+// 128 threads repack the rows row-major and compute each row's
+// conservative reach box (empty for op below 1/255, so masked rows cost
+// no evaluation), and each warp walks only the rows whose box meets its
+// patch. A row culled there has alpha == 0 at every pixel of the patch,
+// so CULL = true equals the CULL = false check instance bit for bit.
+#include "window_split.cuh"
 
 namespace egogs {
 
-template <int D, int TS>
-__global__ void __launch_bounds__(kThreads)
-    window_fwd_kernel(const float* __restrict__ mu, const float* __restrict__ con,
-                      const float* __restrict__ op_in, const float* __restrict__ col,
-                      const float* __restrict__ z_in, const float* __restrict__ bg,
-                      float* __restrict__ img, float* __restrict__ alpha_out,
-                      float* __restrict__ depth_out, int m, int n_tx) {
-  constexpr int P = TS * TS;
-  static_assert(P % kThreads == 0, "tile pixels must split evenly");
-  constexpr int PPT = P / kThreads;
-  constexpr int CH = 7 + D;
-  __shared__ float blk[kChunk * CH];
+namespace {
 
-  const int t = blockIdx.x;
-  const int tx = t % n_tx;
-  const int ty = t / n_tx;
+constexpr int kFwdHead = 256 + kChunk * 16;  // barriers | live mask | reach boxes
 
-  float px[PPT], py[PPT], logT[PPT], acc[PPT][D], acc_a[PPT], acc_z[PPT];
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    const int pix = threadIdx.x + k * kThreads;
-    px[k] = static_cast<float>(tx * TS + pix % TS) + 0.5f;
-    py[k] = static_cast<float>(ty * TS + pix / TS) + 0.5f;
-    logT[k] = 0.0f;
-    acc_a[k] = 0.0f;
-    acc_z[k] = 0.0f;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[k][d] = 0.0f;
-  }
-
-  for (int off = 0; off < m; off += kChunk) {
-    const int n_rows = min(kChunk, m - off);
-    __syncthreads();  // the previous chunk's readers are done with blk
-    load_split_rows<D>(blk, mu, con, op_in, col, z_in, static_cast<size_t>(t) * m + off,
-                       n_rows);
-    __syncthreads();
-    for (int j = 0; j < n_rows; ++j) {
-      const float* pr = blk + j * CH;
-      const float mx = pr[0], my = pr[1], a = pr[2], b = pr[3], cc = pr[4], op = pr[5];
-      if (op == 0.0f) continue;  // masked row: alpha 0 at every pixel
-      const float z = pr[6 + D];
-#pragma unroll
-      for (int k = 0; k < PPT; ++k) {
-        const PairAlpha r = pair_alpha(px[k], py[k], mx, my, a, b, cc, op);
-        // alpha == 0: log1m == 0 and w == 0, nothing moves
-        if (r.alpha == 0.0f) continue;
-        const float log1m = log1pf(-r.alpha);
-        logT[k] += log1m;
-        const float w = r.alpha * expf(logT[k] - log1m);
-#pragma unroll
-        for (int d = 0; d < D; ++d) acc[k][d] += w * pr[6 + d];
-        acc_a[k] += w;
-        acc_z[k] += w * z;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    const int pix = threadIdx.x + k * kThreads;
-    const size_t idx = static_cast<size_t>(t) * P + pix;
-    const float t_final = expf(logT[k]);
-#pragma unroll
-    for (int d = 0; d < D; ++d) img[idx * D + d] = acc[k][d] + t_final * bg[d];
-    alpha_out[idx] = acc_a[k];
-    depth_out[idx] = acc_z[k];
-  }
+template <int D>
+constexpr int fwd_smem_bytes() {
+  // head | packed rows | two chunk stages
+  return kFwdHead + kChunk * ws::row_width<D>() * 4 + 2 * kChunk * (7 + D) * 4;
 }
 
-template <int D, int TS>
-int launch_window_fwd(const float* mu, const float* con, const float* op, const float* col,
-                      const float* z, const float* bg, float* img, float* alpha,
-                      float* depth, int n_tiles, int m, int n_tx, cudaStream_t stream) {
-  window_fwd_kernel<D, TS><<<n_tiles, kThreads, 0, stream>>>(
-      mu, con, op, col, z, bg, img, alpha, depth, m, n_tx);
-  return static_cast<int>(cudaGetLastError());
+}  // namespace
+
+template <int D, int TS, bool CULL>
+__global__ void __launch_bounds__(kThreads, 4)
+    window_fwd_kernel(const ws::Split<D, const float> win, const float* __restrict__ bg,
+                      float* __restrict__ img, float* __restrict__ alpha_out,
+                      float* __restrict__ depth_out, int n_tx) {
+  constexpr int NCTA = tg::ctas_per_tile<TS>();
+  constexpr int P = TS * TS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  unsigned* mask = reinterpret_cast<unsigned*>(smem + 16);  // [kMaskWords]
+  float4* box = reinterpret_cast<float4*>(smem + 256);      // [kChunk]
+  float* rows = reinterpret_cast<float*>(smem + kFwdHead);  // [kChunk][row_width]
+  float* stage0 = rows + kChunk * ws::row_width<D>();       // [kChunk * (7 + D)] each
+  static_assert(16 + 4 * ws::kMaskWords <= 256, "shared-memory head");
+
+  const int t = blockIdx.x / NCTA;
+  const int rank = blockIdx.x % NCTA;
+  const tg::Pixel pix = tg::pixel_of<TS>(t, n_tx, rank);
+  const int n = win.n_chunks();
+
+  tg::Ring ring;
+  ring.init(stage0, stage0 + kChunk * (7 + D), bar, 0);
+  win.scan_live(t, mask);  // its barriers also publish the ring's barriers
+
+  float logT = 0.0f, acc_a = 0.0f, acc_z = 0.0f, acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc[d] = 0.0f;
+
+  int c = ws::next_live(mask, -1, n);
+  if (c < n) win.issue(ring, t, c);
+  for (int L = 0; c < n; ++L) {
+    // the readers of the stage the next chunk lands in, of the packed rows
+    // and of the boxes are done
+    __syncthreads();
+    const int next = ws::next_live(mask, c, n);
+    if (next < n) win.issue(ring, t, next);
+    const int n_valid = win.rows(c);
+    ws::pack_chunk<D, CULL>(win.ready(ring, L, t, c), n_valid, rows, box);
+    __syncthreads();
+    unsigned mk[tg::kWords];
+    tg::patch_pairs<CULL>(box, n_valid, pix, mk);
+    tg::walk_pairs(
+        mk,
+        [&](int j) {
+          ws::Row<D> r;
+          r.head(rows, j);
+          const PairAlpha a =
+              pair_alpha(pix.px, pix.py, r.v[0], r.v[1], r.v[2], r.v[3], r.v[4], r.v[5]);
+          // alpha == 0: log1m == 0 and w == 0, nothing moves
+          if (a.alpha == 0.0f) return false;
+          r.tail(rows, j);
+          const float log1m = log1pf(-a.alpha);
+          logT += log1m;
+          const float w = a.alpha * expf(logT - log1m);
+#pragma unroll
+          for (int d = 0; d < D; ++d) acc[d] += w * r.v[6 + d];
+          acc_a += w;
+          acc_z += w * r.v[6 + D];
+          return false;
+        },
+        [](int, unsigned) {});
+    c = next;
+  }
+
+  const size_t idx = static_cast<size_t>(t) * P + pix.local;
+  const float t_final = expf(logT);
+#pragma unroll
+  for (int d = 0; d < D; ++d) img[idx * D + d] = acc[d] + t_final * bg[d];
+  alpha_out[idx] = acc_a;
+  depth_out[idx] = acc_z;
+}
+
+template <bool CULL>
+int dispatch_window_fwd(const float* mu, const float* con, const float* op, const float* col,
+                        const float* z, const float* bg, float* img, float* alpha,
+                        float* depth, int n_tiles, int m, int n_tx, int ts, int d,
+                        void* stream) {
+  if (n_tiles == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* f[ws::kFields] = {mu, con, op, col, z};
+  bool bulk = m % 4 == 0;
+  for (const float* p : f) bulk = bulk && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+#define EGOGS_WFWD(D_, TS_)                                                               \
+  if (d == D_ && ts == TS_)                                                               \
+    return static_cast<int>(tg::launch_tiles<1>(                                          \
+        window_fwd_kernel<D_, TS_, CULL>, n_tiles * tg::ctas_per_tile<TS_>(),             \
+        fwd_smem_bytes<D_>(), s, ws::Split<D_, const float>{{mu, con, op, col, z}, m, bulk}, \
+        bg, img, alpha, depth, n_tx));
+  EGOGS_WFWD(3, 16)
+  EGOGS_WFWD(3, 32)
+  EGOGS_WFWD(1, 16)
+  EGOGS_WFWD(1, 32)
+#undef EGOGS_WFWD
+  return -1;
 }
 
 }  // namespace egogs
@@ -117,17 +158,16 @@ extern "C" int egogs_window_fwd(const float* mu, const float* con, const float* 
                                 const float* col, const float* z, const float* bg,
                                 float* img, float* alpha, float* depth, int n_tiles,
                                 int m, int n_tx, int ts, int d, void* stream) {
-  using namespace egogs;
-  if (n_tiles == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define EGOGS_WFWD(D_, TS_)                                                   \
-  if (d == D_ && ts == TS_)                                                   \
-    return launch_window_fwd<D_, TS_>(mu, con, op, col, z, bg, img, alpha,    \
-                                      depth, n_tiles, m, n_tx, s);
-  EGOGS_WFWD(3, 16)
-  EGOGS_WFWD(3, 32)
-  EGOGS_WFWD(1, 16)
-  EGOGS_WFWD(1, 32)
-#undef EGOGS_WFWD
-  return -1;
+  return egogs::dispatch_window_fwd<true>(mu, con, op, col, z, bg, img, alpha, depth,
+                                          n_tiles, m, n_tx, ts, d, stream);
+}
+
+// The same kernel with the per-warp cull compiled out: a check instance,
+// whose outputs must equal egogs_window_fwd's bit for bit.
+extern "C" int egogs_window_fwd_nocull(const float* mu, const float* con, const float* op,
+                                       const float* col, const float* z, const float* bg,
+                                       float* img, float* alpha, float* depth, int n_tiles,
+                                       int m, int n_tx, int ts, int d, void* stream) {
+  return egogs::dispatch_window_fwd<false>(mu, con, op, col, z, bg, img, alpha, depth,
+                                           n_tiles, m, n_tx, ts, d, stream);
 }

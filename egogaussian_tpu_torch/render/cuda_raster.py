@@ -48,7 +48,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 _SOURCES = ("tilegrid_common.cuh", "tilegrid_cluster.cuh", "chunked_pair.cuh",
-            "tilegrid_fwd.cu", "tilegrid_bwd.cu", "stream_fwd.cu", "stream_bwd.cu",
+            "window_split.cuh", "tilegrid_fwd.cu", "tilegrid_bwd.cu", "stream_fwd.cu", "stream_bwd.cu",
             "window_chunked_fwd.cu", "window_chunked_bwd.cu", "window_fwd.cu", "window_bwd.cu",
             "fma_peak.cu")
 # compile flags of each source; the objects are then linked with -shared
@@ -149,10 +149,12 @@ def kernel_library() -> ctypes.CDLL:
     for fn in (lib.egogs_window_chunked_bwd, lib.egogs_window_chunked_bwd_nocull):
         fn.restype = i
         fn.argtypes = [p] * 8 + [i] * 5 + [p]
-    lib.egogs_window_fwd.restype = i
-    lib.egogs_window_fwd.argtypes = [p] * 9 + [i] * 5 + [p]
-    lib.egogs_window_bwd.restype = i
-    lib.egogs_window_bwd.argtypes = [p] * 14 + [i] * 5 + [p]
+    for fn in (lib.egogs_window_fwd, lib.egogs_window_fwd_nocull):
+        fn.restype = i
+        fn.argtypes = [p] * 9 + [i] * 5 + [p]
+    for fn in (lib.egogs_window_bwd, lib.egogs_window_bwd_nocull):
+        fn.restype = i
+        fn.argtypes = [p] * 14 + [i] * 5 + [p]
     lib.egogs_fma_chain.restype = i
     lib.egogs_fma_chain.argtypes = [p, p, i, i, p]
     return lib

@@ -8,7 +8,12 @@ deep, footprints across the 16x16 quadrant and 8x4 warp-patch edges,
 live rows past a tile's count, an empty tile and pairs on either side of
 the 1/255 gate. `stream_probe` does the same for the stream pair's slot
 runs: empty tiles between runs, a run of exactly two chunks, a one-pair
-tile, the pure-padding tail and a run cut at the slot capacity. All are
+tile, the pure-padding tail and a run cut at the slot capacity.
+`simple_window_probe` does it for the simple windowed pair's five split
+inputs: window rows that are not a multiple of 128 or of 4, masked rows
+among live ones, an all-masked chunk between live chunks and an
+all-masked tile, alphas at the 0.99 clamp and on either side of 1/255,
+a mean on a pixel centre and a conic whose power clamps at 0. All are
 numpy only, so the kernel checks of `chip_smoke.py`, the card tests and
 the CPU tests share one copy.
 """
@@ -213,3 +218,61 @@ def stream_probe(d: int, ts: int, cut: bool = False, seed: int = 7):
         vals[slots[0] * 128:slots[0] * 128 + n_rows] = rows
     bg = np.array([[0.2, 0.1, 0.4][:d]], np.float32)
     return meta.astype(np.int32), vals, bg, n_tiles, n_tiles * ts, ts
+
+
+SIMPLE_PROBE_ROWS = (300, 258)  # window rows of simple_window_probe: not a multiple of 128 / of 4
+SIMPLE_PROBE_CLAMP = (2, 2, 3, 4)  # tile 2: rows of the mean on a pixel centre, the 0.99 clamp
+# and the indefinite conic
+
+
+def simple_window_probe(d: int, ts: int, m: int = 300, seed: int = 8):
+    """A hand-made window for the simple windowed compositor: three tiles
+    of size ts in a row (3ts x ts pixels), m rows each (m > 256; the tail
+    chunk holds m - 256 rows), as its five float32 inputs (op = 0 on
+    masked rows):
+      tile 0: chunk 0 live, footprints across the quadrant and warp-patch
+        edges, every fourth row masked; chunk 1 all masked (an all-masked
+        chunk between live chunks); the tail chunk live.
+      tile 1: all masked.
+      tile 2: rows 0-1 the 1/255 gate pairs of window_probe (PROBE_GATE);
+        row 2 a mean exactly on the centre of pixel (ts/2, 7), so power is
+        -0 there; row 3 a mean on the centre of pixel (3, ts - 4) with op
+        1.5, so alpha clamps at 0.99 around it; row 4 an indefinite conic
+        (b^2 > ac), so power > 0 clamps at 0 over part of the tile; then
+        live rows up to row 200, every fifth masked, one in twenty with op in
+        (0.99, 2]; the rest masked, so its tail chunk is all masked.
+    Every masked row holds an opaque splat over its tile (op 0.95 before
+    masking) that would show if it were not masked. Returns (mu [3, m, 2],
+    con [3, m, 3], op [3, m, 1], col [3, m, D], z [3, m, 1], bg [1, D],
+    n_tx, width, height)."""
+    if m <= 2 * 128:
+        raise ValueError("simple_window_probe needs more than two chunks of rows")
+    sp = _Splats(d, ts, seed)
+    tiles = []
+    for t in range(3):
+        x0 = float(t * ts)
+        rows = sp.masked(m, x0)
+        live = np.zeros(m, bool)
+        if t == 0:
+            rows[:128] = sp.edge(128, x0)
+            rows[256:] = sp.edge(m - 256, x0)
+            live[:128] = np.arange(128) % 4 != 3
+            live[256:] = True
+        elif t == 2:
+            n = 200
+            rows[:n] = sp.loose(n, x0, 3.0)
+            sp.gate(rows, x0)
+            rows[2, :6] = (x0 + ts // 2 + 0.5, 7.5, 0.5, 0.1, 0.4, 0.7)
+            rows[3, :6] = (x0 + 3.5, ts - 3.5, 0.5, 0.0, 0.5, 1.5)
+            rows[4, :6] = (x0 + ts / 2.0, ts / 2.0, 0.02, 0.1, 0.02, 0.2)
+            hot = sp.rng.rand(n) < 0.05
+            hot[:5] = False
+            rows[:n, 5] = np.where(hot, sp.rng.uniform(1.0, 2.0, n), rows[:n, 5])
+            live[:n] = (np.arange(n) % 5 != 4) | (np.arange(n) < 5)
+        rows[~live, 5] = 0.0
+        tiles.append(rows)
+    data = np.stack(tiles).astype(np.float32)
+    parts = tuple(np.ascontiguousarray(data[..., a:b])
+                  for a, b in ((0, 2), (2, 5), (5, 6), (6, 6 + d), (6 + d, 7 + d)))
+    bg = np.array([[0.2, 0.1, 0.4][:d]], np.float32)
+    return (*parts, bg, 3, 3 * ts, ts)

@@ -27,12 +27,15 @@ with log-space transmittance and no saturation skip:
 bg gets a zero gradient in both, as in the JAX VJPs.
 
 The kernels are CUDA C++ for sm_90a in `egogaussian_tpu_torch/csrc/
-window_chunked_{fwd,bwd}.cu` and `window_{fwd,bwd}.cu`, built into the
-library of `render/cuda_raster.py`. The chunked pair runs a 16x16 quadrant
-per 256-thread CTA (ts 32: four per tile, the backward as one cluster)
-with a per-warp reach-box cull; `window_chunked_{forward,backward}_nocull`
-launch the same kernels with the cull compiled out, as check instances
-that must agree bit for bit.
+window_chunked_{fwd,bwd}.cu` and `window_{fwd,bwd}.cu` (+ `window_split.cuh`),
+built into the library of `render/cuda_raster.py`. Both pairs run a 16x16
+quadrant per 256-thread CTA (ts 32: four per tile, the backwards as one
+cluster) with a per-warp reach-box cull; the simple pair also skips every
+128-row chunk whose op column is all 0, and stages chunks by bulk copy
+when M % 4 == 0 (plain loads otherwise). `window_chunked_{forward,backward}
+_nocull` and `window_{forward,backward}_nocull` launch the same kernels
+with the cull compiled out, as check instances that must agree bit for
+bit.
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor takes
 the plain twin, which walks `map_batch` tiles at a time to bound its
@@ -389,21 +392,54 @@ def window_chunked_backward_nocull(counts, data, bg, logt, gimg, galpha, gdepth,
                                galpha, gdepth, ts, n_tx, n_tiles, m, d)
 
 
+def _launch_fwd(symbol, mu, con, op, col, z, bg, ts, n_tx, n_tiles, m, d):
+    outs = [torch.empty(s, dtype=torch.float32, device=mu.device)
+            for s in _out_shapes(n_tiles, ts * ts, d)]
+    stream = torch.cuda.current_stream(mu.device).cuda_stream
+    rc = getattr(kernel_library(), symbol)(
+        *(x.data_ptr() for x in (mu, con, op, col, z, bg, *outs)), n_tiles, m, n_tx, ts, d,
+        stream)
+    _launch_check(rc, "windowed forward")
+    return tuple(outs)
+
+
 def window_forward(mu, con, op, col, z, bg, ts: int, n_tx: int, map_batch: int = MAP_BATCH):
     """Simple forward -> (img, alpha, depth). CUDA tensors launch the
     kernel; CPU tensors run composite_window_plain_fwd."""
     n_tiles, m, d = _check_simple(mu, con, op, col, z, bg, ts)
     if _device_kind(mu, "windowed compositor") == "cpu":
         return composite_window_plain_fwd(mu, con, op, col, z, bg, ts, n_tx, map_batch)
-    outs = [torch.empty(s, dtype=torch.float32, device=mu.device)
-            for s in _out_shapes(n_tiles, ts * ts, d)]
-    stream = torch.cuda.current_stream(mu.device).cuda_stream
-    rc = kernel_library().egogs_window_fwd(
-        *(x.data_ptr() for x in (mu, con, op, col, z, bg, *outs)), n_tiles, m, n_tx, ts, d,
-        stream)
-    _launch_check(rc, "windowed forward")
+    outs = _launch_fwd("egogs_window_fwd", mu, con, op, col, z, bg, ts, n_tx, n_tiles, m, d)
     WindowCompositor.fwd_launches[d] += 1
-    return tuple(outs)
+    return outs
+
+
+def window_forward_nocull(mu, con, op, col, z, bg, ts: int, n_tx: int):
+    """The simple forward kernel instantiated with its per-warp cull
+    compiled out (CUDA tensors only; not counted). A check instance: its
+    outputs must equal window_forward's bit for bit."""
+    n_tiles, m, d = _check_simple(mu, con, op, col, z, bg, ts)
+    if mu.device.type != "cuda":
+        raise ValueError("the cull-free check instance runs on CUDA tensors only")
+    return _launch_fwd("egogs_window_fwd_nocull", mu, con, op, col, z, bg, ts, n_tx, n_tiles,
+                       m, d)
+
+
+def _check_simple_bwd(mu, con, op, col, z, bg, gimg, galpha, gdepth, ts):
+    n_tiles, p, d = mu.shape[0], ts * ts, bg.shape[1]
+    return _check_simple(mu, con, op, col, z, bg, ts, tensors=[
+        (gimg, (n_tiles, p, d)), (galpha, (n_tiles, p, 1)), (gdepth, (n_tiles, p, 1))])
+
+
+def _launch_bwd(symbol, mu, con, op, col, z, bg, gimg, galpha, gdepth, ts, n_tx, n_tiles, m,
+                d):
+    grads = [torch.empty_like(x) for x in (mu, con, op, col, z)]
+    stream = torch.cuda.current_stream(mu.device).cuda_stream
+    rc = getattr(kernel_library(), symbol)(
+        *(x.data_ptr() for x in (mu, con, op, col, z, bg, gimg, galpha, gdepth, *grads)),
+        n_tiles, m, n_tx, ts, d, stream)
+    _launch_check(rc, "windowed backward")
+    return tuple(grads)
 
 
 def window_backward(mu, con, op, col, z, bg, gimg, galpha, gdepth, ts: int, n_tx: int,
@@ -411,20 +447,26 @@ def window_backward(mu, con, op, col, z, bg, gimg, galpha, gdepth, ts: int, n_tx
     """Simple backward -> (dmu, dcon, dop, dcol, dz), every row written.
     CUDA tensors launch the kernel; CPU tensors run
     composite_window_plain_bwd."""
-    n_tiles, p, d = mu.shape[0], ts * ts, bg.shape[1]
-    _, m, _ = _check_simple(mu, con, op, col, z, bg, ts, tensors=[
-        (gimg, (n_tiles, p, d)), (galpha, (n_tiles, p, 1)), (gdepth, (n_tiles, p, 1))])
+    n_tiles, m, d = _check_simple_bwd(mu, con, op, col, z, bg, gimg, galpha, gdepth, ts)
     if _device_kind(mu, "windowed compositor") == "cpu":
         return composite_window_plain_bwd(mu, con, op, col, z, bg, gimg, galpha, gdepth,
                                           ts, n_tx, map_batch)
-    grads = [torch.empty_like(x) for x in (mu, con, op, col, z)]
-    stream = torch.cuda.current_stream(mu.device).cuda_stream
-    rc = kernel_library().egogs_window_bwd(
-        *(x.data_ptr() for x in (mu, con, op, col, z, bg, gimg, galpha, gdepth, *grads)),
-        n_tiles, m, n_tx, ts, d, stream)
-    _launch_check(rc, "windowed backward")
+    grads = _launch_bwd("egogs_window_bwd", mu, con, op, col, z, bg, gimg, galpha, gdepth, ts,
+                        n_tx, n_tiles, m, d)
     WindowCompositor.bwd_launches[d] += 1
-    return tuple(grads)
+    return grads
+
+
+def window_backward_nocull(mu, con, op, col, z, bg, gimg, galpha, gdepth, ts: int,
+                           n_tx: int):
+    """The simple backward kernel instantiated with its per-warp cull
+    compiled out (CUDA tensors only; not counted). A check instance: its
+    gradients must equal window_backward's bit for bit."""
+    n_tiles, m, d = _check_simple_bwd(mu, con, op, col, z, bg, gimg, galpha, gdepth, ts)
+    if mu.device.type != "cuda":
+        raise ValueError("the cull-free check instance runs on CUDA tensors only")
+    return _launch_bwd("egogs_window_bwd_nocull", mu, con, op, col, z, bg, gimg, galpha,
+                       gdepth, ts, n_tx, n_tiles, m, d)
 
 
 class WindowChunkedCompositor(torch.autograd.Function):

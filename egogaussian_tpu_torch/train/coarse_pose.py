@@ -381,7 +381,8 @@ def estimate_coarse_obj_pose(
     """Stage 2. Returns (pose sequence over all cameras, refined object
     model, {camera index: image name} of the solved frames).
 
-    `device`: where the model, frames and kernels run.
+    `device`: where the model, frames and kernels run; None means the card
+      (`cuda`), as in JAX, which runs on its default device.
     `skip_noop_warmup`: elide the warm-up previous-frame iterations of
       non-first frames. Each is an exact no-op (the pose is not trained,
       the parameter gradients are zero onto zero moments, no statistics)
@@ -397,7 +398,7 @@ def estimate_coarse_obj_pose(
 
     Not ported yet: frame-granular checkpoints (checkpoint_every > 0)."""
     if device is None:
-        raise ValueError("estimate_coarse_obj_pose needs an explicit device")
+        device = torch.device("cuda")
     if checkpoint_every > 0:
         raise NotImplementedError("mid-stage checkpoints are not ported yet")
     # float32 throughout: cuDNN would run the SSIM convolutions in TF32

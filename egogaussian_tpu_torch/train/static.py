@@ -210,13 +210,14 @@ def train_static(
 ) -> List[StaticPhaseResult]:
     """Stage 1.0. `static_phase_frames`: per-phase lists of camera indices
     (data.readers.split_viewpoints_by_phase). `device`: where the model,
-    frames and kernels run. `on_step(it, mode, loss)`: optional observer
+    frames and kernels run; None means the card (`cuda`), as in JAX, which
+    runs on its default device. `on_step(it, mode, loss)`: optional observer
     called after every iteration with the loss as a device scalar.
 
     Not ported yet: mid-stage checkpoints (checkpoint_every > 0) and
     frame-data-parallel meshes (mesh)."""
     if device is None:
-        raise ValueError("train_static needs an explicit device")
+        device = torch.device("cuda")
     if checkpoint_every > 0:
         raise NotImplementedError("mid-stage checkpoints are not ported yet")
     if mesh is not None:

@@ -270,5 +270,8 @@ def test_estimate_writes_pose_npz_and_rejects_checkpoints(video, tmp_path):
     with pytest.raises(NotImplementedError):
         estimate_coarse_obj_pose(video.cameras, tm, cfg, static_g, dyn_g, 4.0, device=CPU,
                                  checkpoint_every=1)
-    with pytest.raises(ValueError):
-        estimate_coarse_obj_pose(video.cameras, tm, cfg, static_g, dyn_g, 4.0)
+    if not torch.cuda.is_available():
+        # no device means the card; without one torch raises its own error
+        # (no silent CPU fallback)
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA|GPU|NVIDIA"):
+            estimate_coarse_obj_pose(video.cameras, tm, cfg, static_g, dyn_g, 4.0)

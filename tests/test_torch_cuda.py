@@ -1,7 +1,7 @@
 """The compositor CUDA kernels (tile-grid forward, both tile-grid backward
 flavors, the stream pair, the chunked and simple windowed pairs) against
-their plain twins and the oracle, and the tile-grid, chunked windowed and
-stream pairs against their cull-off instances, on the card. Marked `cuda`; without a
+their plain twins and the oracle, and the tile-grid, stream and both
+windowed pairs against their cull-off instances, on the card. Marked `cuda`; without a
 CUDA device every test skips.
 
 On a machine with a GPU (no JAX needed there):
@@ -22,7 +22,13 @@ from egogaussian_tpu_torch.render import stream_raster as sr
 from egogaussian_tpu_torch.render import window_raster as wr
 from egogaussian_tpu_torch.render.api import render
 from egogaussian_tpu_torch.render.camera import Camera, look_at
-from egogaussian_tpu_torch.render.probe_layouts import quadrant_scene, stream_probe, window_probe
+from egogaussian_tpu_torch.render.probe_layouts import (
+    SIMPLE_PROBE_ROWS,
+    quadrant_scene,
+    simple_window_probe,
+    stream_probe,
+    window_probe,
+)
 from egogaussian_tpu_torch.render.tiled import (
     TileConfig,
     stream_layout,
@@ -181,13 +187,13 @@ def test_stream_kernels_match_twins(dev, d, tile_size):
     assert sr.StreamCompositor.bwd_launches[d] == 1
 
 
-def _window_split(lay):
+def _window_split(counts, data):
     """The simple windowed pair's five inputs from a chunked window, op
     zeroed at and past each tile's count."""
-    data = lay.data.detach()
+    data = data.detach()
     d = data.shape[2] - 7
     rows = torch.arange(data.shape[1], device=data.device)
-    live = (rows[None, :] < lay.counts[:, None].long())[..., None]
+    live = (rows[None, :] < counts[:, None].long())[..., None]
     op = torch.where(live, data[..., 5:6], torch.zeros_like(data[..., 5:6]))
     return [x.contiguous() for x in (data[..., 0:2], data[..., 2:5], op, data[..., 6:6 + d],
                                      data[..., 6 + d:7 + d])]
@@ -208,7 +214,7 @@ def test_new_backwards_repeat_bit_for_bit(dev, flavor):
             a, b = (wr.window_chunked_backward(lay.counts, data, bg, out[3], *cots, 16,
                                                lay.n_tx) for _ in range(2))
         else:
-            parts = _window_split(lay)
+            parts = _window_split(lay.counts, lay.data)
             a, b = (torch.cat(wr.window_backward(*parts, bg, *cots, 16, lay.n_tx), dim=2)
                     for _ in range(2))
     elif flavor == "stream":
@@ -301,7 +307,7 @@ def test_window_kernels_match_twins(dev, d, tile_size):
     p_d = wr.composite_window_chunked_plain_bwd(counts, data, bg, p_out[3], *cots, tile_size,
                                                 lay.n_tx)
     torch.testing.assert_close(k_d, p_d, atol=2e-4, rtol=1e-3)
-    parts = _window_split(lay)
+    parts = _window_split(lay.counts, lay.data)
     ks_out = wr.window_forward(*parts, bg, tile_size, lay.n_tx)
     ps_out = wr.composite_window_plain_fwd(*parts, bg, tile_size, lay.n_tx)
     for k, p, c, tol in zip(ks_out, ps_out, k_out, (3e-4, 3e-4, 3e-3)):
@@ -312,9 +318,22 @@ def test_window_kernels_match_twins(dev, d, tile_size):
                      dim=2)
     torch.testing.assert_close(ks_d, ps_d, atol=2e-4, rtol=1e-3)
     torch.testing.assert_close(ks_d, k_d, atol=2e-4, rtol=1e-3)
+    # the same window cut to 383 rows (every row past 300 is masked): not a
+    # multiple of 4, so the kernels stage by plain loads; the same outputs
+    cut = [x[:, :383].contiguous() for x in parts]
+    kc_out = wr.window_forward(*cut, bg, tile_size, lay.n_tx)
+    for k, p, c, tol in zip(kc_out, wr.composite_window_plain_fwd(*cut, bg, tile_size, lay.n_tx),
+                            ks_out, (3e-4, 3e-4, 3e-3)):
+        torch.testing.assert_close(k, p, atol=tol, rtol=0)
+        torch.testing.assert_close(k, c, atol=tol, rtol=0)
+    kc_d = torch.cat(wr.window_backward(*cut, bg, *cots, tile_size, lay.n_tx), dim=2)
+    pc_d = torch.cat(wr.composite_window_plain_bwd(*cut, bg, *cots, tile_size, lay.n_tx), dim=2)
+    torch.testing.assert_close(kc_d, pc_d, atol=2e-4, rtol=1e-3)
+    torch.testing.assert_close(kc_d, ks_d[:, :383], atol=2e-4, rtol=1e-3)
     torch.cuda.synchronize()
-    assert wr.WindowChunkedCompositor.fwd_launches[d] == wr.WindowCompositor.fwd_launches[d] == 1
-    assert wr.WindowChunkedCompositor.bwd_launches[d] == wr.WindowCompositor.bwd_launches[d] == 1
+    assert wr.WindowChunkedCompositor.fwd_launches[d] == 1
+    assert wr.WindowChunkedCompositor.bwd_launches[d] == 1
+    assert wr.WindowCompositor.fwd_launches[d] == wr.WindowCompositor.bwd_launches[d] == 2
 
 
 def test_tiled_render_matches_oracle(dev):
@@ -453,6 +472,39 @@ def test_window_chunked_cull_is_exact(dev, d, tile_size):
                                                            tile_size, n_tx))
         p_d = wr.composite_window_chunked_plain_bwd(counts, data, bg, out[3], *cots, tile_size,
                                                     n_tx)
+        torch.testing.assert_close(k_d, p_d, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("tile_size", [16, 32])
+@pytest.mark.parametrize("d", [3, 1])
+def test_window_simple_cull_is_exact(dev, d, tile_size):
+    """The redesigned simple windowed pair (a 16x16 quadrant per CTA, at
+    ts 32 four per tile and the backward as a cluster, the per-warp
+    reach-box cull, all-masked chunks skipped) on render/probe_layouts.py:
+    simple_window_probe at 300 and 258 rows and on a deep window: forward
+    and backward against the cull-off instances bit for bit, the backward
+    run twice bit for bit, and both against the twins."""
+    windows = []
+    for m in SIMPLE_PROBE_ROWS:
+        *parts, bg, n_tx, _, _ = simple_window_probe(d, tile_size, m)
+        windows.append(([torch.as_tensor(x, device=dev) for x in parts],
+                        torch.as_tensor(bg, device=dev), n_tx))
+    counts, data, bg, n_tx = _deep_window(dev, d, tile_size)
+    windows.append((_window_split(counts, data), bg, n_tx))
+    for parts, bg, n_tx in windows:
+        out = wr.window_forward(*parts, bg, tile_size, n_tx)
+        for a, b in zip(out, wr.window_forward_nocull(*parts, bg, tile_size, n_tx)):
+            assert torch.equal(a, b)
+        for k, p, tol in zip(out, wr.composite_window_plain_fwd(*parts, bg, tile_size, n_tx),
+                             (3e-4, 3e-4, 3e-3)):
+            torch.testing.assert_close(k, p, atol=tol, rtol=0)
+        gen = torch.Generator(device=dev).manual_seed(6)
+        cots = [torch.randn(o.shape, generator=gen, device=dev) * 1e-2 for o in out]
+        k_d = torch.cat(wr.window_backward(*parts, bg, *cots, tile_size, n_tx), dim=2)
+        n_d = torch.cat(wr.window_backward_nocull(*parts, bg, *cots, tile_size, n_tx), dim=2)
+        r_d = torch.cat(wr.window_backward(*parts, bg, *cots, tile_size, n_tx), dim=2)
+        assert torch.equal(k_d, n_d) and torch.equal(k_d, r_d)
+        p_d = torch.cat(wr.composite_window_plain_bwd(*parts, bg, *cots, tile_size, n_tx), dim=2)
         torch.testing.assert_close(k_d, p_d, atol=2e-4, rtol=1e-3)
 
 

@@ -17,6 +17,7 @@ import json
 import os
 
 import numpy as np
+import pytest
 import torch
 
 from egogaussian_tpu.config import Config as JConfig
@@ -26,6 +27,7 @@ from egogaussian_tpu.train.static import train_static as j_train_static
 from egogaussian_tpu_torch.config import Config
 from egogaussian_tpu_torch.data import make_synthetic_video, split_viewpoints_by_phase
 from egogaussian_tpu_torch.data import readers as t_readers
+from egogaussian_tpu_torch.train import coarse_pose, static
 from egogaussian_tpu_torch.train.static import train_static
 from egogaussian_tpu_torch.utils.logging import MetricsLogger, active_logger
 
@@ -166,3 +168,31 @@ def test_train_static_tiled_backend_matches_cuda():
     assert rt.dropped_pairs == rc.dropped_pairs == 0
     for k in rc.pred_masks:
         np.testing.assert_array_equal(rt.pred_masks[k], rc.pred_masks[k], err_msg=k)
+
+
+class _Placed(Exception):
+    """Raised by the stub that stands in for the first tensor placement."""
+
+
+@pytest.mark.parametrize("trainer", ["train_static", "estimate_coarse_obj_pose"])
+def test_trainers_default_to_the_card(monkeypatch, trainer):
+    """Like JAX's, which run on the default device (the accelerator), the
+    port's trainers run on CUDA unless given a device: device=None reaches
+    the first tensor placement (stack_cameras, stubbed here, so no card is
+    needed) as torch.device("cuda")."""
+    module = static if trainer == "train_static" else coarse_pose
+    seen = []
+
+    def stub(cams, device):
+        seen.append(device)
+        raise _Placed
+
+    monkeypatch.setattr(module, "stack_cameras", stub)
+    cfg = Config()
+    with pytest.raises(_Placed):
+        if trainer == "train_static":
+            train_static([object()], np.zeros((1, 3), np.float32), np.zeros((1, 3), np.float32),
+                         cfg, [[0]], 1.0)
+        else:
+            coarse_pose.estimate_coarse_obj_pose([object()], None, cfg, [[0], [0]], [[0]], 1.0)
+    assert seen == [torch.device("cuda")]

@@ -35,7 +35,13 @@ from egogaussian_tpu_torch.render import window_raster as wr
 from egogaussian_tpu_torch.render.api import render as t_render
 from egogaussian_tpu_torch.render.camera import Camera, look_at
 from egogaussian_tpu_torch.render.cuda_raster import ALPHA_EPS, _chunk_alphas, _pixel_coords
-from egogaussian_tpu_torch.render.probe_layouts import PROBE_GATE, window_probe
+from egogaussian_tpu_torch.render.probe_layouts import (
+    PROBE_GATE,
+    SIMPLE_PROBE_CLAMP,
+    SIMPLE_PROBE_ROWS,
+    simple_window_probe,
+    window_probe,
+)
 from egogaussian_tpu_torch.render.project import ProjectedGaussians
 from egogaussian_tpu_torch.render.project import project_gaussians as t_project
 from egogaussian_tpu_torch.render.tiled import TileConfig, bin_gaussians, window_layout
@@ -229,6 +235,83 @@ def test_probe_window_twins_match_jax_kernel(d, ts):
     assert not tout[1][1].any()
 
 
+# the simple probe against JAX: the tolerances the card holds the kernels
+# to (chip_smoke.py FWD_TOL, the JAX suite's cross-backend bounds)
+PROBE_FWD_TOL = {"image": 3e-4, "alpha": 3e-4, "depth": 3e-3}
+
+
+@pytest.mark.parametrize("m", SIMPLE_PROBE_ROWS)
+@pytest.mark.parametrize("ts", [32, 16])
+@pytest.mark.parametrize("d", [3, 1])
+def test_simple_probe_twins_match_jax_kernel(d, ts, m):
+    """render/probe_layouts.py:simple_window_probe through the simple pair's
+    twins (the port's make_tile_compositor and its autograd Function on the
+    CPU) against JAX's make_tile_compositor (interpret=True): window rows
+    not a multiple of 128 (300) or of 4 (258), masked rows among live ones,
+    an all-masked chunk between live chunks, an all-masked tile, alphas at
+    the 0.99 clamp and on either side of 1/255, a mean on a pixel centre
+    and power clamped at 0. Forward within PROBE_FWD_TOL, gradients within
+    atol 2e-4 + rtol 1e-3. The probe's own properties are checked first.
+
+    JAX's builder refuses windows of more than 256 rows that are not a
+    multiple of 256 (`_cumsum_rows` cuts the window into 256-row blocks and
+    its tail block's product does not type-check), so its kernel runs on
+    the probe padded with masked rows to the next multiple of 256: a masked
+    row moves no output and gets zero gradient, which is checked on the
+    padding."""
+    *parts_np, bg_np, n_tx, _, _ = simple_window_probe(d, ts, m)
+    parts = [torch.as_tensor(x) for x in parts_np]
+    bg = torch.as_tensor(bg_np)
+    mu, con, op = parts[:3]
+    n_tiles, p = mu.shape[0], ts * ts
+    assert m % 128 and (m % 4 == 0) == (m == 300)
+    chunk_live = [[bool(op[t, c * 128:(c + 1) * 128].any()) for c in range(3)] for t in range(3)]
+    assert chunk_live == [[True, False, True], [False] * 3, [True, True, False]]
+    assert not op[0, :128].all() and not op[2, 5:200].all()
+    px, py = _pixel_coords(n_tiles, ts, n_tx, CPU)
+    blk = torch.cat([mu, con, op], dim=2)[2:3].transpose(1, 2)
+    alpha, raw, power, dx, dy = _chunk_alphas(blk, px[2:3], py[2:3],
+                                              torch.ones(1, m, dtype=torch.bool))
+    _, gx, gy = PROBE_GATE[1:]
+    assert float(alpha[0, gy * ts + gx, 0]) == np.float32(ALPHA_EPS)
+    assert int(torch.count_nonzero(alpha[0, :, 0])) == 1 and not alpha[0, :, 1].any()
+    _, centred, clamped, indefinite = SIMPLE_PROBE_CLAMP
+    assert bool(((dx[0, :, centred] == 0) & (dy[0, :, centred] == 0)).any())
+    assert float(alpha[0, :, clamped].max()) == np.float32(0.99)
+    q = -0.5 * (con[2, indefinite, 0] * dx ** 2 + con[2, indefinite, 2] * dy ** 2)
+    assert bool((q[0, :, indefinite] - con[2, indefinite, 1] * dx[0, :, indefinite]
+                 * dy[0, :, indefinite] > 0).any())
+    assert float(power[0, :, indefinite].max()) == 0.0
+
+    cots = _cotangents([(n_tiles, p, d), (n_tiles, p, 1), (n_tiles, p, 1)], seed=40 + d + ts)
+    jbg = jnp.asarray(bg_np)
+    with pytest.raises(TypeError, match="contracting dimensions"):
+        j_pallas.make_tile_compositor(n_tiles, m, d, ts, n_tx, interpret=True)(
+            *(jnp.asarray(x) for x in parts_np), jbg)
+    m_pad = -(-m // 256) * 256
+    padded = [np.pad(x, ((0, 0), (0, m_pad - m), (0, 0))) for x in parts_np]  # op = 0: masked
+    jfn = j_pallas.make_tile_compositor(n_tiles, m_pad, d, ts, n_tx, interpret=True)
+    jout, jvjp = jax.vjp(lambda *x: jfn(*x, jbg), *(jnp.asarray(x) for x in padded))
+    jgrads = [np.asarray(g) for g in jvjp(tuple(jnp.asarray(c.numpy()) for c in cots))]
+    assert not any(g[:, m:].any() for g in jgrads)
+    jgrads = [g[:, :m] for g in jgrads]
+    tparts = [x.clone().requires_grad_(True) for x in parts]
+    tout = wr.make_tile_compositor(n_tiles, m, d, ts, n_tx)(*tparts, bg)
+    tgrads = torch.autograd.grad(tout, tparts, grad_outputs=cots)
+    for name, a, b in zip(("image", "alpha", "depth"), jout, tout):
+        np.testing.assert_allclose(_np(b), np.asarray(a), atol=PROBE_FWD_TOL[name], rtol=0,
+                                   err_msg=name)
+    for name, a, b in zip(("mu", "con", "op", "col", "z"), jgrads, tgrads):
+        np.testing.assert_allclose(_np(b), a, atol=GRAD_ATOL, rtol=GRAD_RTOL, err_msg=name)
+    # masked rows get no gradient but dop (JAX's: exp(power) * dalpha); the
+    # all-masked tile is bg
+    masked = op[..., 0] == 0
+    for g in tgrads[:2] + tgrads[3:]:
+        assert not g[masked].any()
+    np.testing.assert_array_equal(_np(tout[0][1]), np.broadcast_to(bg_np, (p, d)))
+    assert not tout[1][1].any() and not tgrads[2][1].any()
+
+
 def _loss_terms(res, target, xp):
     return (xp.mean((res.image - target) ** 2) + 0.3 * xp.mean(res.alpha)
             + 0.1 * xp.mean(res.depth))
@@ -326,3 +409,8 @@ def test_window_wrappers_check_inputs():
     # the cull-off check instances have no CPU twin
     with pytest.raises(ValueError, match="CUDA tensors only"):
         wr.window_chunked_forward_nocull(counts, torch.zeros(2, 128, 10), bg, 16, 2)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        wr.window_forward_nocull(*parts, bg, 16, 2)
+    cots = [torch.zeros(2, 256, c) for c in (3, 1, 1)]
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        wr.window_backward_nocull(*parts, bg, *cots, 16, 2)
