@@ -59,9 +59,21 @@ nonzero and no result line is printed):
   9. entry:   (path 4) the simple windowed pair through
               make_tile_compositor, forward and backward, on the full-frame
               windows of that model at frame 0 (D = 3 and 1)
- 10. peak:    (row 10's path) the card's float32 FMA rate through
+ 10. pipeline: (path 5) the training CLI (cli/train.py) over all six
+              stages on the slice's video exported in the reference's
+              dataset layout, at a cut schedule (pipeline_flags): stage 1.0
+              segments the object itself (label rate raised), stages 1.2
+              and 2-6 follow; per-stage wall time, it/s and alive counts
+              from the run's metrics.jsonl, stage 6's metrics (random
+              LPIPS weights); every artifact of JAX's layout, at least
+              MIN_OBJECT_GAUSSIANS handed to stage 2, every dynamic frame
+              solved after stage 4, finite losses, no dropped pairs
+ 11. peak:    (row 10's path) the card's float32 FMA rate through
               utils/peak.py:fma_peak_gflops, beside the published 67 TFLOP/s
- 11. checks after the paths: path 3's frames against backend="cuda"
+ 12. checks after the paths: the eval CLI on path 5's output against its
+              stage 6 (PSNR within 1e-4 dB, SSIM within 1e-6) and the
+              training CLI again with --resume (no stage retrains, the
+              same metrics); path 3's frames against backend="cuda"
               (DEEP_FWD_TOL, 0 dropped pairs) and, on each frame's gather
               window, the chunked pair against its cull-off instances bit
               for bit, and every owner lookup of the frames' binning
@@ -70,7 +82,7 @@ nonzero and no result line is printed):
               every kernel against its twin at path 2's own shapes, the
               FMA chain against its twin at the peak path's shapes (bit
               for bit) and the SM clock under an FMA load
- 12. timing:  kernel vs plain twin (CUDA events) at the slice's shapes
+ 13. timing:  kernel vs plain twin (CUDA events) at the slice's shapes
               (rows 1-9 also at 1920x1080, rows 6-9 also with
               evaluation's own tile config, ts 16), the cull-off
               instances of rows 1-9, and each kernel's bound
@@ -78,10 +90,10 @@ nonzero and no result line is printed):
               instruction rate, whichever is larger) on the covered
               evaluations of the same inputs, beside the dense count's
               bound and the bound at the measured FMA rate
- 13. profile: torch.profiler over std-mode steps at the slice's size:
+ 14. profile: torch.profiler over std-mode steps at the slice's size:
               device time by kernel and the device's busy share
               (table in chiprun_out/chip_smoke/profile.txt)
- 14. eval profile: torch.profiler over render_results on 8 frames of path
+ 15. eval profile: torch.profiler over render_results on 8 frames of path
               3(b), before (the owner lookups swapped for their cummax
               scan forms) and after: device time by op, busy share, host
               ops (chiprun_out/chip_smoke/eval_profile.txt); no cummax
@@ -1112,13 +1124,14 @@ def phase_flavors(model, cfg, fr):
         raise AssertionError(f"a step flavor disagrees with the default: {report}")
 
 
-def phase_frame_kernels(model, fr, errs):
+def phase_frame_kernels(model, fr, errs, prefix=""):
     """Every kernel against its twin at the shapes path 2 gives it, on the
     flavor frame's state `fr`: the posed object model's cropped
     projection, built as pose_loss_grads renders it (D = 3, crop window
-    with a partial bottom tile row), and the label render's full-frame
-    projection (D = 1); the windowed kernels on the gather windows of the
-    same projections and tile config."""
+    with a partial bottom tile row; the full frame when fr.crop is None),
+    and the label render's full-frame projection (D = 1); the windowed
+    kernels on the gather windows of the same projections and tile config.
+    `prefix` starts every case name."""
     import torch
 
     from egogaussian_tpu_torch.models.pose import pose_to_se3
@@ -1149,10 +1162,11 @@ def phase_frame_kernels(model, fr, errs):
                                     cam.height, align=fr.base.tile_size)
             shift = torch.stack([ox, oy]).to(proj.means2d.dtype)
             proj = proj._replace(means2d=proj.means2d - shift[None, :])
-        cases = [(f"frame{fr.f}_crop_{w}x{h}", proj, model_colors(model), w, h,
+        window = "crop" if fr.crop is not None else "full"
+        cases = [(f"{prefix}frame{fr.f}_{window}_{w}x{h}", proj, model_colors(model), w, h,
                   torch.zeros(3, device=model.device))]
         # D = 1: the label render, unmoved geometry, full frame
-        cases.append((f"frame{fr.f}_label_{cam.width}x{cam.height}",
+        cases.append((f"{prefix}frame{fr.f}_label_{cam.width}x{cam.height}",
                       project(model.params.xyz, model.covariance()), model.params.label,
                       cam.width, cam.height, torch.zeros(1, device=model.device)))
         for case, pr, cols, cw, ch, bg in cases:
@@ -2073,6 +2087,276 @@ def phase_profile(dev, vid, extent, out_dir, iters: int = 40, skip: int = 10):
          top=[{"op": n[:80], "ms_per_it": ms, "calls_per_it": c} for ms, c, n in rows[:15]])
 
 
+# path 5's schedule, given to the training CLI as flags: stage 1.0 as path 1
+# (both static phases), with the label rate raised so that the 100 label
+# iterations segment the object (the reference's 0.001 is tuned for 30k; at
+# 0.05 labels cross the 0.5 threshold, as tests/test_train.py:30-34
+# argues); stage 1.2 the same std + entropy cut with the densify window
+# inside it; stage 2 path 2's COARSE_SCHEDULE and COARSE_OPT; stage 3 cut
+# from 70k to 400 per variant (reference: densify (500, 45k) every 50,
+# object opacity reset every 3k, the pose live after 45k) keeping the
+# window, one reset at 200 and 100 pose-live iterations; stage 5 cut from
+# 40k to 400 (reference: clamp window (500, 5k), reset interval 3k)
+# keeping the clamp window and one unclamped iteration inside it
+PIPELINE_STATIC = dict(SLICE_SCHEDULE, label_lr=0.05)
+PIPELINE_BG = dict(std_train_iter=300, entropy_reg_iter=100, densify_from_iter=50,
+                   densify_until_iter=199)
+PIPELINE_FINE = dict(total_num_iter=400, densify_from_iter=50, densify_until_iter=300,
+                     densification_interval=50, opacity_reset_interval=200)
+PIPELINE_FINE_ALL = dict(total_num_iter=400, densify_from_iter=50, densify_until_iter=150,
+                         opacity_reset_interval=100)
+PIPELINE_STAGES = ("static", "background", "coarse", "fine_obj/from-static",
+                   "fine_obj/from-coarse", "interpolate", "fine_all", "eval")
+PSNR_TOL, SSIM_TOL = 1e-4, 1e-6  # the eval CLI against the pipeline's own stage 6
+
+
+def pipeline_flags():
+    """Path 5's schedule as training-CLI flags."""
+    flags = []
+    for prefix, group in (("s_", PIPELINE_STATIC), ("b_", PIPELINE_BG), ("", SLICE_OPT),
+                          ("c_", COARSE_SCHEDULE), ("", COARSE_OPT), ("f_", PIPELINE_FINE),
+                          ("a_", PIPELINE_FINE_ALL)):
+        for k, v in group.items():
+            flags += [f"--{prefix}{k}", str(v)]
+    return flags
+
+
+def pipeline_artifacts(vid, src):
+    """Every file of JAX's layout that path 5 must find, beside the
+    evaluation PNGs: per static phase the full/object/background PLYs, a
+    predicted mask per static training frame, and each later stage's
+    files."""
+    from egogaussian_tpu_torch.data.readers import read_split_file
+
+    train = set(read_split_file(os.path.join(src, "split", "training_frames.txt")))
+    files = ["background/static_bg.ply", "coarse/obj_pose_sequence.npz",
+             "coarse/ply/gaussians_final.ply", "fine_all/gaussians_all.ply",
+             "evaluation/results.txt", "cfg_args.json", "logs/metrics.jsonl",
+             "input.ply", "cameras.json"]
+    for p in range(len(vid.static_phases)):
+        files += [f"static/ply/static_phase{p}{s}.ply" for s in ("", "_obj", "_bg")]
+    files += [f"static/obj_masks/{n}.png" for n in vid.image_names if n in train
+              and any(a <= int(n) <= b for a, b in vid.static_phases)]
+    for variant in ("static", "coarse"):
+        files += [f"fine_obj/from-{variant}/gaussians_fine.ply",
+                  f"fine_obj/from-{variant}/obj_pose_sequence.npz",
+                  f"interpolate_pose_{variant}/obj_pose_sequence.npz"]
+    return files
+
+
+def read_results_txt(path):
+    """{bucket: {ssim, psnr, lpips}} from results.txt (check_results_txt's
+    layout)."""
+    lines = check_results_txt(path)
+    return {lines[i]: {k: float(lines[i + 1 + j].split(":")[1])
+                       for j, k in enumerate(("ssim", "psnr", "lpips"))} for i in (0, 4)}
+
+
+def phase_pipeline(dev, vid, out_dir, flags=None):
+    """Path 5: the training CLI (cli/train.py:main) over all six stages on
+    the slice's video exported in the reference's dataset layout, with the
+    cut schedule of pipeline_flags() and random LPIPS weights. Per stage
+    wall time, iterations and it/s (stage 2's with its elided share) and
+    the alive count at each handover, from the run's metrics.jsonl; stage
+    6's metrics from results.txt. Checks: every artifact of JAX's layout,
+    stage 2 handed at least MIN_OBJECT_GAUSSIANS object Gaussians by the
+    label segmentation, every frame of each dynamic phase solved after
+    stage 4, every logged loss finite, no stage ending with dropped pairs.
+    Returns what the checks after the path's counts need."""
+    import torch
+
+    from egogaussian_tpu_torch.cli.train import main as train_main
+    from egogaussian_tpu_torch.data.export_colmap import export_colmap_dataset
+    from egogaussian_tpu_torch.eval.lpips import random_lpips_weights, save_lpips_weights
+    from egogaussian_tpu_torch.models.pose import load_pose_sequence
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_pipeline")
+    shutil.rmtree(root, ignore_errors=True)
+    src = export_colmap_dataset(vid, os.path.join(root, "data"))
+    weights = os.path.join(root, "lpips_random_weights.npz")
+    save_lpips_weights(random_lpips_weights(0), weights)
+    model_dir = os.path.join(root, "model")
+    argv = (["-s", src, "-m", model_dir, "--device", str(dev), "--lpips_weights", weights]
+            + (pipeline_flags() if flags is None else flags))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = train_main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+
+    missing = [f for f in pipeline_artifacts(vid, src)
+               if not os.path.exists(os.path.join(model_dir, f))]
+    with open(os.path.join(model_dir, "logs", "metrics.jsonl")) as fh:
+        records = [json.loads(line) for line in fh]
+    shutil.copy(os.path.join(model_dir, "logs", "metrics.jsonl"),
+                os.path.join(out_dir, "pipeline_metrics.jsonl"))
+    results_txt = os.path.join(model_dir, "evaluation", "results.txt")
+    shutil.copy(results_txt, os.path.join(out_dir, "pipeline_results.txt"))
+    stage6 = read_results_txt(results_txt)
+    timed = {r["name"]: r for r in records if r.get("event") == "stage_time"}
+    ends = {r["stage"]: r for r in records if r.get("event") == "stage_end"}
+    coarse = ends["coarse"]
+    stages = {}
+    for name in PIPELINE_STAGES:
+        r = timed[name]
+        its = coarse["steps"] if name == "coarse" else r["iterations"]
+        stages[name] = {"seconds": r["seconds"], "iterations": int(its),
+                        "it_per_s": its / r["seconds"] if its else None,
+                        "alive": int(r["alive"]) if "alive" in r else None}
+    stages["coarse"]["elided"] = int(coarse["elided"])
+    stages["coarse"]["elided_share"] = coarse["elided"] / (coarse["steps"] + coarse["elided"])
+    handover = {"static_obj": ends["static"]["obj_alive"],
+                "static_bg": ends["static"]["bg_alive"],
+                **{k: stages[k]["alive"] for k in ("background", "coarse", "fine_obj/from-static",
+                                                   "fine_obj/from-coarse", "fine_all")}}
+    # one closing record per trainer run (stage 3 runs twice)
+    dropped = [[r["stage"], int(r["dropped_pairs"])] for r in records
+               if r.get("event") == "stage_end"]
+    losses = [r["loss"] for r in records if "loss" in r]
+    solved = {}
+    for variant in ("static", "coarse"):
+        seq, _ = load_pose_sequence(os.path.join(model_dir, f"interpolate_pose_{variant}",
+                                                 "obj_pose_sequence.npz"))
+        s = seq.solved.numpy()
+        solved[variant] = all(bool(s[f]) for a, b in vid.dynamic_phases
+                              for f in range(a, b + 1))
+    emit("pipeline", schedule=pipeline_flags() if flags is None else flags,
+         width=vid.cameras[0].width, height=vid.cameras[0].height, frames=len(vid.cameras),
+         gaussians_init=len(vid.points), seconds=seconds, stages=stages, alive=handover,
+         stage6=stage6, metrics=result.metrics,
+         lpips_weights="random (random_lpips_weights(0)): LPIPS values are uncalibrated",
+         dropped_pairs=dropped, losses_logged=len(losses),
+         losses_finite=bool(np.isfinite(losses).all()), dynamic_phases_solved=solved,
+         missing_artifacts=missing, max_memory_allocated=peak)
+    if missing:
+        raise AssertionError(f"pipeline artifacts missing: {missing}")
+    if timed["static"]["alive"] < MIN_OBJECT_GAUSSIANS:
+        raise AssertionError(f"stage 1.0's label segmentation gave stage 2 "
+                             f"{timed['static']['alive']} object Gaussians")
+    if not all(solved.values()):
+        raise AssertionError(f"stage 4 left dynamic frames unsolved: {solved}")
+    if not losses or not np.isfinite(losses).all():
+        raise AssertionError("a logged loss is not finite")
+    if len(dropped) != 6 or any(n for _, n in dropped):
+        raise AssertionError(f"a stage ended with dropped pairs: {dropped}")
+    if not all(np.isfinite(v) for m in result.metrics.values() for v in m.values()):
+        raise AssertionError(f"stage 6 metrics not finite: {result.metrics}")
+    return src, model_dir, weights, argv, result.metrics
+
+
+def pipeline_frames(dev, src, model_dir):
+    """Path 5's own render states, rebuilt from its files on the last
+    dynamic training frame that stage 3 solved: stage 3's from-coarse
+    model posed by its sequence in the crop window of the size its closing
+    record reports, and stage 5's combined model at stage 4's interpolated
+    sequence, full frame. Returns [(case prefix, model, state)] for
+    phase_frame_kernels."""
+    from types import SimpleNamespace
+
+    from egogaussian_tpu_torch.config import Config
+    from egogaussian_tpu_torch.data.readers import (
+        load_colmap_scene,
+        phase_membership_mask,
+        read_phase_index,
+        read_split_file,
+        stack_cameras,
+    )
+    from egogaussian_tpu_torch.models.gaussians import load_ply
+    from egogaussian_tpu_torch.models.pose import load_pose_sequence, pose_from_rt
+    from egogaussian_tpu_torch.pipeline import _load_pred_masks, apply_predicted_masks
+    from egogaussian_tpu_torch.train.coarse_pose import _accum_tables
+    from egogaussian_tpu_torch.train.common import auto_tile_config
+
+    cfg = Config()
+    scene = load_colmap_scene(src, dev, cfg.model.images, cfg.model.resolution)
+    cams = apply_predicted_masks(
+        scene.cameras, _load_pred_masks(os.path.join(model_dir, "static", "obj_masks")))
+    batch = stack_cameras(cams, dev)
+    with open(os.path.join(model_dir, "logs", "metrics.jsonl")) as fh:
+        ends = [r for r in map(json.loads, fh)
+                if r.get("event") == "stage_end" and r["stage"] == "fine_obj"]
+    if len(ends) != 2:
+        raise AssertionError(f"expected two stage-3 runs in metrics.jsonl, found {len(ends)}")
+    crop = ends[1]["crop_size"]  # from-coarse runs second
+    train = set(read_split_file(os.path.join(src, "split", "training_frames.txt")))
+    _, dynamic = read_phase_index(os.path.join(src, "split", "phase_frame_index.txt"))
+    in_dynamic = phase_membership_mask(cams, dynamic)
+    out = []
+    for prefix, ply, npz, window in (
+            ("stage3_", "fine_obj/from-coarse/gaussians_fine.ply",
+             "fine_obj/from-coarse/obj_pose_sequence.npz", crop),
+            ("stage5_", "fine_all/gaussians_all.ply",
+             "interpolate_pose_coarse/obj_pose_sequence.npz", None)):
+        seq, _ = load_pose_sequence(os.path.join(model_dir, npz), dev)
+        model = load_ply(os.path.join(model_dir, ply), dev)
+        solved = seq.solved.cpu().numpy()
+        f = [i for i, c in enumerate(cams)
+             if in_dynamic[i] and solved[i] and c.image_name in train][-1]
+        table_T, table_R = _accum_tables(seq)
+        out.append((prefix, model, SimpleNamespace(
+            batch=batch, f=f, table_T=table_T, table_R=table_R,
+            pose0=pose_from_rt(seq.rotations[f], seq.translations[f]),
+            base=auto_tile_config(model, batch.camera(0), tile_size=cfg.render.tile_size),
+            crop=None if window is None else tuple(window))))
+    return out
+
+
+def check_pipeline(dev, src, model_dir, weights, argv, metrics, errs):
+    """After path 5's counts are read: the eval CLI on the training CLI's
+    output directory against the pipeline's own stage 6 (PSNR within
+    PSNR_TOL dB, SSIM within SSIM_TOL), then the training CLI again with
+    --resume: every stage loads its files (no trainer logs a step), in
+    seconds, with the same metrics. Then every kernel against its twin on
+    path 5's own inputs (pipeline_frames: stage 3's crop window, stage 5's
+    combined model and its gather windows). The run's directory is removed
+    only when every check passed."""
+    from egogaussian_tpu_torch.cli.eval import main as eval_main
+    from egogaussian_tpu_torch.cli.train import main as train_main
+
+    metrics_path = os.path.join(model_dir, "logs", "metrics.jsonl")
+    t0 = time.perf_counter()
+    ev = eval_main(["-s", src, "-m", model_dir, "--lpips_weights", weights,
+                    "--device", str(dev)])
+    eval_s = time.perf_counter() - t0
+    def abs_diff(other):
+        return {b: {k: abs(other[b][k] - m[k]) for k in ("psnr", "ssim")}
+                for b, m in metrics.items()}
+
+    def within(d):
+        return all(v["psnr"] <= PSNR_TOL and v["ssim"] <= SSIM_TOL for v in d.values())
+
+    diff = abs_diff(ev)
+    with open(metrics_path) as fh:
+        n_before = sum(1 for _ in fh)
+    t0 = time.perf_counter()
+    again = train_main(argv + ["--resume"])
+    resume_s = time.perf_counter() - t0
+    with open(metrics_path) as fh:
+        later = [json.loads(line) for line in fh][n_before:]
+    trained = sorted({r["stage"] for r in later} - {"pipeline"})
+    resumed = {r["name"]: bool(r["resumed"]) for r in later if r.get("event") == "stage_time"}
+    resume_diff = abs_diff(again.metrics)
+    ok = (within(diff) and within(resume_diff) and not trained
+          and all(resumed[k] for k in PIPELINE_STAGES if k not in ("interpolate", "eval")))
+    emit("pipeline_checks", eval_cli_metrics=ev, eval_cli_abs_diff=diff,
+         tol={"psnr_db": PSNR_TOL, "ssim": SSIM_TOL}, eval_cli_seconds=eval_s,
+         resume_seconds=resume_s, resume_stages=resumed, resume_trained=trained,
+         resume_metrics_abs_diff=resume_diff, ok=ok)
+    if not ok:
+        raise AssertionError(f"path 5 checks failed: eval CLI {diff}, resume trained {trained}, "
+                             f"resumed {resumed}, resume metrics {resume_diff}")
+    for prefix, model, fr in pipeline_frames(dev, src, model_dir):
+        emit("pipeline_frame", case=prefix.rstrip("_"), frame=fr.f, crop=fr.crop,
+             alive=int(model.num_alive), capacity=model.capacity,
+             tile_config=dataclasses.asdict(fr.base))
+        phase_frame_kernels(model, fr, errs, prefix=prefix)
+    shutil.rmtree(os.path.dirname(model_dir))
+
+
 # kernel key -> (kernels-line name stem, source, the TPU kernel it replaces)
 KERNELS = {
     "fwd": ("tilegrid_fwd", "egogaussian_tpu_torch/csrc/tilegrid_fwd.cu",
@@ -2166,6 +2450,14 @@ def main(argv=None) -> int:
     reset_launch_counts()
     entry = phase_entry(eval_model, vid.cameras[0])
     path_launches["entry"] = launch_counts()
+    # path 5: the whole six-stage pipeline through the training CLI
+    reset_launch_counts()
+    pipe = phase_pipeline(dev, vid, out_dir)
+    path_launches["pipeline"] = launch_counts()
+    emit("pipeline_launches", **{k: n for k, n in path_launches["pipeline"].items() if n})
+    for name in ("tilegrid_fwd_d3", "tilegrid_bwd_d3", "window_chunked_fwd_d3"):
+        if path_launches["pipeline"][name] <= 0:
+            raise AssertionError(f"{name} never launched on the pipeline path")
     # row 10's path: the FMA peak that bounds are read against
     reset_launch_counts()
     peak_gflops = phase_peak(dev)
@@ -2181,6 +2473,7 @@ def main(argv=None) -> int:
     # cuda backend, path 4 against the twins and the chunked pair, every
     # kernel against its twin at path 2's own shapes
     compare_eval_frames(vid, eval_model, eval_seq, buckets)
+    check_pipeline(dev, *pipe, errs)
     check_entry(entry, vid.cameras[0], errs)
     phase_frame_kernels(model, fr, errs)
     ms, plain_ms, b = check_peak(dev, errs, peak_gflops)

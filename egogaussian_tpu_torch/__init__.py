@@ -19,9 +19,13 @@ Layer map:
              pose and pose sequences
   data/      COLMAP files and scene loading, frame batches with uint8
              planes, synthetic video and its export as a dataset
-  train/     stage-1.0 static training, stage-2 coarse object pose
+  train/     stage 1.0 static and 1.2 background training, stage-2 coarse
+             object pose, stage-3 object fine-tuning, stage-5 scene
+             fine-tuning
   eval/      stage-6 evaluation: render_results, hand-masked metrics, LPIPS
-  cli/       the eval entry point (python -m egogaussian_tpu_torch.cli.eval)
+  pipeline   the six stages in order, with resume from each stage's files
+  cli/       the training and eval entry points
+             (python -m egogaussian_tpu_torch.cli.train / .cli.eval)
 """
 
 __version__ = "0.1.0"

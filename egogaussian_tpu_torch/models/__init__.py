@@ -4,6 +4,7 @@ from egogaussian_tpu_torch.models.gaussians import (
     GaussianModel,
     from_points,
     from_jax_arrays,
+    combine_models,
     compact,
     ensure_capacity,
     save_ply,

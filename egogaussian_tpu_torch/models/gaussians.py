@@ -288,6 +288,28 @@ def ensure_capacity(model: GaussianModel, opt_state, min_free: Optional[int] = N
     return new_model, new_opt, True
 
 
+def combine_models(a: GaussianModel, b: GaussianModel) -> GaussianModel:
+    """Concatenate two models, a's Gaussians first (reference
+    combine_gaussians, gaussian_model.py:1072-1089): both compacted, at
+    capacity next_pow2(max(2 (na + nb), 1024)), with a's sh_degree and
+    spatial_lr_scale (host sync; stage 5 merges the object and the
+    background with it)."""
+    a, b = compact(a), compact(b)
+    na, nb = int(a.num_alive), int(b.num_alive)
+    capacity = _next_pow2(max(2 * (na + nb), 1024))
+
+    def cat(x, y):
+        return torch.cat([x[:na], y[:nb].to(a.device)], dim=0)
+
+    params, aux = _filled(
+        capacity, a.sh_degree, a.device,
+        {k: cat(v, getattr(b.params, k)) for k, v in a.params.as_dict().items()},
+        {k: cat(v, getattr(b.aux, k)) for k, v in a.aux.as_dict().items() if k != "alive"},
+        na + nb,
+    )
+    return dataclasses.replace(a, params=params, aux=aux)
+
+
 def split_by_is_object(model: GaussianModel):
     """(object-only, background-only) compacted models."""
     alive = model.aux.alive

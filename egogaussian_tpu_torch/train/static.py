@@ -1,8 +1,9 @@
-"""Stage 1.0: static-phase training.
+"""Stage 1.0 (static phases) and stage 1.2 (background) trainers.
 
-Port of `train_static` from `egogaussian_tpu/train/static.py` (the twin of
-reference `trainers/train_static.py:16-207`). Per static phase, from the
-point cloud:
+Port of `train_static` and `train_background` from
+`egogaussian_tpu/train/static.py` (the twins of reference
+`trainers/train_static.py:16-207` and `trainers/train_static_bg.py:23-173`).
+Stage 1.0, per static phase, from the point cloud:
     iters 1..std:            0.8*L1 + 0.2*(1-SSIM), hand-grad-masked
     iters std..std+entropy:  + 0.1 * opacity entropy of visible Gaussians
       (then prune opacity < 0.5 and shrink to `rewind_frames` frames)
@@ -13,7 +14,11 @@ densify/prune every `densification_interval` iters in
 `opacity_reset_interval`. Outputs: full/object/background PLYs and the
 predicted object masks rendered from the thresholded label.
 
-The loop reads nothing back from the device between densify intervals:
+Stage 1.2: the same std + entropy loop over every phase's training frames
+at once, gated by the interaction mask dilate(hand | obj, 5 px), no label
+phase, and a final prune of opacity < 0.5. Output: the background PLY.
+
+The loops read nothing back from the device between densify intervals:
 losses, dropped-pair counts and statistics stay device tensors until an
 interval's host sync.
 """
@@ -27,7 +32,7 @@ import numpy as np
 import torch
 
 from egogaussian_tpu_torch.config import Config
-from egogaussian_tpu_torch.data.readers import FrameBatch, stack_cameras
+from egogaussian_tpu_torch.data.readers import FrameBatch, dilate_mask, stack_cameras
 from egogaussian_tpu_torch.models.densify import (
     densify_and_prune,
     prune_by_opacity,
@@ -347,3 +352,125 @@ def train_static(
         if first_phase_only:
             break
     return results
+
+
+def train_background(
+    cameras: Sequence,
+    points: np.ndarray,
+    colors: np.ndarray,
+    cfg: Config,
+    train_frame_idxs: List[int],
+    cameras_extent: float,
+    save_dir: Optional[str] = None,
+    seed: int = 0,
+    backend: str = "auto",
+    dilate_size: int = 5,
+    checkpoint_every: int = 0,
+    mesh=None,
+    device: Optional[torch.device] = None,
+    densify_noise: Optional[Callable[[int], torch.Tensor]] = None,
+) -> GaussianModel:
+    """Stage 1.2: the background over all phases' frames `train_frame_idxs`
+    with the interaction mask dilate(hand | obj, dilate_size) gating the
+    gradients. `device`: None means the card (`cuda`).
+    `densify_noise(capacity)`: optional [2, C, 3] split noise for each
+    densify call, in order (tests inject the JAX draw); by default the
+    port's split_noise with seeds from a generator seeded `seed`. Ends with
+    a metrics record event="stage_end" (steps, dropped_pairs). Raises
+    ValueError when a training frame has no hand or object mask (stage 1.1
+    completes the object masks of static frames only).
+
+    Not ported yet: mid-stage checkpoints (checkpoint_every > 0) and
+    frame-data-parallel meshes (mesh)."""
+    if device is None:
+        device = torch.device("cuda")
+    if checkpoint_every > 0:
+        raise NotImplementedError("mid-stage checkpoints are not ported yet")
+    if mesh is not None:
+        raise NotImplementedError("frame-data-parallel training is not ported yet")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    rng = np.random.RandomState(seed)
+    bp = cfg.static_bg
+    opt_cfg = cfg.opt
+    total_iters = bp.std_train_iter + bp.entropy_reg_iter
+
+    train_cams = [cameras[i] for i in train_frame_idxs]
+    batch = stack_cameras(train_cams, device)
+    # the interaction mask needs both masks of every frame (JAX raises too)
+    missing = [c.image_name for c in train_cams if c.hand_mask is None or c.obj_mask is None]
+    if missing:
+        raise ValueError(f"train_background: {len(missing)} training frames have no hand or "
+                         f"object mask: {missing[:5]}")
+    # interaction masks, built once on the host; binary, so stored as uint8
+    int_masks = np.stack([
+        dilate_mask(np.maximum(c.hand_mask.detach().cpu().numpy(),
+                               c.obj_mask.detach().cpu().numpy()), iterations=dilate_size)
+        for c in train_cams])
+    int_masks = torch.as_tensor(int_masks.astype(np.uint8), device=device)
+
+    model = from_points(points, colors, device, sh_degree=cfg.model.sh_degree,
+                        spatial_lr_scale=cameras_extent, seed=seed)
+    opt_state = adam_init(model.params)
+    tile_cfg = auto_tile_config(model, batch.camera(0), tile_size=cfg.render.tile_size)
+    backend = pick_backend(tile_cfg, backend)
+    gen = torch.Generator().manual_seed(seed)  # densify split seeds
+    CONSOLE.log(f"[bg] {len(train_cams)} frames, {total_iters} iters")
+
+    drop_max = torch.zeros((), dtype=torch.int64, device=device)
+    last_drop = 0
+    fb = max(1, bp.frame_batch)
+    for it in range(1, total_iters + 1):
+        if fb == 1:
+            fidxs = [rng.randint(len(train_cams))]
+        else:
+            fidxs = list(rng.randint(len(train_cams), size=fb))
+        mode = "std" if it <= bp.std_train_iter else "entropy"
+        model, opt_state, loss, _, drop_max = _static_step(
+            model, opt_state, batch, fidxs, int_masks, it, drop_max,
+            mode=mode, lambda_dssim=opt_cfg.lambda_dssim, backend=backend,
+            tile_config=tile_cfg, opt_cfg=opt_cfg,
+        )
+        if it % opt_cfg.densification_interval == 0:
+            tile_cfg, last_drop, changed = maybe_regrow_tile_config(
+                model, batch.camera(0), tile_cfg, drop_max, last_drop, "bg")
+            if changed:
+                drop_max, last_drop = torch.zeros_like(drop_max), 0
+            log_metrics("bg", it, mode=mode, loss=loss, alive=model.num_alive,
+                        capacity=model.capacity, dropped_pairs=drop_max)
+        if it <= bp.densify_until_iter:
+            if it > bp.densify_from_iter and it % opt_cfg.densification_interval == 0:
+                size_threshold = 20.0 if it > opt_cfg.opacity_reset_interval else None
+                noise = None if densify_noise is None else densify_noise(model.capacity)
+                sub_seed = int(torch.randint(0, 2**31 - 1, (), generator=gen))
+                res = densify_and_prune(
+                    model, opt_state, sub_seed,
+                    max_grad=opt_cfg.densify_grad_threshold,
+                    min_opacity=0.005,
+                    extent=cameras_extent,
+                    max_screen_size=size_threshold,
+                    percent_dense=opt_cfg.percent_dense,
+                    noise=noise,
+                )
+                model, opt_state = res.model, res.opt_state
+                overflow = int(res.overflow)
+                if overflow:
+                    CONSOLE.log(f"[bg] it {it}: densify overflow — {overflow} "
+                                "candidates dropped")
+                model, opt_state, grew = ensure_capacity(model, opt_state)
+                if grew:
+                    tile_cfg = auto_tile_config(model, batch.camera(0),
+                                                tile_size=cfg.render.tile_size)
+            if it % opt_cfg.opacity_reset_interval == 0:
+                model, opt_state = reset_opacity(model, opt_state)
+        if it == total_iters:
+            model, opt_state, n_pruned = prune_by_opacity(model, opt_state, min_opacity=0.5)
+            CONSOLE.log(f"[bg] final prune: {int(n_pruned)} removed")
+
+    _log_dropped_pairs("bg", None, drop_max)
+    log_metrics("bg", total_iters, event="stage_end", steps=total_iters,
+                dropped_pairs=drop_max)
+    if save_dir:
+        save_ply(model, os.path.join(save_dir, "static_bg.ply"))
+    return model

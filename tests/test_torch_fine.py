@@ -1,0 +1,230 @@
+"""Stages 1.2, 3 and 5 of the port against the JAX package, on the 64x48
+synthetic video built once with the port and handed to both packages as the
+same arrays:
+
+  * `combine_models`, both orders, from models with dead rows: capacity,
+    alive and is_object equal, params bit for bit;
+  * `train_background` through one densify interval (JAX's split noise
+    injected), the entropy phase and the final opacity prune;
+  * `fine_tune_obj` from the ground-truth object with a perturbed pose
+    sequence: object densify and an object opacity reset inside the
+    window (JAX's split noise injected), the pose live after
+    densify_until, a crop window;
+  * `fine_tune_all` through tiny_config's opacity-clamp window (5, 10)
+    with reset interval 7, so both branches of the clamp run.
+
+The JAX side runs its tile-grid Pallas kernels in interpret mode; the port
+its tile-grid plain twins.
+
+Tolerances, each beside the largest error measured in a CPU run of this file:
+  * train_background, 16 Adam steps: params 2e-5 (measured 3.8e-6, xyz);
+    opacity logits 5e-4 (measured 1.2e-4): the test raises opacity_lr to
+    0.5 so that some Gaussians pass the final prune, and Adam's
+    normalized step turns the float32 noise of the small opacity
+    gradients into differences of up to ~2.4e-4 of that rate.
+  * fine_tune_obj, 16 steps: poses 1e-6 (measured 7.5e-9 on translations,
+    1.9e-7 on rotations), params 2e-5 (measured 5.6e-6, quats).
+  * fine_tune_all, 25 steps: params 2e-5 (measured 9.9e-6, quats; 5.7e-7
+    on the other fields).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from egogaussian_tpu.config import Config as JConfig
+from egogaussian_tpu.models import gaussians as j_g
+from egogaussian_tpu.models.pose import PoseSequence as JPoseSequence
+from egogaussian_tpu.train.fine_all import fine_tune_all as j_fine_tune_all
+from egogaussian_tpu.train.fine_obj import fine_tune_obj as j_fine_tune_obj
+from egogaussian_tpu.train.static import train_background as j_train_background
+from egogaussian_tpu_torch.config import Config
+from egogaussian_tpu_torch.data import make_synthetic_video, split_viewpoints_by_phase
+from egogaussian_tpu_torch.data.readers import stack_cameras
+from egogaussian_tpu_torch.models import gaussians as t_g
+from egogaussian_tpu_torch.models.pose import pose_sequence_from_jax_arrays
+from egogaussian_tpu_torch.train.fine_all import fine_tune_all
+from egogaussian_tpu_torch.train.common import pose_crop_size
+from egogaussian_tpu_torch.train.fine_obj import fine_tune_obj
+from egogaussian_tpu_torch.train.static import train_background
+from tests.test_torch_coarse import _close, _jax_object_model, _port_model
+from tests.test_torch_model import _jax_split_noise
+from tests.test_torch_static import _jax_cameras
+
+torch.set_num_threads(1)
+CPU = torch.device("cpu")
+PARAMS = ("xyz", "features_dc", "log_scales", "opacity_logit", "quats")
+
+
+@pytest.fixture(scope="module")
+def video():
+    return make_synthetic_video(CPU, width=64, height=48, n_bg=150, n_obj=40,
+                                frames_static=4, frames_dynamic=3)
+
+
+def _groups(video):
+    return (split_viewpoints_by_phase(video.cameras, video.static_phases),
+            split_viewpoints_by_phase(video.cameras, video.dynamic_phases))
+
+
+def _jax_noise(seed=0):
+    """The JAX trainers' densify draws, in order: PRNGKey(seed), split once
+    per densify call."""
+    state = {"key": jax.random.PRNGKey(seed), "calls": 0}
+
+    def noise(capacity):
+        state["key"], sub = jax.random.split(state["key"])
+        state["calls"] += 1
+        return torch.tensor(_jax_split_noise(sub, capacity))
+
+    return noise, state
+
+
+def _assert_params(tm, jm, tol, **field_tol):
+    alive = np.asarray(jm.aux.alive)
+    np.testing.assert_array_equal(tm.aux.alive.numpy(), alive)
+    assert tm.capacity == jm.capacity
+    for f in PARAMS:
+        atol = field_tol.get(f, tol)
+        _close(getattr(tm.params, f)[alive], np.asarray(getattr(jm.params, f))[alive], atol,
+               msg=f)
+
+
+def _holed(jm, every):
+    """jm with every `every`-th alive row killed, so combine must compact."""
+    kill = (jnp.arange(jm.capacity) % every) == 0
+    return dataclasses.replace(jm, aux=dataclasses.replace(
+        jm.aux, alive=jm.aux.alive & ~kill))
+
+
+@pytest.mark.parametrize("obj_first", [True, False])
+def test_combine_models_matches_jax(video, obj_first):
+    obj = _holed(_jax_object_model(video), 3)
+    bg = _holed(j_g.from_points(video.points[:100], video.colors[:100], capacity=256,
+                                spatial_lr_scale=2.5), 5)
+    a, b = (obj, bg) if obj_first else (bg, obj)
+    jm = j_g.combine_models(a, b)
+    tm = t_g.combine_models(_port_model(a), _port_model(b))
+    assert tm.capacity == jm.capacity
+    assert tm.spatial_lr_scale == jm.spatial_lr_scale
+    for f in ("alive", "is_object", "generation"):
+        np.testing.assert_array_equal(getattr(tm.aux, f).numpy(),
+                                      np.asarray(getattr(jm.aux, f)), err_msg=f)
+    for f in t_g.PARAM_FIELDS:
+        np.testing.assert_array_equal(getattr(tm.params, f).numpy(),
+                                      np.asarray(getattr(jm.params, f)), err_msg=f)
+    n = int(jm.num_alive)
+    assert n == int(a.num_alive) + int(b.num_alive)
+    assert np.asarray(jm.aux.is_object)[:int(a.num_alive)].all() == obj_first
+
+
+def _bg_cfg(cfg):
+    cfg.static_bg = dataclasses.replace(cfg.static_bg, std_train_iter=12, entropy_reg_iter=4,
+                                        densify_from_iter=5, densify_until_iter=10)
+    # one densify at 10; opacities raised so some pass the final prune (0.5)
+    cfg.opt = dataclasses.replace(cfg.opt, densification_interval=10,
+                                  opacity_reset_interval=1000, opacity_lr=0.5,
+                                  densify_grad_threshold=1e-4)
+    return cfg
+
+
+def test_train_background_matches_jax(video):
+    static_g, dyn_g = _groups(video)
+    idx = sorted({i for g in static_g + dyn_g for i in g})
+    jm = j_train_background(_jax_cameras(video.cameras), video.points, video.colors,
+                            _bg_cfg(JConfig()), idx, 4.0)
+    noise, state = _jax_noise()
+    tm = train_background(video.cameras, video.points, video.colors, _bg_cfg(Config()), idx,
+                          4.0, device=CPU, densify_noise=noise)
+    assert state["calls"] == 1
+    assert 0 < int(tm.num_alive) < len(video.points)  # the final prune ran and kept some
+    assert (tm.aux.is_object == 0).all()
+    _assert_params(tm, jm, 2e-5, opacity_logit=5e-4)
+
+
+def _perturbed_sequence(video, dyn_g, static_g):
+    """The video's ground-truth deltas on the dynamic frames and the next
+    static anchor, translations off by 0.02, solved there only."""
+    rng = np.random.RandomState(5)
+    d = video.gt_obj_deltas.astype(np.float32)
+    solved = np.zeros(len(video.cameras), bool)
+    solved[dyn_g[0] + [static_g[1][0]]] = True
+    tr = np.where(solved[:, None], d[:, :3, 3] + 0.02 * rng.randn(len(d), 3), 0.0)
+    rot = np.where(solved[:, None, None], d[:, :3, :3], np.eye(3, dtype=np.float32))
+    return tr.astype(np.float32), rot.astype(np.float32), solved
+
+
+def _fine_obj_cfg(cfg):
+    cfg.fine = dataclasses.replace(cfg.fine, total_num_iter=16, densify_from_iter=2,
+                                   densify_until_iter=10, densification_interval=4,
+                                   opacity_reset_interval=8, densify_grad_threshold=2e-4)
+    # raised so the pose moves visibly in its 7 live steps
+    cfg.opt = dataclasses.replace(cfg.opt, obj_translation_lr=2e-3, obj_rotation_lr=2e-3)
+    # a margin small enough that the 64x48 frames crop
+    cfg.render = dataclasses.replace(cfg.render, pose_crop_margin=4)
+    return cfg
+
+
+def test_fine_tune_obj_matches_jax(video, tmp_path):
+    static_g, dyn_g = _groups(video)
+    tr, rot, solved = _perturbed_sequence(video, dyn_g, static_g)
+    jm = _jax_object_model(video)
+    seq_j, mj = j_fine_tune_obj(
+        _jax_cameras(video.cameras), jm,
+        JPoseSequence(jnp.asarray(tr), jnp.asarray(rot), jnp.asarray(solved)),
+        _fine_obj_cfg(JConfig()), static_g, dyn_g, 4.0)
+    noise, state = _jax_noise()
+    losses = []
+    seq_t, mt = fine_tune_obj(
+        video.cameras, _port_model(jm), pose_sequence_from_jax_arrays(tr, rot, solved, CPU),
+        _fine_obj_cfg(Config()), static_g, dyn_g, 4.0, save_dir=str(tmp_path), device=CPU,
+        on_step=lambda f, it, loss: losses.append((it, f)), densify_noise=noise)
+    assert state["calls"] == 2  # densify at 4 and 8
+    assert pose_crop_size(stack_cameras(video.cameras, CPU), _fine_obj_cfg(Config()),
+                          "fine_obj") is not None  # the crop window is on
+    assert int(mt.num_alive) > int(jm.num_alive)  # object densification ran
+    trained = {f for it, f in losses if it >= 10 and solved[f] and f in dyn_g[0]}
+    assert trained  # the pose trained on some dynamic frame after densify_until
+    np.testing.assert_array_equal(seq_t.solved.numpy(), np.asarray(seq_j.solved))
+    _close(seq_t.translations, seq_j.translations, 1e-6, msg="translations")
+    _close(seq_t.rotations, seq_j.rotations, 1e-6, msg="rotations")
+    moved = np.abs(seq_t.translations.numpy() - tr).max()
+    assert moved > 1e-4  # the written-back deltas moved
+    _assert_params(mt, mj, 2e-5)
+    assert (tmp_path / "gaussians_fine.ply").exists()
+    assert (tmp_path / "obj_pose_sequence.npz").exists()
+
+
+def _fine_all_cfg(cfg):
+    # tiny_config's stage 5 (tests/test_train.py): clamp window (5, 10),
+    # reset interval 7, so iterations 6, 8 and 9 clamp and 7 does not
+    cfg.fine_all = dataclasses.replace(cfg.fine_all, total_num_iter=25, densify_from_iter=5,
+                                       densify_until_iter=10, opacity_reset_interval=7)
+    return cfg
+
+
+def test_fine_tune_all_matches_jax(video, tmp_path):
+    static_g, dyn_g = _groups(video)
+    obj = _jax_object_model(video)
+    bg = j_g.from_points(video.points[:150], video.colors[:150], capacity=512,
+                         spatial_lr_scale=4.0)
+    obj = dataclasses.replace(obj, spatial_lr_scale=4.0)
+    d = video.gt_obj_deltas.astype(np.float32)
+    solved = np.ones(len(video.cameras), bool)
+    jseq = JPoseSequence(jnp.asarray(d[:, :3, 3]), jnp.asarray(d[:, :3, :3]),
+                         jnp.asarray(solved))
+    mj = j_fine_tune_all(_jax_cameras(video.cameras), obj, bg, jseq, _fine_all_cfg(JConfig()),
+                         static_g, dyn_g)
+    mt = fine_tune_all(video.cameras, _port_model(obj), _port_model(bg),
+                       pose_sequence_from_jax_arrays(d[:, :3, 3], d[:, :3, :3], solved, CPU),
+                       _fine_all_cfg(Config()), static_g, dyn_g, save_dir=str(tmp_path),
+                       device=CPU)
+    assert int(mt.num_alive) == int(obj.num_alive) + 150
+    _assert_params(mt, mj, 2e-5)
+    # the clamp ran: the last clamped iteration (9) left every opacity
+    # <= 0.01, and 16 steps at opacity_lr move a logit by at most 0.8
+    assert float(torch.sigmoid(mt.params.opacity_logit[mt.aux.alive]).max()) < 0.03
+    assert (tmp_path / "gaussians_all.ply").exists()

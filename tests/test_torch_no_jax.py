@@ -41,7 +41,11 @@ def test_port_modules_found():
                      "egogaussian_tpu_torch.data.export_colmap",
                      "egogaussian_tpu_torch.cli.eval",
                      "egogaussian_tpu_torch.utils.peak",
-                     "egogaussian_tpu_torch.render.probe_layouts"):
+                     "egogaussian_tpu_torch.render.probe_layouts",
+                     "egogaussian_tpu_torch.train.fine_obj",
+                     "egogaussian_tpu_torch.train.fine_all",
+                     "egogaussian_tpu_torch.pipeline",
+                     "egogaussian_tpu_torch.cli.train"):
         assert expected in names
 
 

@@ -27,7 +27,12 @@ from egogaussian_tpu.train.static import train_static as j_train_static
 from egogaussian_tpu_torch.config import Config
 from egogaussian_tpu_torch.data import make_synthetic_video, split_viewpoints_by_phase
 from egogaussian_tpu_torch.data import readers as t_readers
-from egogaussian_tpu_torch.train import coarse_pose, static
+from egogaussian_tpu_torch import pipeline
+from egogaussian_tpu_torch.cli import train as cli_train
+from egogaussian_tpu_torch.data.readers import SceneData
+from egogaussian_tpu_torch.models.gaussians import from_points
+from egogaussian_tpu_torch.models.pose import empty_pose_sequence
+from egogaussian_tpu_torch.train import coarse_pose, fine_all, fine_obj, static
 from egogaussian_tpu_torch.train.static import train_static
 from egogaussian_tpu_torch.utils.logging import MetricsLogger, active_logger
 
@@ -174,13 +179,19 @@ class _Placed(Exception):
     """Raised by the stub that stands in for the first tensor placement."""
 
 
-@pytest.mark.parametrize("trainer", ["train_static", "estimate_coarse_obj_pose"])
+TRAINERS = ["train_static", "estimate_coarse_obj_pose", "train_background", "fine_tune_obj",
+            "fine_tune_all"]
+
+
+@pytest.mark.parametrize("trainer", TRAINERS)
 def test_trainers_default_to_the_card(monkeypatch, trainer):
     """Like JAX's, which run on the default device (the accelerator), the
     port's trainers run on CUDA unless given a device: device=None reaches
     the first tensor placement (stack_cameras, stubbed here, so no card is
     needed) as torch.device("cuda")."""
-    module = static if trainer == "train_static" else coarse_pose
+    module = {"train_static": static, "train_background": static,
+              "estimate_coarse_obj_pose": coarse_pose, "fine_tune_obj": fine_obj,
+              "fine_tune_all": fine_all}[trainer]
     seen = []
 
     def stub(cams, device):
@@ -188,11 +199,52 @@ def test_trainers_default_to_the_card(monkeypatch, trainer):
         raise _Placed
 
     monkeypatch.setattr(module, "stack_cameras", stub)
+    if trainer == "fine_tune_all":  # combine_models places nothing new
+        monkeypatch.setattr(fine_all, "combine_models", lambda a, b: b)
     cfg = Config()
+    pts = np.zeros((1, 3), np.float32)
+    seq = empty_pose_sequence(1)
     with pytest.raises(_Placed):
         if trainer == "train_static":
-            train_static([object()], np.zeros((1, 3), np.float32), np.zeros((1, 3), np.float32),
-                         cfg, [[0]], 1.0)
-        else:
+            train_static([object()], pts, pts, cfg, [[0]], 1.0)
+        elif trainer == "train_background":
+            static.train_background([object()], pts, pts, cfg, [0], 1.0)
+        elif trainer == "estimate_coarse_obj_pose":
             coarse_pose.estimate_coarse_obj_pose([object()], None, cfg, [[0], [0]], [[0]], 1.0)
+        elif trainer == "fine_tune_obj":
+            fine_obj.fine_tune_obj([object()], None, seq, cfg, [[0]], [[0]], 1.0)
+        else:
+            fine_all.fine_tune_all([object()], _model(), _model(), seq, cfg, [[0]], [[0]])
     assert seen == [torch.device("cuda")]
+
+
+def _model():
+    return from_points(np.zeros((4, 3), np.float32), np.zeros((4, 3), np.float32), CPU)
+
+
+def test_pipeline_and_train_cli_default_to_the_card(monkeypatch, tmp_path):
+    """run_pipeline(device=None) hands stage 1.0 torch.device("cuda"), and
+    the training CLI loads the scene onto cuda unless given --device."""
+    seen = []
+
+    def stub(*args, device=None, **kw):
+        seen.append(device)
+        raise _Placed
+
+    monkeypatch.setattr(pipeline, "train_static", stub)
+    scene = SceneData(cameras=[], points=np.zeros((1, 3), np.float32),
+                      colors=np.zeros((1, 3), np.float32), nerf_norm={"radius": 1.0},
+                      image_names=[])
+    with pytest.raises(_Placed):
+        pipeline.run_pipeline(scene, Config(), str(tmp_path), static_phases=[(0, 0)],
+                              dynamic_phases=[])
+    monkeypatch.setattr(cli_train, "load_colmap_scene",
+                        lambda src, device, *a: stub(device=device))
+    split = tmp_path / "data" / "split"
+    split.mkdir(parents=True)
+    for name in ("training_frames", "dynamic_eval_frames", "static_eval_frames"):
+        (split / f"{name}.txt").write_text("000000\n")
+    (split / "phase_frame_index.txt").write_text("0,0\n")
+    with pytest.raises(_Placed):
+        cli_train.main(["-s", str(tmp_path / "data"), "-m", str(tmp_path / "out")])
+    assert seen == [torch.device("cuda")] * 2
