@@ -68,9 +68,28 @@ nonzero and no result line is printed):
               LPIPS weights); every artifact of JAX's layout, at least
               MIN_OBJECT_GAUSSIANS handed to stage 2, every dynamic frame
               solved after stage 4, finite losses, no dropped pairs
+ 10b. checkpoint: (path 6) the same CLI command with --checkpoint_every
+              CKPT_EVERY as a child process (this script with
+              --train-child, which flushes its launch counts to a file),
+              SIGKILLed as soon as static/ckpt_static_phase0.npz exists,
+              restarted (stage 1.0 resumes mid-stage), SIGKILLed again as
+              soon as a stage-3 ckpt_fine_obj.npz exists, restarted with
+              --resume and run to the end: each restart's ckpt_resume
+              record at its file's iteration, and the output against path
+              5's within PATH6_TOL (alive counts at every handover, solved
+              frames, poses, gaussians_all.ply, stage-6 PSNR / SSIM)
+ 10c. viewers: (path 7) on path 5's output at 640x480: render_trajectory
+              and render_double_trajectory over every frame,
+              render_freeview and render_multiview (tiled backend), one
+              SIBR round trip through the network viewer, ply_tools
+              recolor / info, build_native
  11. peak:    (row 10's path) the card's float32 FMA rate through
               utils/peak.py:fma_peak_gflops, beside the published 67 TFLOP/s
- 12. checks after the paths: the eval CLI on path 5's output against its
+ 12. checks after the paths: path 7's renders against backend="cuda"
+              (DEEP_FWD_TOL, 0 dropped pairs), the served bytes against
+              send_image of render_gaussians, the recolored PLYs, the
+              native PLY read and write against the numpy ones; the eval
+              CLI on path 5's output against its
               stage 6 (PSNR within 1e-4 dB, SSIM within 1e-6) and the
               training CLI again with --resume (no stage retrains, the
               same metrics); path 3's frames against backend="cuda"
@@ -100,7 +119,9 @@ nonzero and no result line is printed):
               after
 Launch counters are set to 0 just before each path and read just after.
 Then the kernel table, the nvidia-smi line, and the result line
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. With --pipeline-only, paths 5-7 and their
+checks alone (no result line); --repro adds a second unbroken run of path
+5's flags and prints its spread against path 5 (what PATH6_TOL holds).
 
 Imports no JAX. Writes its outputs under chiprun_out/chip_smoke/.
 """
@@ -2357,6 +2378,462 @@ def check_pipeline(dev, src, model_dir, weights, argv, metrics, errs):
     shutil.rmtree(os.path.dirname(model_dir))
 
 
+# path 6: the training CLI with mid-stage checkpoints, SIGKILLed twice and
+# restarted; stage 1.0 (500 iterations per phase) and stage 3 (400 per
+# variant) each save at least twice
+CKPT_EVERY = 100
+# how far path 6's output may sit from path 5's, per compared quantity:
+# the spread of two unbroken card runs of path 5's flags (PERF.md §5,
+# chip_smoke.py --pipeline-only --repro)
+PATH6_TOL = {"alive": 0, "solved": 0, "pose": 0.0, "ply": 0.0, "psnr": 0.0, "ssim": 0.0}
+CHILD_TIMEOUT = 600  # seconds, per training-CLI child
+
+
+def train_child(counts_path, argv) -> int:
+    """The training CLI's main in a child process of path 6, with the launch
+    counters flushed to counts_path every 0.1 s (a SIGKILLed child keeps
+    what its last flush wrote) and at exit."""
+    import threading
+
+    from egogaussian_tpu_torch.cli.train import main as train_main
+
+    def flush():
+        tmp = counts_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(launch_counts(), f)
+        os.replace(tmp, counts_path)
+
+    stop = threading.Event()
+
+    def loop():
+        while not stop.wait(0.1):
+            flush()
+
+    threading.Thread(target=loop, daemon=True).start()
+    try:
+        train_main(argv)
+    finally:
+        stop.set()
+        flush()
+    return 0
+
+
+def run_child(argv, tag, out_dir, kill_when=()):
+    """The training CLI with `argv` in a child process (train_child), its
+    output in out_dir/<tag>.log; SIGKILLed as soon as one of the paths in
+    kill_when exists. Returns (how it ended, seconds, launch counts)."""
+    import signal
+
+    counts = os.path.join(out_dir, f"{tag}_launches.json")
+    cmd = [sys.executable, os.path.abspath(__file__), "--train-child", counts, "--"] + argv
+    t0 = time.perf_counter()
+    with open(os.path.join(out_dir, f"{tag}.log"), "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            while proc.poll() is None:
+                if any(os.path.exists(p) for p in kill_when):
+                    proc.send_signal(signal.SIGKILL)
+                    proc.wait()
+                    break
+                if time.perf_counter() - t0 > CHILD_TIMEOUT:
+                    raise AssertionError(f"{tag}: the training CLI ran past {CHILD_TIMEOUT} s")
+                time.sleep(0.02)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    seconds = time.perf_counter() - t0
+    ended = "killed" if proc.returncode == -signal.SIGKILL else f"exit {proc.returncode}"
+    with open(counts) as f:
+        launches = json.load(f)
+    return ended, seconds, launches
+
+
+def ckpt_iteration(path) -> int:
+    """The iteration a checkpoint file of train/ckpt_hook.py holds."""
+    import pickle
+
+    with np.load(path) as data:
+        return int(pickle.loads(data["__host__"].tobytes())["it"])
+
+
+def pipeline_records(model_dir):
+    with open(os.path.join(model_dir, "logs", "metrics.jsonl")) as fh:
+        return [json.loads(line) for line in fh]
+
+
+POSE_FILES = ("coarse", "fine_obj/from-static", "fine_obj/from-coarse",
+              "interpolate_pose_static", "interpolate_pose_coarse")
+
+
+def compare_runs(dir_a, dir_b):
+    """How far two pipeline outputs sit apart: alive counts at every
+    handover (the last stage_time record of each stage, stage 1.0's per
+    phase object/background counts), solved frames and pose values of
+    every pose file, gaussians_all.ply's properties (when the counts agree)
+    and byte equality, stage 6's PSNR and SSIM."""
+    from egogaussian_tpu_torch.utils.ply import read_ply
+
+    def handover(d):
+        recs = pipeline_records(d)
+        out = {r["name"]: r.get("alive") for r in recs if r.get("event") == "stage_time"}
+        static = [r for r in recs if r.get("event") == "stage_end" and r["stage"] == "static"][-1]
+        out["static_obj"], out["static_bg"] = static["obj_alive"], static["bg_alive"]
+        return out
+
+    ha, hb = handover(dir_a), handover(dir_b)
+    def count_diff(a, b):
+        a, b = np.atleast_1d(a), np.atleast_1d(b)
+        return int(np.abs(a - b).max()) if a.shape == b.shape else 1 << 30
+
+    alive = max(count_diff(ha[k], hb[k]) for k in ha if ha[k] is not None)
+    solved = pose = 0
+    for name in POSE_FILES:
+        a = np.load(os.path.join(dir_a, name, "obj_pose_sequence.npz"))
+        b = np.load(os.path.join(dir_b, name, "obj_pose_sequence.npz"))
+        solved += int(np.sum(a["solved"] != b["solved"]))
+        for k in ("translations", "rotations"):
+            pose = max(pose, float(np.abs(a[k].astype(np.float64) - b[k]).max()))
+    ply = os.path.join("fine_all", "gaussians_all.ply")
+    pa, na = read_ply(os.path.join(dir_a, ply))
+    pb, nb = read_ply(os.path.join(dir_b, ply))
+    ply_err = (max(float(np.abs(pa[k].astype(np.float64) - pb[k]).max()) for k in pa)
+               if na == nb else float("inf"))
+    with open(os.path.join(dir_a, ply), "rb") as fa, open(os.path.join(dir_b, ply), "rb") as fb:
+        same_bytes = fa.read() == fb.read()
+    ra = read_results_txt(os.path.join(dir_a, "evaluation", "results.txt"))
+    rb = read_results_txt(os.path.join(dir_b, "evaluation", "results.txt"))
+    return {"alive": alive, "solved": solved, "pose": pose, "ply": ply_err,
+            "psnr": max(abs(ra[k]["psnr"] - rb[k]["psnr"]) for k in ra),
+            "ssim": max(abs(ra[k]["ssim"] - rb[k]["ssim"]) for k in ra),
+            "ply_vertices": [int(na), int(nb)], "ply_bytes_equal": same_bytes,
+            "handover": {"a": ha, "b": hb}}
+
+
+def phase_checkpoint(argv5, model_dir5, out_dir):
+    """Path 6: the training CLI with path 5's flags and --checkpoint_every
+    CKPT_EVERY in a fresh directory, as a child process: SIGKILLed as soon
+    as static/ckpt_static_phase0.npz exists, restarted with the same
+    command (stage 1.0 resumes mid-stage), SIGKILLed again as soon as a
+    stage-3 ckpt_fine_obj.npz exists, restarted with --resume (stages
+    1.0-2 load their files, stage 3 resumes mid-stage) and run to the end.
+    Checks: each restart logged one mid-stage resume (event ckpt_resume)
+    at the iteration its file held; the output against path 5's
+    (compare_runs) within PATH6_TOL. Returns the child runs' launch
+    counts summed."""
+    model_dir = os.path.join(os.path.dirname(model_dir5), "model_ckpt")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    argv = list(argv5)
+    argv[argv.index("-m") + 1] = model_dir
+    argv += ["--checkpoint_every", str(CKPT_EVERY)]
+    static_ckpt = os.path.join(model_dir, "static", "ckpt_static_phase0.npz")
+    fine_ckpts = [os.path.join(model_dir, "fine_obj", v, "ckpt_fine_obj.npz")
+                  for v in ("from-static", "from-coarse")]
+    t0 = time.perf_counter()
+    runs = [run_child(argv, "ckpt_run1", out_dir, kill_when=[static_ckpt])]
+    it1 = ckpt_iteration(static_ckpt)
+    runs.append(run_child(argv, "ckpt_run2", out_dir, kill_when=fine_ckpts))
+    fine = [p for p in fine_ckpts if os.path.exists(p)]
+    it2 = ckpt_iteration(fine[0]) if fine else None
+    runs.append(run_child(argv + ["--resume"], "ckpt_run3", out_dir))
+    seconds = time.perf_counter() - t0
+    resumes = [(r["stage"], r["step"], r["file"]) for r in pipeline_records(model_dir)
+               if r.get("event") == "ckpt_resume"]
+    want = [("static", it1, "ckpt_static_phase0.npz"), ("fine_obj", it2, "ckpt_fine_obj.npz")]
+    diff = compare_runs(model_dir5, model_dir)
+    within = all(diff[k] <= tol for k, tol in PATH6_TOL.items())
+    launches = {k: sum(r[2][k] for r in runs) for k in runs[0][2]}
+    ok = ([r[0] for r in runs] == ["killed", "killed", "exit 0"] and resumes == want
+          and within and bool(fine))
+    emit("checkpoint", every=CKPT_EVERY, seconds=seconds,
+         runs=[{"ended": r[0], "seconds": r[1]} for r in runs],
+         killed_at={"static_phase0": it1, "fine_obj": it2,
+                    "fine_obj_variant": fine[0].split(os.sep)[-2] if fine else None},
+         resumes_logged=resumes, vs_path5=diff, tol=PATH6_TOL, within_tol=within,
+         launches={k: launches[k] for k in ("tilegrid_fwd_d3", "tilegrid_bwd_d3",
+                                           "tilegrid_fwd_d1", "tilegrid_bwd_d1",
+                                           "window_chunked_fwd_d3")},
+         launches_note="summed over the three children; a killed child's counts are "
+                       "its last flush (every 0.1 s) before the kill", ok=ok)
+    if not ok:
+        raise AssertionError(f"path 6 failed: runs {[r[0] for r in runs]}, resumes {resumes} "
+                             f"(want {want}), against path 5 {diff} (tol {PATH6_TOL})")
+    for name in ("tilegrid_fwd_d3", "tilegrid_bwd_d3", "window_chunked_fwd_d3"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on path 6")
+    return model_dir, launches
+
+
+def repro_run(argv5, model_dir5, out_dir):
+    """Path 5's flags once more, unbroken, as a child process: the card's
+    run-to-run spread that PATH6_TOL holds path 6 to."""
+    model_dir = os.path.join(os.path.dirname(model_dir5), "model_repro")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    argv = list(argv5)
+    argv[argv.index("-m") + 1] = model_dir
+    ended, seconds, _ = run_child(argv, "repro_run", out_dir)
+    diff = compare_runs(model_dir5, model_dir)
+    emit("pipeline_repro", ended=ended, seconds=seconds, vs_path5=diff)
+    if ended != "exit 0":
+        raise AssertionError(f"the repeated path-5 run ended with {ended}")
+    shutil.rmtree(model_dir)
+
+
+VIEW_FREE = 8  # render_freeview / render_multiview frames
+VIEW_MULTI = 3  # render_multiview's fixed views
+
+
+def phase_viewers(dev, src, model_dir, out_dir):
+    """Path 7, on path 5's output at full width: render_trajectory over
+    every frame (background PLY, stage 3's from-coarse object, stage 4's
+    interpolated poses), render_double_trajectory (coarse against
+    interpolated poses), render_freeview over the first VIEW_FREE frames on
+    interpolate_cameras between the first and last training camera, and
+    render_multiview on VIEW_MULTI of those views, all through the tiled
+    backend; one SIBR round trip through serve(max_messages=1) in a thread
+    at 640x480; ply_tools recolor (label, generation) and info on the final
+    PLY; build_native and the native PLY read and write. Returns what the
+    checks after the path's counts need."""
+    import contextlib
+    import io
+    import socket
+    import struct
+    import threading
+
+    import torch
+
+    from egogaussian_tpu_torch.cli import ply_tools
+    from egogaussian_tpu_torch.config import Config
+    from egogaussian_tpu_torch.data.readers import load_colmap_scene, read_split_file
+    from egogaussian_tpu_torch.eval import viewer
+    from egogaussian_tpu_torch.eval.network_viewer import serve
+    from egogaussian_tpu_torch.models.gaussians import load_ply
+    from egogaussian_tpu_torch.models.pose import load_pose_sequence
+    from egogaussian_tpu_torch.render.camera import focal_to_fov
+    from egogaussian_tpu_torch.utils import native_io
+
+    cfg = Config()
+    cams = load_colmap_scene(src, dev, cfg.model.images, cfg.model.resolution).cameras
+    train = set(read_split_file(os.path.join(src, "split", "training_frames.txt")))
+    train_cams = [c for c in cams if c.image_name in train]
+    files = {k: os.path.join(model_dir, v) for k, v in (
+        ("bg", "background/static_bg.ply"), ("obj", "fine_obj/from-coarse/gaussians_fine.ply"),
+        ("final", "fine_all/gaussians_all.ply"),
+        ("interp", "interpolate_pose_coarse/obj_pose_sequence.npz"),
+        ("coarse", "coarse/obj_pose_sequence.npz"))}
+    bg = load_ply(files["bg"], dev, force_bg=True)
+    obj = load_ply(files["obj"], dev, is_object=True)
+    final = load_ply(files["final"], dev)
+    interp, _ = load_pose_sequence(files["interp"], dev)
+    coarse, _ = load_pose_sequence(files["coarse"], dev)
+    out = os.path.join(os.path.dirname(model_dir), "viewers")
+    shutil.rmtree(out, ignore_errors=True)
+    renders = {}
+
+    def hook(name):
+        def on_render(model, cam, kwargs, res):
+            renders.setdefault(name, []).append((model, cam, kwargs, res))
+        return on_render
+
+    # host seconds by part: the render call (synced), the PNG writes, the
+    # trail's combine_models, the montages
+    parts = {"render": 0.0, "png": 0.0, "combine": 0.0, "montage": 0.0}
+
+    def timed(part, fn, sync=False):
+        def wrapped(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            parts[part] += time.perf_counter() - t
+            return out
+        return wrapped
+
+    originals = {k: getattr(viewer, k) for k in ("render_gaussians", "_save", "combine_models",
+                                                 "make_montage")}
+    viewer.render_gaussians = timed("render", originals["render_gaussians"], sync=True)
+    viewer._save = timed("png", originals["_save"])
+    viewer.combine_models = timed("combine", originals["combine_models"])
+    viewer.make_montage = timed("montage", originals["make_montage"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    viewer.render_trajectory(cams, bg, obj, interp, save_dir=os.path.join(out, "trajectory"),
+                             on_render=hook("trajectory"))
+    viewer.render_double_trajectory(cams, bg, obj, coarse, interp,
+                                    save_dir=os.path.join(out, "double_trajectory"),
+                                    on_render=hook("double_trajectory"))
+    free = viewer.render_freeview(cams[:VIEW_FREE], final, interp, train_cams[0],
+                                  train_cams[-1], save_dir=os.path.join(out, "freeview"),
+                                  on_render=hook("freeview"))
+    views = viewer.interpolate_cameras(train_cams[0], train_cams[-1], VIEW_MULTI)
+    viewer.render_multiview(cams[:VIEW_FREE], final, interp, views,
+                            save_dir=os.path.join(out, "multiview"),
+                            on_render=hook("multiview"))
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    for k, fn in originals.items():
+        setattr(viewer, k, fn)
+    n_frames = sum(len(v) for v in renders.values())
+
+    # one SIBR round trip at the first training camera
+    cam0 = train_cams[0]
+    w, h = cam0.width, cam0.height
+    msg = {"resolution_x": w, "resolution_y": h, "train": False,
+           "fov_y": focal_to_fov(float(cam0.fy), h), "fov_x": focal_to_fov(float(cam0.fx), w),
+           "z_near": 0.01, "z_far": 100.0, "shs_python": False, "rot_scale_python": False,
+           "keep_alive": False, "scaling_modifier": 1.0,
+           "view_matrix": cam0.viewmat.cpu().numpy().T.ravel().tolist(),
+           "view_projection_matrix": np.eye(4).ravel().tolist()}
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    served = {}
+    th = threading.Thread(target=lambda: served.update(
+        n=serve(final, port=port, max_messages=1)), daemon=True)
+    th.start()
+    deadline = time.time() + 60
+    while True:
+        try:
+            cli = socket.create_connection(("127.0.0.1", port), timeout=60)
+            break
+        except ConnectionRefusedError:
+            if time.time() > deadline:
+                raise
+            time.sleep(0.05)
+    payload = json.dumps(msg).encode()
+    cli.sendall(struct.pack("<I", len(payload)) + payload)
+    wire = b""
+    while True:
+        chunk = cli.recv(1 << 20)
+        if not chunk:
+            break
+        wire += chunk
+    cli.close()
+    th.join(timeout=60)
+
+    # PLY tools on the final PLY
+    info = io.StringIO()
+    with contextlib.redirect_stdout(info):
+        for by in ("label", "generation"):
+            ply_tools.main(["recolor", files["final"], os.path.join(out, f"recolor_{by}.ply"),
+                            "--by", by])
+        ply_tools.main(["info", files["final"]])
+
+    built = native_io.build_native(verbose=False)
+    emit("viewers", frames={k: len(v) for k, v in renders.items()}, render_seconds=render_s,
+         frames_per_second=n_frames / render_s, seconds_by_part=parts,
+         alive={"bg": int(bg.num_alive), "obj": int(obj.num_alive),
+                "final": int(final.num_alive)},
+         width=w, height=h, served=served.get("n"),
+         wire_bytes=len(wire), native_built=built, ply_tools_output=info.getvalue())
+    return dict(renders=renders, free=free, msg=msg, wire=wire, served=served.get("n"),
+                out=out, final=files["final"], built=built, info=info.getvalue())
+
+
+def check_viewers(v):
+    """After path 7's counts are read: every viewer render again through
+    backend="cuda" with auto_tile_config, within DEEP_FWD_TOL, with 0
+    dropped pairs in both; render_freeview's frames are its renders'
+    images; the served bytes are send_image's conversion of
+    render_gaussians at the message's camera, byte for byte; the recolored
+    PLYs hold every Gaussian in palette colors and info printed its five
+    lines; the native library built and loads, and its PLY read and write
+    of the final PLY equal the numpy reader's values and writer's bytes."""
+    import torch
+
+    from egogaussian_tpu_torch.cli.ply_tools import _PALETTE
+    from egogaussian_tpu_torch.eval.network_viewer import send_image
+    from egogaussian_tpu_torch.models.gaussians import load_ply
+    from egogaussian_tpu_torch.ops.sh import rgb_to_sh
+    from egogaussian_tpu_torch.render.camera import Camera, fov_to_focal
+    from egogaussian_tpu_torch.render.tiled import TileConfig
+    from egogaussian_tpu_torch.train.common import auto_tile_config, render_gaussians
+    from egogaussian_tpu_torch.utils import native_io
+    from egogaussian_tpu_torch.utils.ply import read_ply, write_ply
+
+    worst = {k: 0.0 for k in DEEP_FWD_TOL}
+    dropped = {"tiled": 0, "cuda": 0}
+    # at the tiled render's own tile size: a pair reaches the pixels of
+    # the tiles its 3-sigma box touches (the reference's binning), so with
+    # opaque Gaussians the image depends on the tile size by up to ~1e-2
+    ts = TileConfig().tile_size
+    with torch.no_grad():
+        for name, rs in v["renders"].items():
+            for model, cam, kwargs, res in rs:
+                kw = dict(kwargs, backend="cuda",
+                          tile_config=auto_tile_config(model, cam, tile_size=ts))
+                rc = render_gaussians(model, cam, **kw)
+                for k in worst:
+                    worst[k] = max(worst[k], max_err(getattr(res, k), getattr(rc, k)))
+                dropped["tiled"] += int(res.dropped_pairs)
+                dropped["cuda"] += int(rc.dropped_pairs)
+    frames_are_renders = all(np.array_equal(f, r[3].image.cpu().numpy())
+                             for f, r in zip(v["free"], v["renders"]["freeview"]))
+
+    msg = v["msg"]
+    w, h = msg["resolution_x"], msg["resolution_y"]
+    model = v["renders"]["freeview"][0][0]
+    cam = Camera.from_viewmat(np.array(msg["view_matrix"], np.float32).reshape(4, 4).T,
+                              fov_to_focal(msg["fov_x"], w), fov_to_focal(msg["fov_y"], h),
+                              w, h, model.device)
+
+    class Sink:
+        data = b""
+
+        def sendall(self, b):
+            Sink.data += b
+
+    with torch.no_grad():
+        img = render_gaussians(model, cam, torch.zeros(3, device=model.device),
+                               backend="tiled").image
+    send_image(Sink(), img.cpu().numpy())
+    wire_ok = v["served"] == 1 and Sink.data == v["wire"]
+
+    def numpy_only(fn, *args):
+        """fn with the native library hidden: the numpy reader and writer."""
+        load = native_io.load_native
+        native_io.load_native = lambda: None
+        try:
+            return fn(*args)
+        finally:
+            native_io.load_native = load
+
+    n_final = numpy_only(read_ply, v["final"])[1]
+    recolor_ok = True
+    for by in ("label", "generation"):
+        m = load_ply(os.path.join(v["out"], f"recolor_{by}.ply"), torch.device("cpu"))
+        sh = rgb_to_sh(torch.as_tensor(_PALETTE))
+        on_palette = (m.params.features_dc[m.aux.alive][:, 0, None, :] == sh[None]).all(-1)
+        recolor_ok &= int(m.num_alive) == n_final and bool(on_palette.any(-1).all())
+    info_ok = len(v["info"].strip().splitlines()) == 2 + 5
+
+    native = {"built": v["built"], "loaded": native_io.load_native() is not None}
+    if native["loaded"]:
+        a, na = read_ply(v["final"])
+        b, nb = numpy_only(read_ply, v["final"])
+        native["read_equal"] = (na == nb and list(a) == list(b)
+                                and all(np.array_equal(a[k], b[k]) for k in a))
+        cols = np.stack([b[k] for k in b], axis=1)
+        pn, pp = os.path.join(v["out"], "native.ply"), os.path.join(v["out"], "numpy.ply")
+        write_ply(pn, list(b), cols)
+        numpy_only(write_ply, pp, list(b), cols)
+        with open(pn, "rb") as fa, open(pp, "rb") as fb:
+            native["write_bytes_equal"] = fa.read() == fb.read()
+    native_ok = all(native.values()) and len(native) == 4
+    ok = (all(worst[k] <= DEEP_FWD_TOL[k] for k in worst) and not any(dropped.values())
+          and frames_are_renders and wire_ok and recolor_ok and info_ok and native_ok)
+    emit("viewers_checks", frames=sum(len(r) for r in v["renders"].values()),
+         max_abs_err_vs_cuda=worst, tol=DEEP_FWD_TOL, tile_size=ts, dropped_pairs=dropped,
+         freeview_frames_are_renders=frames_are_renders, wire_equal=wire_ok,
+         recolor_ok=recolor_ok, info_ok=info_ok, native_io=native, ok=ok)
+    if not ok:
+        raise AssertionError(f"path 7 checks failed: {worst} {dropped} frames "
+                             f"{frames_are_renders} wire {wire_ok} recolor {recolor_ok} "
+                             f"info {info_ok} native {native}")
+    shutil.rmtree(v["out"])
+
+
 # kernel key -> (kernels-line name stem, source, the TPU kernel it replaces)
 KERNELS = {
     "fwd": ("tilegrid_fwd", "egogaussian_tpu_torch/csrc/tilegrid_fwd.cu",
@@ -2388,10 +2865,47 @@ PATH_OF = {"fwd": "slice", "bwd": "slice", "bwd_exact": "coarse", "stream_fwd": 
            "fma_peak": "peak"}
 
 
+def paths_5_to_7(dev, vid, out_dir, repro=False):
+    """Paths 5, 6 and 7, each with the launch counters set to 0 just before
+    it and read just after (path 6's from its child processes). Returns
+    (what the checks need, {path: launch counts})."""
+    launches = {}
+    reset_launch_counts()
+    pipe = phase_pipeline(dev, vid, out_dir)
+    launches["pipeline"] = launch_counts()
+    emit("pipeline_launches", **{k: n for k, n in launches["pipeline"].items() if n})
+    for name in ("tilegrid_fwd_d3", "tilegrid_bwd_d3", "window_chunked_fwd_d3"):
+        if launches["pipeline"][name] <= 0:
+            raise AssertionError(f"{name} never launched on the pipeline path")
+    src, model_dir, _, argv, _ = pipe
+    if repro:
+        repro_run(argv, model_dir, out_dir)
+    reset_launch_counts()
+    _, launches["checkpoint"] = phase_checkpoint(argv, model_dir, out_dir)
+    reset_launch_counts()
+    views = phase_viewers(dev, src, model_dir, out_dir)
+    launches["viewers"] = launch_counts()
+    emit("viewers_launches", **{k: n for k, n in launches["viewers"].items() if n})
+    if launches["viewers"]["window_chunked_fwd_d3"] <= 0:
+        raise AssertionError("window_chunked_fwd_d3 never launched on the viewer path")
+    return (pipe, views), launches
+
+
+def check_paths_5_to_7(dev, pipe, errs):
+    pipe, views = pipe
+    check_viewers(views)
+    check_pipeline(dev, *pipe, errs)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the kernel checks (no slice, no result line)")
+    parser.add_argument("--pipeline-only", action="store_true",
+                        help="paths 5-7 and their checks only (no result line)")
+    parser.add_argument("--repro", action="store_true",
+                        help="with --pipeline-only: run path 5's flags once more, unbroken, "
+                             "and print the spread against path 5")
     args = parser.parse_args(argv)
 
     import torch
@@ -2422,6 +2936,14 @@ def main(argv=None) -> int:
          ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln])
 
     errs = {}
+    if args.pipeline_only:
+        from egogaussian_tpu_torch.data import make_synthetic_video
+
+        vid = make_synthetic_video(dev, seed=0, **SLICE_VIDEO)
+        pipe, path_launches = paths_5_to_7(dev, vid, out_dir, args.repro)
+        check_paths_5_to_7(dev, pipe, errs)
+        emit("launches", **path_launches)
+        return 0
     phase_kernels(dev, errs)
     if args.kernels_only:
         return 0
@@ -2450,14 +2972,10 @@ def main(argv=None) -> int:
     reset_launch_counts()
     entry = phase_entry(eval_model, vid.cameras[0])
     path_launches["entry"] = launch_counts()
-    # path 5: the whole six-stage pipeline through the training CLI
-    reset_launch_counts()
-    pipe = phase_pipeline(dev, vid, out_dir)
-    path_launches["pipeline"] = launch_counts()
-    emit("pipeline_launches", **{k: n for k, n in path_launches["pipeline"].items() if n})
-    for name in ("tilegrid_fwd_d3", "tilegrid_bwd_d3", "window_chunked_fwd_d3"):
-        if path_launches["pipeline"][name] <= 0:
-            raise AssertionError(f"{name} never launched on the pipeline path")
+    # paths 5-7: the six-stage pipeline through the training CLI, the same
+    # run killed and resumed from its checkpoints, the viewers and tools
+    pipe, launches5 = paths_5_to_7(dev, vid, out_dir)
+    path_launches.update(launches5)
     # row 10's path: the FMA peak that bounds are read against
     reset_launch_counts()
     peak_gflops = phase_peak(dev)
@@ -2473,7 +2991,7 @@ def main(argv=None) -> int:
     # cuda backend, path 4 against the twins and the chunked pair, every
     # kernel against its twin at path 2's own shapes
     compare_eval_frames(vid, eval_model, eval_seq, buckets)
-    check_pipeline(dev, *pipe, errs)
+    check_paths_5_to_7(dev, pipe, errs)
     check_entry(entry, vid.cameras[0], errs)
     phase_frame_kernels(model, fr, errs)
     ms, plain_ms, b = check_peak(dev, errs, peak_gflops)
@@ -2511,4 +3029,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-child"]:  # path 6's child: counts file, "--", CLI args
+        sys.exit(train_child(sys.argv[2], sys.argv[4:]))
     sys.exit(main())

@@ -21,11 +21,16 @@ Layer map:
              planes, synthetic video and its export as a dataset
   train/     stage 1.0 static and 1.2 background training, stage-2 coarse
              object pose, stage-3 object fine-tuning, stage-5 scene
-             fine-tuning
-  eval/      stage-6 evaluation: render_results, hand-masked metrics, LPIPS
+             fine-tuning; mid-stage checkpoints (ckpt_hook.py)
+  eval/      stage-6 evaluation: render_results, hand-masked metrics, LPIPS;
+             the trajectory / novel-view viewers and the SIBR network viewer
   pipeline   the six stages in order, with resume from each stage's files
-  cli/       the training and eval entry points
-             (python -m egogaussian_tpu_torch.cli.train / .cli.eval)
+             and from mid-stage checkpoints
+  cli/       the training and eval entry points and the PLY tools
+             (python -m egogaussian_tpu_torch.cli.train / .cli.eval /
+             .cli.ply_tools)
+  utils/     PLY files (with the shared native reader, native_io.py),
+             checkpoint files, metrics logging, montages, the FMA-peak probe
 """
 
 __version__ = "0.1.0"

@@ -2,7 +2,8 @@
 reference `train.py`).
 
   python -m egogaussian_tpu_torch.cli.train -s <dataset> -m <output_dir> \
-      [--resume] [--seed 0] [--lpips_weights f.npz] [--device cuda]
+      [--resume] [--checkpoint_every N] [--seed 0] [--lpips_weights f.npz] \
+      [--device cuda]
 
 Takes the JAX CLI's flags (stage prefixes --s_, --b_, --c_, --f_, --a_),
 reads the same split files (reference train.py:53-65)
@@ -13,7 +14,12 @@ reads the same split files (reference train.py:53-65)
   <dataset>/split/phase_frame_index.txt   (alternating static/dynamic pairs)
 
 and writes the same artifact tree under <output_dir>. Runs on the card
-unless `--device cpu` is given.
+unless `--device cpu` is given. With --checkpoint_every N every trainer
+saves its state every N iterations (stage 2 after every solved frame) to
+static/ckpt_static_phase{p}.npz, background/ckpt_bg.npz,
+coarse/ckpt_coarse.npz, fine_obj/<variant>/ckpt_fine_obj.npz and
+fine_all/ckpt_fine_all.npz, and a rerun resumes mid-stage from them, with
+or without --resume (which skips the stages whose files exist).
 """
 from __future__ import annotations
 
@@ -40,7 +46,9 @@ def main(argv=None):
                         help="resume from existing stage artifacts")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--checkpoint_every", type=int, default=0,
-                        help="mid-stage checkpoint interval (0 = off; not ported yet)")
+                        help="mid-stage checkpoint interval in iterations (0 = off); a "
+                             "stage whose ckpt_*.npz exists resumes from it, with or "
+                             "without --resume")
     parser.add_argument("--lpips_weights", default=None,
                         help=".npz LPIPS weights (eval/lpips.py)")
     parser.add_argument("--mesh", type=int, default=0, metavar="N",
@@ -51,9 +59,6 @@ def main(argv=None):
     if args.mesh > 1:
         parser.error("--mesh > 1: frame-data-parallel training is not ported yet "
                      "(ROADMAP.md §A, the parallel layer)")
-    if args.checkpoint_every > 0:
-        parser.error("--checkpoint_every > 0: mid-stage checkpoints are not ported yet "
-                     "(ROADMAP.md §A, checkpointing)")
     cfg = extract_config(args)
     device = torch.device(args.device)
 
@@ -94,6 +99,7 @@ def main(argv=None):
         backend=cfg.render.backend,
         resume=args.resume,
         lpips_fn=lpips_fn,
+        checkpoint_every=args.checkpoint_every,
         device=device,
     )
     CONSOLE.print("Final metrics:", result.metrics)

@@ -1,8 +1,8 @@
 """COLMAP sparse-model parsers (binary and text), host-side numpy.
 
 PyTorch port: a copy of `egogaussian_tpu/data/colmap.py` (numpy only), with
-the numpy readers of points3D.bin (no native loader) and the port's PLY
-helpers.
+points3D.bin through the native loader when it is built (as in JAX) and
+the port's PLY helpers.
 
 Functional twin of reference `scene/colmap_loader.py` (struct-based readers
 for cameras.bin / images.bin / points3D.bin and their text variants). The
@@ -184,8 +184,15 @@ def read_images_text(
 
 
 def read_points3d_binary(path: str):
-    """points3D.bin -> (xyz [N,3], rgb [N,3] in [0,1], errors [N]), one
-    struct pass per point (reference colmap_loader.py:125-154)."""
+    """points3D.bin -> (xyz [N,3], rgb [N,3] in [0,1], errors [N]). Through
+    the native library when it is built (utils/native_io.py), else one
+    struct pass per point (reference colmap_loader.py:125-154); the values
+    are the same either way."""
+    from egogaussian_tpu_torch.utils.native_io import read_points3d_bin_native
+
+    native = read_points3d_bin_native(path)
+    if native is not None:
+        return native
     with open(path, "rb") as f:
         (num,) = _read_next_bytes(f, 8, "Q")
         xyzs = np.empty((num, 3), np.float64)

@@ -324,6 +324,8 @@ def load_colmap_scene(
     resolution: int = -1,
     load_hand_masks: bool = True,
     load_obj_masks: bool = True,
+    load_est_depths: bool = False,
+    load_pred_cb: bool = False,
 ) -> SceneData:
     """Load a COLMAP scene directory in the reference's layout
     (readColmapSceneInfo, dataset_readers.py:213-296), cameras on `device`:
@@ -332,9 +334,9 @@ def load_colmap_scene(
         sparse/0/{cameras,images,points3D}.{bin|txt}
         images/          (registered images without a file are skipped)
         hand_masks/  obj_masks/   (binary masks; obj optional)
-
-    The JAX loader's optional est_depths / pred_cb planes, which no loss
-    reads, are not loaded (the port's Camera has no field for them)."""
+        est_depths/  pred_cb/     (optional feature planes, loaded when
+                                   asked and present; no loss reads them;
+                                   est_depths also takes .npy)"""
     sparse = os.path.join(source_path, "sparse", "0")
     if not os.path.isdir(sparse):
         sparse = os.path.join(source_path, "sparse")
@@ -356,6 +358,10 @@ def load_colmap_scene(
 
     hand_dir = os.path.join(source_path, "hand_masks") if load_hand_masks else None
     obj_dir = os.path.join(source_path, "obj_masks") if load_obj_masks else None
+    depth_dir = os.path.join(source_path, "est_depths") if load_est_depths else None
+    cb_dir = os.path.join(source_path, "pred_cb") if load_pred_cb else None
+    depth_dir = depth_dir if depth_dir and os.path.isdir(depth_dir) else None
+    cb_dir = cb_dir if cb_dir and os.path.isdir(cb_dir) else None
     cameras: List[Camera] = []
     for im in sorted(extr.values(), key=lambda x: x.name):
         cam = intr[im.camera_id]
@@ -381,6 +387,9 @@ def load_colmap_scene(
             gt_image=load_image(os.path.join(img_dir, os.path.basename(im.name)), (w, h)),
             hand_mask=load_feature(hand_dir, im.name, (w, h)) if hand_dir else None,
             obj_mask=load_feature(obj_dir, im.name, (w, h)) if obj_dir else None,
+            est_depth=(load_feature(depth_dir, im.name, (w, h), allow_npy=True)
+                       if depth_dir else None),
+            pred_cb=load_feature(cb_dir, im.name, (w, h)) if cb_dir else None,
         ))
     return SceneData(cameras=cameras, points=xyz, colors=rgb,
                      nerf_norm=compute_nerfpp_norm(cameras),

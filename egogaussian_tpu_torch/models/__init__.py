@@ -9,6 +9,7 @@ from egogaussian_tpu_torch.models.gaussians import (
     ensure_capacity,
     save_ply,
     load_ply,
+    make_it_a_point,
 )
 from egogaussian_tpu_torch.models.optim import (
     AdamState,

@@ -320,6 +320,36 @@ def split_by_is_object(model: GaussianModel):
     return compact(obj), compact(bg)
 
 
+_POINT_COLORS = {
+    "red": (1.0, 0.05, 0.05),
+    "blue": (0.05, 0.05, 1.0),
+    "green": (0.05, 0.8, 0.1),
+}
+
+
+def make_it_a_point(model: GaussianModel, color: str = "red", scale: float = 0.02
+                    ) -> GaussianModel:
+    """Collapse the model to one opaque blob of `color` (red, blue or
+    green; red for any other name) and radius `scale` at its alive
+    centroid, in a capacity-128 model: the trajectory viewers' marker
+    (reference make_it_a_point, gaussian_model.py:1091-1114)."""
+    w = model.aux.alive.to(torch.float32)[:, None]
+    centroid = torch.sum(model.params.xyz * w, dim=0) / torch.clamp(torch.sum(w), min=1.0)
+    capacity = 128
+    dev = model.device
+    params = _empty_params(capacity, model.sh_degree, dev)
+    aux = _empty_aux(capacity, dev)
+    rgb = torch.tensor(_POINT_COLORS.get(color, _POINT_COLORS["red"]), dtype=torch.float32,
+                       device=dev)
+    params.xyz[0] = centroid
+    params.features_dc[0, 0] = rgb_to_sh(rgb)
+    params.log_scales[0] = torch.log(torch.tensor(scale, dtype=torch.float32, device=dev))
+    params.opacity_logit[0] = 8.0  # sigmoid ~ 1
+    aux.alive[0] = True
+    aux.is_object[0] = 1
+    return dataclasses.replace(model, params=params, aux=aux)
+
+
 # ---------------------------------------------------------------------------
 # PLY IO — byte-compatible with the reference schema
 # ---------------------------------------------------------------------------

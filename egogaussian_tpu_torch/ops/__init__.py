@@ -28,5 +28,7 @@ from egogaussian_tpu_torch.ops.losses import (
     ssim,
     psnr,
     bce_with_logits,
+    dice_loss,
+    iou_loss,
 )
 from egogaussian_tpu_torch.ops.knn import mean_sq_dist_to_knn

@@ -92,3 +92,21 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor
         torch.maximum(logits, logits.new_zeros(())) - logits * targets
         + torch.log1p(torch.exp(-abs_logits))
     )
+
+
+def dice_loss(pred: torch.Tensor, target: torch.Tensor, smooth: float = 1.0) -> torch.Tensor:
+    """Dice loss on probabilities (reference utils/loss_utils.py:18-35; no
+    stage of the pipeline uses it)."""
+    p = pred.reshape(-1)
+    t = target.reshape(-1)
+    inter = torch.sum(p * t)
+    return 1.0 - (2.0 * inter + smooth) / (torch.sum(p) + torch.sum(t) + smooth)
+
+
+def iou_loss(pred: torch.Tensor, target: torch.Tensor, smooth: float = 1.0) -> torch.Tensor:
+    """IoU loss on probabilities (reference utils/loss_utils.py:38-55)."""
+    p = pred.reshape(-1)
+    t = target.reshape(-1)
+    inter = torch.sum(p * t)
+    union = torch.sum(p) + torch.sum(t) - inter
+    return 1.0 - (inter + smooth) / (union + smooth)

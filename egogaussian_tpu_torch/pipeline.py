@@ -12,11 +12,17 @@ Port of `egogaussian_tpu/pipeline.py` (the twin of reference
   5   fine-tune all       -> fine_all/gaussians_all.ply
   6   eval                -> evaluation/results.txt
 
-The stages hand over both the in-memory models and the same files as the
-JAX package, and with `resume=True` each stage whose files exist loads
-them instead of training. Metrics go to <save_dir>/logs/metrics.jsonl; each
-stage closes with a record stage="pipeline", event="stage_time": its
-wall-clock seconds, iterations and alive count, and whether it was resumed.
+The stages write the same files as the JAX package and hand each model and
+pose sequence on as its file holds it (a PLY keeps no densification
+statistics and packs the alive Gaussians), so a run resumed from a
+stage's files continues exactly as the unbroken run did. With
+`resume=True` each stage whose files exist loads them instead of
+training; with `checkpoint_every` > 0 each trainer also saves its state
+mid-stage and resumes from it (train/ckpt_hook.py), with or without
+`resume`. A finished stage's checkpoint file stays. Metrics go to
+<save_dir>/logs/metrics.jsonl; each stage closes with a record
+stage="pipeline", event="stage_time": its wall-clock seconds, iterations
+and alive count, and whether it was resumed.
 """
 from __future__ import annotations
 
@@ -92,13 +98,12 @@ def run_pipeline(
 ) -> PipelineResult:
     """All six stages on `scene`, whose cameras live on `device`: where
     every stage trains and evaluates; None means the card (`cuda`).
+    `checkpoint_every` goes to every trainer (stage 2 saves per solved
+    frame whatever its value).
 
-    Not ported yet: mid-stage checkpoints (checkpoint_every > 0) and
-    frame-data-parallel meshes (mesh)."""
+    Not ported yet: frame-data-parallel meshes (mesh)."""
     if device is None:
         device = torch.device("cuda")
-    if checkpoint_every > 0:
-        raise NotImplementedError("mid-stage checkpoints are not ported yet")
     if mesh is not None:
         raise NotImplementedError("frame-data-parallel training is not ported yet")
     cameras = scene.cameras
@@ -115,7 +120,7 @@ def run_pipeline(
         return _run_pipeline_stages(
             scene, cfg, save_dir, cameras, static_groups, dynamic_groups, training_frames,
             dynamic_eval_frames, static_eval_frames, dynamic_phases, seed, backend, resume,
-            lpips_fn, fine_variant, device)
+            lpips_fn, fine_variant, checkpoint_every, device)
 
 
 def _log_stage_time(name: str, t0: float, iterations: int, resumed: bool, alive=None):
@@ -131,9 +136,10 @@ def _log_stage_time(name: str, t0: float, iterations: int, resumed: bool, alive=
 def _run_pipeline_stages(scene, cfg, save_dir, cameras, static_groups, dynamic_groups,
                          training_frames, dynamic_eval_frames, static_eval_frames,
                          dynamic_phases, seed, backend, resume, lpips_fn, fine_variant,
-                         device) -> PipelineResult:
+                         checkpoint_every, device) -> PipelineResult:
     extent = scene.cameras_extent
-    kw = dict(seed=seed, backend=backend, device=device)
+    kw = dict(seed=seed, backend=backend, device=device, checkpoint_every=checkpoint_every)
+    sh = cfg.model.sh_degree
 
     # ---- Stage 1.0: every static phase, each from the point cloud; the
     # object model handed on is phase 0's, the predicted masks all phases'
@@ -144,13 +150,11 @@ def _run_pipeline_stages(scene, cfg, save_dir, cameras, static_groups, dynamic_g
     resumed = resume and os.path.exists(obj_ply) and os.path.exists(last_ply)
     if resumed:
         CONSOLE.log("[pipeline] resume: static stage artifacts found")
-        obj_model = load_ply(obj_ply, device, is_object=True, spatial_lr_scale=extent)
         pred_masks = _load_pred_masks(os.path.join(static_dir, "obj_masks"))
     else:
         static_results = train_static(
             cameras, scene.points, scene.colors, cfg, static_groups, extent,
             save_dir=static_dir, **kw)
-        obj_model = dataclasses.replace(static_results[0].obj_model, spatial_lr_scale=extent)
         pred_masks = {}
         for r in static_results:
             pred_masks.update(r.pred_masks)
@@ -158,6 +162,9 @@ def _run_pipeline_stages(scene, cfg, save_dir, cameras, static_groups, dynamic_g
                     dropped_pairs=max(r.dropped_pairs for r in static_results),
                     obj_alive=[int(r.obj_model.num_alive) for r in static_results],
                     bg_alive=[int(r.bg_model.num_alive) for r in static_results])
+    # handed on as its file holds it, trained or resumed alike
+    obj_model = load_ply(obj_ply, device, is_object=True, spatial_lr_scale=extent,
+                         sh_degree=sh)
     sp = cfg.static
     iters = len(static_groups) * (sp.std_train_iter + sp.entropy_reg_iter + sp.label_train_iter)
     _log_stage_time("static", t0, 0 if resumed else iters, resumed, obj_model.num_alive)
@@ -186,12 +193,10 @@ def _run_pipeline_stages(scene, cfg, save_dir, cameras, static_groups, dynamic_g
     resumed = resume and os.path.exists(bg_ply)
     if resumed:
         CONSOLE.log("[pipeline] resume: background artifacts found")
-        bg_model = load_ply(bg_ply, device, force_bg=True, spatial_lr_scale=extent)
     else:
-        bg_model = train_background(
-            cameras, scene.points, scene.colors, cfg, all_train_idx, extent,
-            save_dir=bg_dir, **kw)
-        bg_model = dataclasses.replace(bg_model, spatial_lr_scale=extent)
+        train_background(cameras, scene.points, scene.colors, cfg, all_train_idx, extent,
+                         save_dir=bg_dir, **kw)
+    bg_model = load_ply(bg_ply, device, force_bg=True, spatial_lr_scale=extent, sh_degree=sh)
     iters = cfg.static_bg.std_train_iter + cfg.static_bg.entropy_reg_iter
     _log_stage_time("background", t0, 0 if resumed else iters, resumed, bg_model.num_alive)
 
@@ -203,12 +208,12 @@ def _run_pipeline_stages(scene, cfg, save_dir, cameras, static_groups, dynamic_g
     resumed = resume and os.path.exists(coarse_pose_path) and os.path.exists(coarse_ply)
     if resumed:
         CONSOLE.log("[pipeline] resume: coarse artifacts found")
-        pose_seq, _ = load_pose_sequence(coarse_pose_path, device)
-        coarse_model = load_ply(coarse_ply, device, is_object=True, spatial_lr_scale=extent)
     else:
-        pose_seq, coarse_model, _ = estimate_coarse_obj_pose(
-            cameras, obj_model, cfg, static_groups, dynamic_groups, extent,
-            save_dir=coarse_dir, **kw)
+        estimate_coarse_obj_pose(cameras, obj_model, cfg, static_groups, dynamic_groups,
+                                 extent, save_dir=coarse_dir, **kw)
+    pose_seq, _ = load_pose_sequence(coarse_pose_path, device)
+    coarse_model = load_ply(coarse_ply, device, is_object=True, spatial_lr_scale=extent,
+                            sh_degree=sh)
     # every dynamic training frame and each phase's next-static anchor
     iters = sum(len(g) + 1 for g in dynamic_groups) * cfg.coarse.total_num_iter
     _log_stage_time("coarse", t0, 0 if resumed else iters, resumed, coarse_model.num_alive)
@@ -223,12 +228,12 @@ def _run_pipeline_stages(scene, cfg, save_dir, cameras, static_groups, dynamic_g
         resumed = resume and os.path.exists(fply) and os.path.exists(fpose)
         if resumed:
             CONSOLE.log(f"[pipeline] resume: fine_obj {variant} found")
-            seq_v, _ = load_pose_sequence(fpose, device)
-            model_v = load_ply(fply, device, is_object=True, spatial_lr_scale=extent)
         else:
-            seq_v, model_v = fine_tune_obj(
-                cameras, base_model, pose_seq, cfg, static_groups, dynamic_groups, extent,
-                save_dir=fdir, **kw)
+            fine_tune_obj(cameras, base_model, pose_seq, cfg, static_groups, dynamic_groups,
+                          extent, save_dir=fdir, **kw)
+        seq_v, _ = load_pose_sequence(fpose, device)
+        model_v = load_ply(fply, device, is_object=True, spatial_lr_scale=extent,
+                           sh_degree=sh)
         fine_results[variant] = (seq_v, model_v)
         _log_stage_time(f"fine_obj/{variant}", t0, 0 if resumed else cfg.fine.total_num_iter,
                         resumed, model_v.num_alive)
@@ -256,11 +261,10 @@ def _run_pipeline_stages(scene, cfg, save_dir, cameras, static_groups, dynamic_g
     resumed = resume and os.path.exists(final_ply)
     if resumed:
         CONSOLE.log("[pipeline] resume: fine_all artifacts found")
-        final_model = load_ply(final_ply, device, spatial_lr_scale=extent)
     else:
-        final_model = fine_tune_all(
-            cameras, obj_final, bg_model, seq_final, cfg, static_groups, dynamic_groups,
-            save_dir=os.path.join(save_dir, "fine_all"), **kw)
+        fine_tune_all(cameras, obj_final, bg_model, seq_final, cfg, static_groups,
+                      dynamic_groups, save_dir=os.path.join(save_dir, "fine_all"), **kw)
+    final_model = load_ply(final_ply, device, spatial_lr_scale=extent, sh_degree=sh)
     _log_stage_time("fine_all", t0, 0 if resumed else cfg.fine_all.total_num_iter, resumed,
                     final_model.num_alive)
 

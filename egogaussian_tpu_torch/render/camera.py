@@ -2,16 +2,26 @@
 
 Port of `egogaussian_tpu/render/camera.py`: a world-to-camera transform
 plus pinhole intrinsics (fx, fy, cx, cy), with optional per-frame ground
-truth planes. Tensor fields live on the camera's device; width, height and
-image_name are plain Python values.
+truth and feature planes (an estimated depth and a predicted contact
+boundary, which no loss reads). Tensor fields live on the camera's device;
+width, height and image_name are plain Python values.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
 import torch
+
+
+def fov_to_focal(fov: float, pixels: float) -> float:
+    return pixels / (2.0 * math.tan(fov / 2.0))
+
+
+def focal_to_fov(focal: float, pixels: float) -> float:
+    return 2.0 * math.atan(pixels / (2.0 * focal))
 
 
 def _as_tensor(x, device) -> Optional[torch.Tensor]:
@@ -36,6 +46,8 @@ class Camera:
     gt_image: Optional[torch.Tensor] = None  # [3, H, W]
     hand_mask: Optional[torch.Tensor] = None  # [1, H, W] 1 = hand pixel
     obj_mask: Optional[torch.Tensor] = None  # [1, H, W] 1 = object pixel
+    est_depth: Optional[torch.Tensor] = None  # [C, H, W] estimated depth
+    pred_cb: Optional[torch.Tensor] = None  # [C, H, W] predicted contact boundary
 
     @property
     def device(self) -> torch.device:
@@ -63,6 +75,8 @@ class Camera:
         gt_image=None,
         hand_mask=None,
         obj_mask=None,
+        est_depth=None,
+        pred_cb=None,
     ) -> "Camera":
         f32 = dict(dtype=torch.float32, device=device)
         return cls(
@@ -77,6 +91,8 @@ class Camera:
             gt_image=_as_tensor(gt_image, device),
             hand_mask=_as_tensor(hand_mask, device),
             obj_mask=_as_tensor(obj_mask, device),
+            est_depth=_as_tensor(est_depth, device),
+            pred_cb=_as_tensor(pred_cb, device),
         )
 
     @classmethod
@@ -95,6 +111,8 @@ class Camera:
         gt_image=None,
         hand_mask=None,
         obj_mask=None,
+        est_depth=None,
+        pred_cb=None,
     ) -> "Camera":
         viewmat = np.eye(4, dtype=np.float32)
         viewmat[:3, :3] = R_w2c
@@ -102,8 +120,16 @@ class Camera:
         return cls.from_viewmat(
             viewmat, fx, fy, width, height, device, image_name=image_name,
             cx=cx, cy=cy, gt_image=gt_image, hand_mask=hand_mask,
-            obj_mask=obj_mask,
+            obj_mask=obj_mask, est_depth=est_depth, pred_cb=pred_cb,
         )
+
+    def with_pose(self, R_w2c: np.ndarray, t_w2c: np.ndarray) -> "Camera":
+        """The camera with new extrinsics (the viewer paths; reference
+        reprocess_cam, cameras.py:83-87)."""
+        viewmat = np.eye(4, dtype=np.float32)
+        viewmat[:3, :3] = np.asarray(R_w2c)
+        viewmat[:3, 3] = np.asarray(t_w2c)
+        return dataclasses.replace(self, viewmat=torch.tensor(viewmat, device=self.device))
 
 
 def look_at(

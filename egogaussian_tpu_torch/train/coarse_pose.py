@@ -70,6 +70,11 @@ from egogaussian_tpu_torch.models.pose import (
     save_pose_sequence,
 )
 from egogaussian_tpu_torch.ops.losses import l1_loss, l2_loss
+from egogaussian_tpu_torch.train.ckpt_hook import (
+    StageCheckpointer,
+    grow_to_capacity,
+    restore_loop,
+)
 from egogaussian_tpu_torch.train.common import (
     auto_tile_config,
     crop_escape_count,
@@ -395,12 +400,12 @@ def estimate_coarse_obj_pose(
     At the end the run counters go to the active metrics logger as one
     record with event="stage_end": steps, elided, crop_size_initial,
     crop_size, crop_escapes, dropped_pairs.
-
-    Not ported yet: frame-granular checkpoints (checkpoint_every > 0)."""
+    `checkpoint_every`: any value > 0 (with save_dir) saves after every
+      solved frame (model, pose sequence, the solved frames and the loop's
+      host state) to save_dir/ckpt_coarse.npz, and a run whose file exists
+      skips the frames it solved: the resume is frame-granular."""
     if device is None:
         device = torch.device("cuda")
-    if checkpoint_every > 0:
-        raise NotImplementedError("mid-stage checkpoints are not ported yet")
     # float32 throughout: cuDNN would run the SSIM convolutions in TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -425,6 +430,23 @@ def estimate_coarse_obj_pose(
     crop_max = zero_crop_stat()
     last_crop = 0
     n_steps = n_elided = 0
+
+    # any nonzero checkpoint_every saves after every solved frame; the
+    # per-frame split generators are seeded afresh, so none is saved
+    ckpt = StageCheckpointer(
+        os.path.join(save_dir, "ckpt_coarse.npz") if save_dir and checkpoint_every else None,
+        1 if checkpoint_every else 0)
+    no_gen = torch.Generator()
+    if ckpt.exists():
+        model, _ = grow_to_capacity(model, adam_init(model.params), ckpt.peek_capacity())
+        (model, pose_seq), _ = ckpt.try_restore((model, pose_seq), rng, no_gen, "coarse")
+        loop = restore_loop(ckpt.extra, device)
+        solved_names = dict(loop["solved"])
+        tile_cfg, drop_max, last_drop = loop["tile_cfg"], loop["drop_max"], loop["last_drop"]
+        crop_size, crop_max, last_crop = loop["crop_size"], loop["crop_max"], loop["last_crop"]
+        n_steps, n_elided = loop["steps"], loop["elided"]
+        backend = pick_backend(tile_cfg, backend)
+        CONSOLE.log(f"[coarse] resume: {len(solved_names)} frames solved")
     for phase, dyn_frames in enumerate(dynamic_phase_frames):
         # the first frame of the next static phase closes the phase
         # (coarse_obj_pose.py:137)
@@ -432,6 +454,8 @@ def estimate_coarse_obj_pose(
         CONSOLE.log(f"[coarse] phase {phase}: frames {frames[0]}..{frames[-1]} "
                     f"({len(frames)} incl. next-static anchor)")
         for i, f_cur in enumerate(frames):
+            if f_cur in solved_names:
+                continue  # frame-granular resume: solved before the restart
             table_T, table_R = _accum_tables(pose_seq)
             pool, weights = _sampling_pool(batch, static_phase_frames[phase], dyn_frames,
                                            f_cur, solved_names)
@@ -530,6 +554,11 @@ def estimate_coarse_obj_pose(
             # pose never feeds its own fixed prefix)
             pose_seq = pose_seq.update_frame(f_cur, pose)
             solved_names[f_cur] = cameras[f_cur].image_name
+            # before the pose file: a kill in between redoes no frame
+            ckpt.maybe_save(len(solved_names), (model, pose_seq), rng, no_gen, extra=dict(
+                solved=dict(solved_names), tile_cfg=tile_cfg, drop_max=drop_max,
+                last_drop=last_drop, crop_size=crop_size, crop_max=crop_max,
+                last_crop=last_crop, steps=n_steps, elided=n_elided))
             CONSOLE.log(f"[coarse] solved frame {cameras[f_cur].image_name} "
                         f"({i + 1}/{len(frames)}), loss {float(loss):.4f}")
             if save_dir:

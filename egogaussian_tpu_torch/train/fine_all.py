@@ -10,7 +10,8 @@ densification, only the reference's opacity clamp on iterations inside
 opacity_reset_interval (fine_all.py:121-124), which keeps opacities
 <= 0.01 through that window.
 
-The loop reads nothing back from the device between logging intervals.
+The loop reads nothing back from the device between logging intervals and
+checkpoint saves.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from egogaussian_tpu_torch.models.gaussians import (
 )
 from egogaussian_tpu_torch.models.optim import adam_init, adam_update
 from egogaussian_tpu_torch.models.pose import PoseSequence
+from egogaussian_tpu_torch.train.ckpt_hook import StageCheckpointer, restore_loop
 from egogaussian_tpu_torch.train.common import (
     auto_tile_config,
     image_loss,
@@ -91,12 +93,13 @@ def fine_tune_all(
     trained at the frozen poses of `pose_seq`; writes gaussians_all.ply
     under save_dir. `device`: None means the card (`cuda`). Ends
     with a metrics record event="stage_end" (steps, dropped_pairs).
-
-    Not ported yet: mid-stage checkpoints (checkpoint_every > 0)."""
+    `checkpoint_every` > 0 (with save_dir): the state goes to
+    save_dir/ckpt_fine_all.npz every that many iterations, and a run whose
+    file exists resumes from it. The stage does not densify, so the
+    capacity is the one combine_models gives and the saved state restores
+    into the freshly combined model's shapes."""
     if device is None:
         device = torch.device("cuda")
-    if checkpoint_every > 0:
-        raise NotImplementedError("mid-stage checkpoints are not ported yet")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -123,7 +126,19 @@ def fine_tune_all(
 
     drop_max = torch.zeros((), dtype=torch.int64, device=device)
     last_drop = 0
-    for it in range(1, ap.total_num_iter + 1):
+
+    ckpt = StageCheckpointer(
+        os.path.join(save_dir, "ckpt_fine_all.npz") if save_dir and checkpoint_every else None,
+        checkpoint_every)
+    no_gen = torch.Generator()  # the stage draws no split noise
+    start_it = 0
+    if ckpt.exists():
+        (model, opt_state), start_it = ckpt.try_restore((model, opt_state), rng, no_gen,
+                                                        "fine_all")
+        loop = restore_loop(ckpt.extra, device)
+        tile_cfg, drop_max, last_drop = loop["tile_cfg"], loop["drop_max"], loop["last_drop"]
+        backend = pick_backend(tile_cfg, backend)
+    for it in range(start_it + 1, ap.total_num_iter + 1):
         if it == 1:
             cam_idx = static_phase_frames[0][0]
         else:
@@ -140,6 +155,8 @@ def fine_tune_all(
                 drop_max, last_drop = torch.zeros_like(drop_max), 0
             log_metrics("fine_all", it, loss=loss, alive=model.num_alive,
                         capacity=model.capacity, dropped_pairs=drop_max)
+        ckpt.maybe_save(it, (model, opt_state), rng, no_gen,
+                        extra=dict(tile_cfg=tile_cfg, drop_max=drop_max, last_drop=last_drop))
 
     _log_dropped_pairs("fine_all", None, drop_max)
     log_metrics("fine_all", ap.total_num_iter, event="stage_end", steps=ap.total_num_iter,

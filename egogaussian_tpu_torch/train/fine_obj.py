@@ -47,6 +47,11 @@ from egogaussian_tpu_torch.models.pose import (
     pose_from_rt,
     save_pose_sequence,
 )
+from egogaussian_tpu_torch.train.ckpt_hook import (
+    StageCheckpointer,
+    grow_to_capacity,
+    restore_loop,
+)
 from egogaussian_tpu_torch.train.coarse_pose import _f32, pose_step
 from egogaussian_tpu_torch.train.common import (
     auto_tile_config,
@@ -150,13 +155,12 @@ def fine_tune_obj(
     [2, C, 3] split noise for each densify call, in order (tests inject the
     JAX draw); by default the port's split_noise with seeds from a
     generator seeded `seed`. Ends with a metrics record event="stage_end"
-    (steps, crop_size, crop_escapes, dropped_pairs).
-
-    Not ported yet: mid-stage checkpoints (checkpoint_every > 0)."""
+    (steps, crop_size, crop_escapes, dropped_pairs). `checkpoint_every` > 0
+    (with save_dir): the state (model, Adam state, pose Adam state, pose
+    sequence, split generator) goes to save_dir/ckpt_fine_obj.npz every
+    that many iterations, and a run whose file exists resumes from it."""
     if device is None:
         device = torch.device("cuda")
-    if checkpoint_every > 0:
-        raise NotImplementedError("mid-stage checkpoints are not ported yet")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -189,12 +193,26 @@ def fine_tune_obj(
         return (torch.zeros((3,), dtype=torch.int32, device=device) if crop_size is not None
                 else torch.zeros((), dtype=torch.int32, device=device))
 
-    accum = (pose_seq.accum_T(), pose_seq.accum_R())
     drop_max = torch.zeros((), dtype=torch.int64, device=device)
     last_drop = 0
     crop_max = zero_crop_stat()
     last_crop = 0
-    for it in range(1, fp.total_num_iter + 1):
+
+    ckpt = StageCheckpointer(
+        os.path.join(save_dir, "ckpt_fine_obj.npz") if save_dir and checkpoint_every else None,
+        checkpoint_every)
+    start_it = 0
+    if ckpt.exists():
+        model, opt_state = grow_to_capacity(model, opt_state, ckpt.peek_capacity())
+        (model, opt_state, pose_opt, pose_seq), start_it = ckpt.try_restore(
+            (model, opt_state, pose_opt, pose_seq), rng, gen, "fine_obj")
+        loop = restore_loop(ckpt.extra, device)
+        tile_cfg, drop_max, last_drop = loop["tile_cfg"], loop["drop_max"], loop["last_drop"]
+        crop_size, crop_max, last_crop = loop["crop_size"], loop["crop_max"], loop["last_crop"]
+        backend = pick_backend(tile_cfg, backend)
+
+    accum = (pose_seq.accum_T(), pose_seq.accum_R())
+    for it in range(start_it + 1, fp.total_num_iter + 1):
         if it == 1:
             cam_idx, train_p = static_phase_frames[0][0], False
         else:
@@ -247,6 +265,9 @@ def fine_tune_obj(
                                                 tile_size=cfg.render.tile_size)
             if it % fp.opacity_reset_interval == 0:
                 model, opt_state = reset_opacity(model, opt_state, which_object=1)
+        ckpt.maybe_save(it, (model, opt_state, pose_opt, pose_seq), rng, gen, extra=dict(
+            tile_cfg=tile_cfg, drop_max=drop_max, last_drop=last_drop, crop_size=crop_size,
+            crop_max=crop_max, last_crop=last_crop))
 
     _log_dropped_pairs("fine_obj", None, drop_max)
     log_metrics("fine_obj", fp.total_num_iter, event="stage_end", steps=fp.total_num_iter,

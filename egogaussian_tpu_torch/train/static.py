@@ -49,6 +49,11 @@ from egogaussian_tpu_torch.models.gaussians import (
 from egogaussian_tpu_torch.models.optim import adam_init, adam_update, gaussian_lr_tree
 from egogaussian_tpu_torch.ops.losses import bce_with_logits
 from egogaussian_tpu_torch.render.api import render
+from egogaussian_tpu_torch.train.ckpt_hook import (
+    StageCheckpointer,
+    grow_to_capacity,
+    restore_loop,
+)
 from egogaussian_tpu_torch.train.common import (
     auto_tile_config,
     image_loss,
@@ -218,13 +223,13 @@ def train_static(
     frames and kernels run; None means the card (`cuda`), as in JAX, which
     runs on its default device. `on_step(it, mode, loss)`: optional observer
     called after every iteration with the loss as a device scalar.
+    `checkpoint_every` > 0 (with save_dir): every that many iterations the
+    phase's state goes to save_dir/ckpt_static_phase{phase}.npz, and a
+    phase whose file exists resumes from it (train/ckpt_hook.py).
 
-    Not ported yet: mid-stage checkpoints (checkpoint_every > 0) and
-    frame-data-parallel meshes (mesh)."""
+    Not ported yet: frame-data-parallel meshes (mesh)."""
     if device is None:
         device = torch.device("cuda")
-    if checkpoint_every > 0:
-        raise NotImplementedError("mid-stage checkpoints are not ported yet")
     if mesh is not None:
         raise NotImplementedError("frame-data-parallel training is not ported yet")
     # float32 throughout: cuDNN would run the SSIM convolutions in TF32
@@ -246,15 +251,32 @@ def train_static(
         tile_cfg = auto_tile_config(model, batch.camera(0), tile_size=cfg.render.tile_size)
         backend = pick_backend(tile_cfg, backend)
         gen = torch.Generator().manual_seed(seed + phase)  # densify split seeds
+        drop_max = torch.zeros((), dtype=torch.int64, device=device)
+        last_drop = 0
+
+        ckpt = StageCheckpointer(
+            os.path.join(save_dir, f"ckpt_static_phase{phase}.npz")
+            if save_dir and checkpoint_every else None, checkpoint_every)
+        start_it = 0
+        if ckpt.exists():
+            model, opt_state = grow_to_capacity(model, opt_state, ckpt.peek_capacity())
+            (model, opt_state), start_it = ckpt.try_restore((model, opt_state), rng, gen,
+                                                            "static")
+            loop = restore_loop(ckpt.extra, device)
+            tile_cfg, drop_max, last_drop = loop["tile_cfg"], loop["drop_max"], loop["last_drop"]
+            backend = pick_backend(tile_cfg, backend)
 
         stack = list(range(len(phase_cams)))
         mask_valid = batch.obj_mask_valid
+        # >= : a checkpoint taken on the entropy-end boundary already holds
+        # the prune, so the label-phase rewind applies too
+        if start_it >= sp.std_train_iter + sp.entropy_reg_iter and start_it > 0:
+            stack = _label_stack(stack, phase, len(static_phase_frames),
+                                 sp.rewind_frames, mask_valid)
         CONSOLE.log(f"[static] phase {phase}: {len(phase_cams)} frames, "
                     f"{total_iters} iters, capacity {model.capacity}")
-        drop_max = torch.zeros((), dtype=torch.int64, device=device)
-        last_drop = 0
         fb = max(1, sp.frame_batch)
-        for it in range(1, total_iters + 1):
+        for it in range(start_it + 1, total_iters + 1):
             if fb == 1:
                 fidxs = [stack[rng.randint(len(stack))]]
             else:
@@ -318,6 +340,12 @@ def train_static(
                 stack = _label_stack(stack, phase, len(static_phase_frames),
                                      sp.rewind_frames, mask_valid)
 
+            # at the end of the iteration, so a checkpoint on the entropy-end
+            # boundary holds the prune (the rewound stack is recomputed)
+            ckpt.maybe_save(it, (model, opt_state), rng, gen,
+                            extra=dict(tile_cfg=tile_cfg, drop_max=drop_max,
+                                       last_drop=last_drop))
+
         _log_dropped_pairs("static", phase, drop_max)
         model = model.infer_is_object_from_label()
         obj_model, bg_model = split_by_is_object(model)
@@ -378,14 +406,13 @@ def train_background(
     port's split_noise with seeds from a generator seeded `seed`. Ends with
     a metrics record event="stage_end" (steps, dropped_pairs). Raises
     ValueError when a training frame has no hand or object mask (stage 1.1
-    completes the object masks of static frames only).
+    completes the object masks of static frames only). `checkpoint_every`
+    > 0 (with save_dir): the state goes to save_dir/ckpt_bg.npz every that
+    many iterations, and a run whose file exists resumes from it.
 
-    Not ported yet: mid-stage checkpoints (checkpoint_every > 0) and
-    frame-data-parallel meshes (mesh)."""
+    Not ported yet: frame-data-parallel meshes (mesh)."""
     if device is None:
         device = torch.device("cuda")
-    if checkpoint_every > 0:
-        raise NotImplementedError("mid-stage checkpoints are not ported yet")
     if mesh is not None:
         raise NotImplementedError("frame-data-parallel training is not ported yet")
     torch.backends.cudnn.allow_tf32 = False
@@ -416,12 +443,23 @@ def train_background(
     tile_cfg = auto_tile_config(model, batch.camera(0), tile_size=cfg.render.tile_size)
     backend = pick_backend(tile_cfg, backend)
     gen = torch.Generator().manual_seed(seed)  # densify split seeds
-    CONSOLE.log(f"[bg] {len(train_cams)} frames, {total_iters} iters")
-
     drop_max = torch.zeros((), dtype=torch.int64, device=device)
     last_drop = 0
+
+    ckpt = StageCheckpointer(
+        os.path.join(save_dir, "ckpt_bg.npz") if save_dir and checkpoint_every else None,
+        checkpoint_every)
+    start_it = 0
+    if ckpt.exists():
+        model, opt_state = grow_to_capacity(model, opt_state, ckpt.peek_capacity())
+        (model, opt_state), start_it = ckpt.try_restore((model, opt_state), rng, gen, "bg")
+        loop = restore_loop(ckpt.extra, device)
+        tile_cfg, drop_max, last_drop = loop["tile_cfg"], loop["drop_max"], loop["last_drop"]
+        backend = pick_backend(tile_cfg, backend)
+    CONSOLE.log(f"[bg] {len(train_cams)} frames, {total_iters} iters")
+
     fb = max(1, bp.frame_batch)
-    for it in range(1, total_iters + 1):
+    for it in range(start_it + 1, total_iters + 1):
         if fb == 1:
             fidxs = [rng.randint(len(train_cams))]
         else:
@@ -467,6 +505,8 @@ def train_background(
         if it == total_iters:
             model, opt_state, n_pruned = prune_by_opacity(model, opt_state, min_opacity=0.5)
             CONSOLE.log(f"[bg] final prune: {int(n_pruned)} removed")
+        ckpt.maybe_save(it, (model, opt_state), rng, gen,
+                        extra=dict(tile_cfg=tile_cfg, drop_max=drop_max, last_drop=last_drop))
 
     _log_dropped_pairs("bg", None, drop_max)
     log_metrics("bg", total_iters, event="stage_end", steps=total_iters,

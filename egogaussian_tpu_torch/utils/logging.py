@@ -26,7 +26,10 @@ class MetricsLogger:
         self._wandb = None
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
-            self._file = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+            # line-buffered: each record reaches the file whole when it is
+            # logged, so a killed run leaves no torn line for a resumed one
+            # to append to
+            self._file = open(os.path.join(log_dir, "metrics.jsonl"), "a", buffering=1)
         if use_wandb:
             try:
                 import wandb

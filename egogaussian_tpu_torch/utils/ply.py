@@ -1,9 +1,10 @@
-"""Minimal PLY reader/writer (binary little-endian + ascii), pure numpy.
+"""Minimal PLY reader/writer (binary little-endian + ascii).
 
-Copy of `egogaussian_tpu/utils/ply.py` without its optional native-library
-path: the same header and float32 body, so files are byte-identical to the
-JAX package's. Implements the subset 3DGS checkpoints need: a single
-'vertex' element of scalar properties.
+Copy of `egogaussian_tpu/utils/ply.py`: the same header and float32 body,
+so files are byte-identical to the JAX package's. Binary files go through
+the native library (utils/native_io.py) when it is built, with the same
+bytes and values; otherwise pure numpy. Implements the subset 3DGS
+checkpoints need: a single 'vertex' element of scalar properties.
 """
 from __future__ import annotations
 
@@ -38,6 +39,11 @@ def write_ply(
 ) -> None:
     """Write a vertex-only PLY. columns: [N, len(names)] float32 (cast per
     column is uniform f4, matching the reference's save schema)."""
+    if binary:
+        from egogaussian_tpu_torch.utils.native_io import write_ply_native
+
+        if write_ply_native(path, names, columns):
+            return
     n = columns.shape[0]
     header = ["ply"]
     header.append(
@@ -60,6 +66,11 @@ def read_ply(path: str) -> Tuple[Dict[str, np.ndarray], int]:
     """Read the first (vertex) element of a PLY file.
     Returns ({property_name: [N] array}, N). Handles binary_little_endian and
     ascii; list properties are not supported (not used by 3DGS/COLMAP plys)."""
+    from egogaussian_tpu_torch.utils.native_io import read_ply_native
+
+    native = read_ply_native(path)
+    if native is not None:
+        return native
     with open(path, "rb") as f:
         # ---- header ----
         line = f.readline().strip()

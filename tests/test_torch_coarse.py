@@ -267,9 +267,20 @@ def test_estimate_writes_pose_npz_and_rejects_checkpoints(video, tmp_path):
     np.testing.assert_array_equal(np.asarray(back.solved), seq.solved.numpy())
     np.testing.assert_array_equal(np.asarray(back.translations), seq.translations.numpy())
     assert (tmp_path / "ply" / "gaussians_final.ply").exists()
-    with pytest.raises(NotImplementedError):
-        estimate_coarse_obj_pose(video.cameras, tm, cfg, static_g, dyn_g, 4.0, device=CPU,
-                                 checkpoint_every=1)
+    # checkpoint_every > 0 saves after every solved frame; a second call on
+    # the same directory finds every frame solved and trains nothing
+    ck = tmp_path / "ckpt"
+    seq1, m1, solved1 = estimate_coarse_obj_pose(video.cameras, tm, cfg, static_g, dyn_g, 4.0,
+                                                 save_dir=str(ck), device=CPU,
+                                                 checkpoint_every=1)
+    assert (ck / "ckpt_coarse.npz").exists()
+    steps = []
+    seq2, m2, solved2 = estimate_coarse_obj_pose(
+        video.cameras, tm, cfg, static_g, dyn_g, 4.0, save_dir=str(ck), device=CPU,
+        checkpoint_every=1, on_step=lambda f, it, loss: steps.append(f))
+    assert not steps and solved2 == solved1 == solved
+    assert torch.equal(seq2.translations, seq1.translations)
+    assert torch.equal(m2.params.xyz, m1.params.xyz)
     if not torch.cuda.is_available():
         # no device means the card; without one torch raises its own error
         # (no silent CPU fallback)

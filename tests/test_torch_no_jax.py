@@ -45,7 +45,14 @@ def test_port_modules_found():
                      "egogaussian_tpu_torch.train.fine_obj",
                      "egogaussian_tpu_torch.train.fine_all",
                      "egogaussian_tpu_torch.pipeline",
-                     "egogaussian_tpu_torch.cli.train"):
+                     "egogaussian_tpu_torch.cli.train",
+                     "egogaussian_tpu_torch.utils.checkpoint",
+                     "egogaussian_tpu_torch.train.ckpt_hook",
+                     "egogaussian_tpu_torch.eval.viewer",
+                     "egogaussian_tpu_torch.eval.network_viewer",
+                     "egogaussian_tpu_torch.utils.visualize",
+                     "egogaussian_tpu_torch.utils.native_io",
+                     "egogaussian_tpu_torch.cli.ply_tools"):
         assert expected in names
 
 

@@ -10,7 +10,10 @@
     files; every dynamic frame solved; a resumed run trains nothing and
     gives the same metrics;
   * the training CLI on a 64x48 video exported in the reference's dataset
-    layout, with --device cpu;
+    layout, with --device cpu; the same run with --checkpoint_every,
+    stopped inside stage 3 and rerun with --resume, gives the unbroken
+    run's PLYs and pose files byte for byte and its metrics; --mesh 2 is
+    refused;
   * the whole pipeline against JAX's `run_pipeline` on the same 48x36
     video at a schedule shorter than tiny_config with every densify window
     empty (JAX in interpret-mode Pallas, the port on its plain twins).
@@ -43,6 +46,7 @@ from egogaussian_tpu_torch.data.export_colmap import export_colmap_dataset
 from egogaussian_tpu_torch.data.readers import SceneData, compute_nerfpp_norm
 from egogaussian_tpu_torch.models.gaussians import from_points, save_ply
 from egogaussian_tpu_torch.pipeline import apply_predicted_masks, run_pipeline
+from egogaussian_tpu_torch.train import ckpt_hook
 from egogaussian_tpu_torch.train.static import train_background
 from egogaussian_tpu_torch.utils.ply import read_ply
 from tests.test_torch_static import _jax_cameras
@@ -210,7 +214,7 @@ def test_run_pipeline_tiny_config_and_resume(tmp_path):
     assert _tree(out) == _jax_layout(vid, splits)
 
 
-def test_train_cli_on_exported_dataset(tmp_path):
+def test_train_cli_on_exported_dataset(tmp_path, monkeypatch):
     vid = make_synthetic_video(CPU, width=64, height=48, n_bg=150, n_obj=40,
                                frames_static=3, frames_dynamic=3)
     src = export_colmap_dataset(vid, str(tmp_path / "data"))
@@ -238,9 +242,45 @@ def test_train_cli_on_exported_dataset(tmp_path):
     with open(os.path.join(src, "split", "dynamic_eval_frames.txt")) as f:
         held_out = vid.image_names.index(f.read().strip())
     assert bool(res.pose_seq.solved[held_out])
-    for flag in (["--mesh", "2"], ["--checkpoint_every", "5"]):
-        with pytest.raises(SystemExit):
-            train_main(["-s", src, "-m", out, "--device", "cpu"] + flag)
+    with pytest.raises(SystemExit):
+        train_main(["-s", src, "-m", out, "--device", "cpu", "--mesh", "2"])
+
+    # --checkpoint_every: stopped inside stage 3 right after its checkpoint
+    # of iteration 2, then rerun with --resume, it ends where the unbroken
+    # run above ended (a checkpoint save changes nothing)
+    broken = str(tmp_path / "broken")
+    argv = ["-s", src, "-m", broken, "--device", "cpu", "--checkpoint_every", "2"] + schedule
+    original = ckpt_hook.StageCheckpointer.maybe_save
+
+    def stop_in_stage3(self, it, *args, **kwargs):
+        original(self, it, *args, **kwargs)
+        if self.path and self.path.endswith("ckpt_fine_obj.npz") and it == 2:
+            raise _Stopped
+
+    with monkeypatch.context() as m:
+        m.setattr(ckpt_hook.StageCheckpointer, "maybe_save", stop_in_stage3)
+        with pytest.raises(_Stopped):
+            train_main(argv)
+    assert os.path.exists(os.path.join(broken, "fine_obj", "from-static", "ckpt_fine_obj.npz"))
+    again = train_main(argv + ["--resume"])
+    with open(os.path.join(broken, "logs", "metrics.jsonl")) as f:
+        resumes = [r for r in map(json.loads, f) if r.get("event") == "ckpt_resume"]
+    assert [(r["stage"], r["step"]) for r in resumes][-1] == ("fine_obj", 2)
+    assert again.metrics == res.metrics
+    for ply in ("fine_obj/from-static/gaussians_fine.ply",
+                "fine_obj/from-coarse/gaussians_fine.ply", "fine_all/gaussians_all.ply"):
+        with open(os.path.join(out, ply), "rb") as fa, open(os.path.join(broken, ply), "rb") as fb:
+            assert fa.read() == fb.read(), ply
+    for npz in ("coarse", "fine_obj/from-static", "fine_obj/from-coarse",
+                "interpolate_pose_coarse", "interpolate_pose_static"):
+        a = np.load(os.path.join(out, npz, "obj_pose_sequence.npz"))
+        b = np.load(os.path.join(broken, npz, "obj_pose_sequence.npz"))
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=f"{npz}: {k}")
+
+
+class _Stopped(RuntimeError):
+    """Stands in for a killed process."""
 
 
 def _short(cfg):
