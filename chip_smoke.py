@@ -83,6 +83,17 @@ nonzero and no result line is printed):
               render_freeview and render_multiview (tiled backend), one
               SIBR round trip through the network viewer, ply_tools
               recolor / info, build_native
+ 10d. multi: (path 8) cli/train_multi.py (--mesh 1x1, --seed 0) over
+              path 5's exported video and a second one (seed MULTI_SEED,
+              same sizes, 102,000 Gaussians) with path 5's flags, as a
+              child process (this script with --train-multi-child); its
+              launch counts, per-stage seconds of both videos beside path
+              5's; checks after the counts: video 0 against path 5 bit for
+              bit, every file byte for byte; video 1's artifacts, handover,
+              solved frames, losses, dropped pairs and stage 6, the
+              launches against path 5's plus what video 1's records imply,
+              a --resume rerun that trains nothing, every kernel against
+              its twin on video 1's stage-3 and stage-5 inputs
  11. peak:    (row 10's path) the card's float32 FMA rate through
               utils/peak.py:fma_peak_gflops, beside the published 67 TFLOP/s
  12. checks after the paths: path 7's renders against backend="cuda"
@@ -119,7 +130,7 @@ nonzero and no result line is printed):
               after
 Launch counters are set to 0 just before each path and read just after.
 Then the kernel table, the nvidia-smi line, and the result line
-{"ok": true, "device": {...}}. With --pipeline-only, paths 5-7 and their
+{"ok": true, "device": {...}}. With --pipeline-only, paths 5-8 and their
 checks alone (no result line); --repro adds a second unbroken run of path
 5's flags and prints its spread against path 5 (what PATH6_TOL holds).
 
@@ -130,6 +141,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import filecmp
 import json
 import os
 import shutil
@@ -2389,13 +2401,19 @@ PATH6_TOL = {"alive": 0, "solved": 0, "pose": 0.0, "ply": 0.0, "psnr": 0.0, "ssi
 CHILD_TIMEOUT = 600  # seconds, per training-CLI child
 
 
-def train_child(counts_path, argv) -> int:
-    """The training CLI's main in a child process of path 6, with the launch
-    counters flushed to counts_path every 0.1 s (a SIGKILLed child keeps
-    what its last flush wrote) and at exit."""
+# the child entry flags of this script and the CLI module each one runs
+CHILD_CLIS = {"--train-child": "egogaussian_tpu_torch.cli.train",
+              "--train-multi-child": "egogaussian_tpu_torch.cli.train_multi"}
+
+
+def train_child(counts_path, argv, module=CHILD_CLIS["--train-child"]) -> int:
+    """A training CLI's main (`module`) in a child process of paths 6 and
+    8, with the launch counters flushed to counts_path every 0.1 s (a
+    SIGKILLed child keeps what its last flush wrote) and at exit."""
+    import importlib
     import threading
 
-    from egogaussian_tpu_torch.cli.train import main as train_main
+    train_main = importlib.import_module(module).main
 
     def flush():
         tmp = counts_path + ".tmp"
@@ -2418,14 +2436,15 @@ def train_child(counts_path, argv) -> int:
     return 0
 
 
-def run_child(argv, tag, out_dir, kill_when=()):
-    """The training CLI with `argv` in a child process (train_child), its
-    output in out_dir/<tag>.log; SIGKILLed as soon as one of the paths in
-    kill_when exists. Returns (how it ended, seconds, launch counts)."""
+def run_child(argv, tag, out_dir, kill_when=(), flag="--train-child"):
+    """A training CLI (CHILD_CLIS[flag]) with `argv` in a child process
+    (train_child), its output in out_dir/<tag>.log; SIGKILLed as soon as
+    one of the paths in kill_when exists. Returns (how it ended, seconds,
+    launch counts)."""
     import signal
 
     counts = os.path.join(out_dir, f"{tag}_launches.json")
-    cmd = [sys.executable, os.path.abspath(__file__), "--train-child", counts, "--"] + argv
+    cmd = [sys.executable, os.path.abspath(__file__), flag, counts, "--"] + argv
     t0 = time.perf_counter()
     with open(os.path.join(out_dir, f"{tag}.log"), "w") as log:
         proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
@@ -2578,6 +2597,152 @@ def repro_run(argv5, model_dir5, out_dir):
     if ended != "exit 0":
         raise AssertionError(f"the repeated path-5 run ended with {ended}")
     shutil.rmtree(model_dir)
+
+
+# path 8: the multi-video CLI over path 5's exported video and a second one;
+# video 0 is path 5's video, seed and schedule through the same pipeline, so
+# its files are held to path 5's byte for byte (PATH6_TOL, the spread of two
+# unbroken runs: 0)
+MULTI_SEED = 1  # the second video's make_synthetic_video seed
+MULTI_STAGES = ("static", "background", "coarse", "fine_obj/from-static",
+                "fine_obj/from-coarse", "fine_all", "eval")
+
+
+def phase_multi(dev, vid, src, model_dir5, weights, out_dir):
+    """Path 8: cli/train_multi.py (--mesh 1x1, --seed 0) over path 5's
+    exported 640x480 video and a second one (make_synthetic_video seed
+    MULTI_SEED, same sizes, other content and motion, exported the same
+    way), each initialized at 102,000 Gaussians, with path 5's flags and
+    LPIPS weights, as a child process (train_child) whose launch counts
+    are flushed to a file. Returns (what check_multi needs, launch
+    counts)."""
+    from egogaussian_tpu_torch.data import make_synthetic_video
+    from egogaussian_tpu_torch.data.export_colmap import export_colmap_dataset
+
+    root = os.path.dirname(model_dir5)
+    vid1 = make_synthetic_video(dev, seed=MULTI_SEED, **SLICE_VIDEO)
+    src1 = export_colmap_dataset(vid1, os.path.join(root, "data_multi1"))
+    outs = [os.path.join(root, f"multi{i}") for i in range(2)]
+    for o in outs:
+        shutil.rmtree(o, ignore_errors=True)
+    argv = (["--videos", src, src1, "--outputs", *outs, "--mesh", "1x1", "--seed", "0",
+             "--device", str(dev), "--lpips_weights", weights] + pipeline_flags())
+    ended, seconds, launches = run_child(argv, "multi_run", out_dir, flag="--train-multi-child")
+    if ended != "exit 0":
+        raise AssertionError(f"path 8: the multi-video CLI ended with {ended}")
+    return dict(vids=[vid, vid1], srcs=[src, src1], outs=outs, argv=argv,
+                seconds=seconds), launches
+
+
+def expected_launches(vid, model_dir):
+    """Tile-grid launches one video's training makes, from its run's
+    records: a D = 3 forward and backward per training step of stages
+    1.0 (std and entropy), 1.2, 2 (real steps), 3 (both variants) and 5; a
+    D = 1 pair per label step and a D = 1 forward per predicted mask."""
+    recs = pipeline_records(model_dir)
+    timed = {r["name"]: r for r in recs if r.get("event") == "stage_time"
+             and not r["resumed"]}
+    coarse = [r for r in recs if r.get("event") == "stage_end" and r["stage"] == "coarse"][0]
+    s = PIPELINE_STATIC
+    phases = len(vid.static_phases)
+    d3 = (phases * (s["std_train_iter"] + s["entropy_reg_iter"]) + timed["background"]["iterations"]
+          + coarse["steps"] + timed["fine_obj/from-static"]["iterations"]
+          + timed["fine_obj/from-coarse"]["iterations"] + timed["fine_all"]["iterations"])
+    masks = len(os.listdir(os.path.join(model_dir, "static", "obj_masks")))
+    label = phases * s["label_train_iter"]
+    return {"tilegrid_fwd_d3": d3, "tilegrid_bwd_d3": d3, "tilegrid_fwd_d1": label + masks,
+            "tilegrid_bwd_d1": label}
+
+
+def check_multi(dev, multi, model_dir5, launches5, launches8, errs):
+    """After path 8's counts are read: video 0's output against path 5's
+    (compare_runs) within PATH6_TOL, and each of its files (cfg_args.json
+    and the metrics log aside) byte for byte path 5's; video 1's every
+    artifact of JAX's layout, at least MIN_OBJECT_GAUSSIANS handed to
+    stage 2, every dynamic frame solved after stage 4, finite losses, six
+    stage ends without dropped pairs, stage 6's PSNR / SSIM finite;
+    per-stage seconds of both videos beside path 5's; the launches against
+    path 5's plus what video 1's records imply; the CLI again with
+    --resume (no trainer logs a step, the same results.txt); then every
+    kernel against its twin on video 1's own stage-3 and stage-5 inputs."""
+    from egogaussian_tpu_torch.cli.train_multi import main as multi_main
+    from egogaussian_tpu_torch.models.pose import load_pose_sequence
+
+    vids, srcs, outs = multi["vids"], multi["srcs"], multi["outs"]
+    diff = compare_runs(model_dir5, outs[0])
+    exact = all(diff[k] <= tol for k, tol in PATH6_TOL.items())
+    files0 = sorted(os.path.relpath(os.path.join(d, f), outs[0])
+                    for d, _, fs in os.walk(outs[0]) for f in fs)
+    files0 = [f for f in files0 if f != "cfg_args.json" and not f.startswith("logs")]
+    differ = [f for f in files0 if not os.path.exists(os.path.join(model_dir5, f))
+              or not filecmp.cmp(os.path.join(model_dir5, f), os.path.join(outs[0], f),
+                                 shallow=False)]
+    vid1, out1 = vids[1], outs[1]
+    recs = pipeline_records(out1)
+    missing = [f for f in pipeline_artifacts(vid1, srcs[1])
+               if not os.path.exists(os.path.join(out1, f))]
+    timed = [{r["name"]: r for r in pipeline_records(o) if r.get("event") == "stage_time"}
+             for o in (model_dir5, *outs)]
+    handover1 = {k: int(timed[2][k]["alive"]) for k in MULTI_STAGES if k != "eval"}
+    solved = {}
+    for variant in ("static", "coarse"):
+        seq, _ = load_pose_sequence(os.path.join(out1, f"interpolate_pose_{variant}",
+                                                 "obj_pose_sequence.npz"))
+        s = seq.solved.numpy()
+        solved[variant] = all(bool(s[f]) for a, b in vid1.dynamic_phases
+                              for f in range(a, b + 1))
+    losses = [r["loss"] for r in recs if "loss" in r]
+    dropped = [[r["stage"], int(r["dropped_pairs"])] for r in recs
+               if r.get("event") == "stage_end"]
+    stage6 = read_results_txt(os.path.join(out1, "evaluation", "results.txt"))
+    stages = {k: {"path5_s": timed[0][k]["seconds"], "video0_s": timed[1][k]["seconds"],
+                  "video1_s": timed[2][k]["seconds"]} for k in MULTI_STAGES}
+    rows = ("tilegrid_fwd_d3", "tilegrid_bwd_d3", "tilegrid_fwd_d1", "tilegrid_bwd_d1")
+    expect = [expected_launches(v, o) for v, o in zip(vids, outs)]
+    launches = {k: {"path8": launches8[k], "path5": launches5[k],
+                    "expected_video0": expect[0][k], "expected_video1": expect[1][k]}
+                for k in rows}
+    launches["window_chunked_fwd_d3"] = {"path8": launches8["window_chunked_fwd_d3"],
+                                         "path5": launches5["window_chunked_fwd_d3"]}
+    launches_ok = (all(launches8[k] == launches5[k] + expect[1][k]
+                       and expect[0][k] == launches5[k] for k in rows)
+                   and launches8["window_chunked_fwd_d3"]
+                   == 2 * launches5["window_chunked_fwd_d3"])
+
+    n_before = [len(pipeline_records(o)) for o in outs]
+    with open(os.path.join(out1, "evaluation", "results.txt")) as f:
+        results1 = f.read()
+    t0 = time.perf_counter()
+    multi_main(multi["argv"] + ["--resume"])
+    resume_s = time.perf_counter() - t0
+    trained = sorted({r["stage"] for o, n in zip(outs, n_before)
+                      for r in pipeline_records(o)[n:]} - {"pipeline"})
+    with open(os.path.join(out1, "evaluation", "results.txt")) as f:
+        resume_same = f.read() == results1
+
+    ok = (exact and not differ and bool(files0) and not missing
+          and handover1["static"] >= MIN_OBJECT_GAUSSIANS
+          and all(solved.values()) and bool(losses) and bool(np.isfinite(losses).all())
+          and len(dropped) == 6 and not any(n for _, n in dropped)
+          and all(np.isfinite(v) for m in stage6.values() for k, v in m.items() if k != "lpips")
+          and launches_ok and not trained and resume_same)
+    emit("multi", videos=2, seed=MULTI_SEED, seconds=multi["seconds"], stages=stages,
+         vs_path5=diff, tol=PATH6_TOL, bit_for_bit=exact, video0_files=len(files0),
+         video0_files_differ=differ, video1_alive=handover1, video1_stage6=stage6,
+         video1_missing_artifacts=missing, video1_solved=solved,
+         video1_losses_logged=len(losses), video1_dropped_pairs=dropped, launches=launches,
+         launches_as_expected=launches_ok, resume_seconds=resume_s, resume_trained=trained,
+         resume_results_same=resume_same, ok=ok)
+    if not ok:
+        raise AssertionError(f"path 8 failed: against path 5 {diff} (files differing "
+                             f"{differ}), missing {missing}, alive {handover1}, solved "
+                             f"{solved}, dropped {dropped}, launches {launches}, resume "
+                             f"trained {trained}")
+    for prefix, model, fr in pipeline_frames(dev, srcs[1], out1):
+        emit("pipeline_frame", case="multi1_" + prefix.rstrip("_"), frame=fr.f, crop=fr.crop,
+             alive=int(model.num_alive), capacity=model.capacity,
+             tile_config=dataclasses.asdict(fr.base))
+        phase_frame_kernels(model, fr, errs, prefix="multi1_" + prefix)
 
 
 VIEW_FREE = 8  # render_freeview / render_multiview frames
@@ -2865,10 +3030,10 @@ PATH_OF = {"fwd": "slice", "bwd": "slice", "bwd_exact": "coarse", "stream_fwd": 
            "fma_peak": "peak"}
 
 
-def paths_5_to_7(dev, vid, out_dir, repro=False):
-    """Paths 5, 6 and 7, each with the launch counters set to 0 just before
-    it and read just after (path 6's from its child processes). Returns
-    (what the checks need, {path: launch counts})."""
+def paths_5_to_8(dev, vid, out_dir, repro=False):
+    """Paths 5, 6, 7 and 8, each with the launch counters set to 0 just
+    before it and read just after (paths 6's and 8's from their child
+    processes). Returns (what the checks need, {path: launch counts})."""
     launches = {}
     reset_launch_counts()
     pipe = phase_pipeline(dev, vid, out_dir)
@@ -2888,12 +3053,20 @@ def paths_5_to_7(dev, vid, out_dir, repro=False):
     emit("viewers_launches", **{k: n for k, n in launches["viewers"].items() if n})
     if launches["viewers"]["window_chunked_fwd_d3"] <= 0:
         raise AssertionError("window_chunked_fwd_d3 never launched on the viewer path")
-    return (pipe, views), launches
+    reset_launch_counts()
+    multi, launches["multi"] = phase_multi(dev, vid, src, model_dir, pipe[2], out_dir)
+    emit("multi_launches", **{k: n for k, n in launches["multi"].items() if n})
+    for name in ("tilegrid_fwd_d3", "tilegrid_bwd_d3", "tilegrid_fwd_d1", "tilegrid_bwd_d1",
+                 "window_chunked_fwd_d3"):
+        if launches["multi"][name] <= 0:
+            raise AssertionError(f"{name} never launched on the multi-video path")
+    return (pipe, views, multi, launches), launches
 
 
-def check_paths_5_to_7(dev, pipe, errs):
-    pipe, views = pipe
+def check_paths_5_to_8(dev, pipe, errs):
+    pipe, views, multi, launches = pipe
     check_viewers(views)
+    check_multi(dev, multi, pipe[1], launches["pipeline"], launches["multi"], errs)
     check_pipeline(dev, *pipe, errs)
 
 
@@ -2902,7 +3075,7 @@ def main(argv=None) -> int:
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the kernel checks (no slice, no result line)")
     parser.add_argument("--pipeline-only", action="store_true",
-                        help="paths 5-7 and their checks only (no result line)")
+                        help="paths 5-8 and their checks only (no result line)")
     parser.add_argument("--repro", action="store_true",
                         help="with --pipeline-only: run path 5's flags once more, unbroken, "
                              "and print the spread against path 5")
@@ -2940,8 +3113,8 @@ def main(argv=None) -> int:
         from egogaussian_tpu_torch.data import make_synthetic_video
 
         vid = make_synthetic_video(dev, seed=0, **SLICE_VIDEO)
-        pipe, path_launches = paths_5_to_7(dev, vid, out_dir, args.repro)
-        check_paths_5_to_7(dev, pipe, errs)
+        pipe, path_launches = paths_5_to_8(dev, vid, out_dir, args.repro)
+        check_paths_5_to_8(dev, pipe, errs)
         emit("launches", **path_launches)
         return 0
     phase_kernels(dev, errs)
@@ -2972,9 +3145,10 @@ def main(argv=None) -> int:
     reset_launch_counts()
     entry = phase_entry(eval_model, vid.cameras[0])
     path_launches["entry"] = launch_counts()
-    # paths 5-7: the six-stage pipeline through the training CLI, the same
-    # run killed and resumed from its checkpoints, the viewers and tools
-    pipe, launches5 = paths_5_to_7(dev, vid, out_dir)
+    # paths 5-8: the six-stage pipeline through the training CLI, the same
+    # run killed and resumed from its checkpoints, the viewers and tools,
+    # the multi-video CLI over path 5's video and a second one
+    pipe, launches5 = paths_5_to_8(dev, vid, out_dir)
     path_launches.update(launches5)
     # row 10's path: the FMA peak that bounds are read against
     reset_launch_counts()
@@ -2991,7 +3165,7 @@ def main(argv=None) -> int:
     # cuda backend, path 4 against the twins and the chunked pair, every
     # kernel against its twin at path 2's own shapes
     compare_eval_frames(vid, eval_model, eval_seq, buckets)
-    check_paths_5_to_7(dev, pipe, errs)
+    check_paths_5_to_8(dev, pipe, errs)
     check_entry(entry, vid.cameras[0], errs)
     phase_frame_kernels(model, fr, errs)
     ms, plain_ms, b = check_peak(dev, errs, peak_gflops)
@@ -3029,6 +3203,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--train-child"]:  # path 6's child: counts file, "--", CLI args
-        sys.exit(train_child(sys.argv[2], sys.argv[4:]))
+    if sys.argv[1:2] and sys.argv[1] in CHILD_CLIS:  # paths 6 and 8: counts file, "--", args
+        sys.exit(train_child(sys.argv[2], sys.argv[4:], CHILD_CLIS[sys.argv[1]]))
     sys.exit(main())

@@ -26,9 +26,9 @@ Layer map:
              the trajectory / novel-view viewers and the SIBR network viewer
   pipeline   the six stages in order, with resume from each stage's files
              and from mid-stage checkpoints
-  cli/       the training and eval entry points and the PLY tools
-             (python -m egogaussian_tpu_torch.cli.train / .cli.eval /
-             .cli.ply_tools)
+  cli/       the training, multi-video training and eval entry points and
+             the PLY tools (python -m egogaussian_tpu_torch.cli.train /
+             .cli.train_multi / .cli.eval / .cli.ply_tools)
   utils/     PLY files (with the shared native reader, native_io.py),
              checkpoint files, metrics logging, montages, the FMA-peak probe
 """

@@ -61,7 +61,23 @@ def main(argv=None):
                      "(ROADMAP.md §A, the parallel layer)")
     cfg = extract_config(args)
     device = torch.device(args.device)
+    lpips_fn = None
+    if args.lpips_weights:
+        from egogaussian_tpu_torch.eval.lpips import LPIPS
 
+        lpips_fn = LPIPS(weights_path=args.lpips_weights, device=device)
+    result = train_video(cfg, seed=args.seed, resume=args.resume, lpips_fn=lpips_fn,
+                         checkpoint_every=args.checkpoint_every, device=device)
+    CONSOLE.print("Final metrics:", result.metrics)
+    return result
+
+
+def train_video(cfg, seed: int, resume: bool, lpips_fn, checkpoint_every: int,
+                device: torch.device, fine_variant: str = "from-coarse", stop_after=None):
+    """The pipeline on the dataset at cfg.model.source_path, its tree under
+    cfg.model.model_path (default <dataset>/output): cfg_args.json, the
+    scene's input.ply and cameras.json, then run_pipeline's files. Returns
+    run_pipeline's result."""
     src = cfg.model.source_path
     out = cfg.model.model_path or os.path.join(src, "output")
     os.makedirs(out, exist_ok=True)
@@ -82,28 +98,22 @@ def main(argv=None):
     # scene/__init__.py:79-91)
     write_scene_artifacts(scene, out)
 
-    lpips_fn = None
-    if args.lpips_weights:
-        from egogaussian_tpu_torch.eval.lpips import LPIPS
-
-        lpips_fn = LPIPS(weights_path=args.lpips_weights, device=device)
-
-    result = run_pipeline(
+    return run_pipeline(
         scene, cfg, out,
         training_frames=training_frames,
         dynamic_eval_frames=dynamic_eval,
         static_eval_frames=static_eval,
         static_phases=static_phases,
         dynamic_phases=dynamic_phases,
-        seed=args.seed,
+        seed=seed,
         backend=cfg.render.backend,
-        resume=args.resume,
+        resume=resume,
         lpips_fn=lpips_fn,
-        checkpoint_every=args.checkpoint_every,
+        fine_variant=fine_variant,
+        checkpoint_every=checkpoint_every,
         device=device,
+        stop_after=stop_after,
     )
-    CONSOLE.print("Final metrics:", result.metrics)
-    return result
 
 
 if __name__ == "__main__":

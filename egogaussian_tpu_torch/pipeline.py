@@ -55,6 +55,9 @@ from egogaussian_tpu_torch.train.static import train_background, train_static
 from egogaussian_tpu_torch.utils.console import CONSOLE
 from egogaussian_tpu_torch.utils.logging import MetricsLogger, active_logger, log_metrics
 
+# run_pipeline's stop_after: None runs all six stages
+STOP_AFTER = (None, "background", "coarse")
+
 
 @dataclasses.dataclass
 class PipelineResult:
@@ -95,17 +98,22 @@ def run_pipeline(
     checkpoint_every: int = 0,
     mesh=None,
     device: Optional[torch.device] = None,
-) -> PipelineResult:
+    stop_after: Optional[str] = None,
+) -> Optional[PipelineResult]:
     """All six stages on `scene`, whose cameras live on `device`: where
     every stage trains and evaluates; None means the card (`cuda`).
     `checkpoint_every` goes to every trainer (stage 2 saves per solved
-    frame whatever its value).
+    frame whatever its value). `stop_after="background"` ends the run after
+    stage 1.2 and `"coarse"` after stage 2, returning None (the
+    multi-video CLI's --stage1_only and --through_coarse).
 
     Not ported yet: frame-data-parallel meshes (mesh)."""
     if device is None:
         device = torch.device("cuda")
     if mesh is not None:
         raise NotImplementedError("frame-data-parallel training is not ported yet")
+    if stop_after not in STOP_AFTER:
+        raise ValueError(f"stop_after={stop_after!r}: expected one of {STOP_AFTER}")
     cameras = scene.cameras
     static_groups = split_viewpoints_by_phase(cameras, static_phases, training_frames)
     dynamic_groups = split_viewpoints_by_phase(cameras, dynamic_phases, training_frames)
@@ -120,7 +128,7 @@ def run_pipeline(
         return _run_pipeline_stages(
             scene, cfg, save_dir, cameras, static_groups, dynamic_groups, training_frames,
             dynamic_eval_frames, static_eval_frames, dynamic_phases, seed, backend, resume,
-            lpips_fn, fine_variant, checkpoint_every, device)
+            lpips_fn, fine_variant, checkpoint_every, device, stop_after)
 
 
 def _log_stage_time(name: str, t0: float, iterations: int, resumed: bool, alive=None):
@@ -136,7 +144,7 @@ def _log_stage_time(name: str, t0: float, iterations: int, resumed: bool, alive=
 def _run_pipeline_stages(scene, cfg, save_dir, cameras, static_groups, dynamic_groups,
                          training_frames, dynamic_eval_frames, static_eval_frames,
                          dynamic_phases, seed, backend, resume, lpips_fn, fine_variant,
-                         checkpoint_every, device) -> PipelineResult:
+                         checkpoint_every, device, stop_after) -> Optional[PipelineResult]:
     extent = scene.cameras_extent
     kw = dict(seed=seed, backend=backend, device=device, checkpoint_every=checkpoint_every)
     sh = cfg.model.sh_degree
@@ -199,6 +207,8 @@ def _run_pipeline_stages(scene, cfg, save_dir, cameras, static_groups, dynamic_g
     bg_model = load_ply(bg_ply, device, force_bg=True, spatial_lr_scale=extent, sh_degree=sh)
     iters = cfg.static_bg.std_train_iter + cfg.static_bg.entropy_reg_iter
     _log_stage_time("background", t0, 0 if resumed else iters, resumed, bg_model.num_alive)
+    if stop_after == "background":
+        return None
 
     # ---- Stage 2: coarse object pose
     t0 = time.perf_counter()
@@ -217,6 +227,8 @@ def _run_pipeline_stages(scene, cfg, save_dir, cameras, static_groups, dynamic_g
     # every dynamic training frame and each phase's next-static anchor
     iters = sum(len(g) + 1 for g in dynamic_groups) * cfg.coarse.total_num_iter
     _log_stage_time("coarse", t0, 0 if resumed else iters, resumed, coarse_model.num_alive)
+    if stop_after == "coarse":
+        return None
 
     # ---- Stage 3: fine-tune the object, both variants like the reference
     fine_results = {}

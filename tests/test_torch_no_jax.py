@@ -52,7 +52,8 @@ def test_port_modules_found():
                      "egogaussian_tpu_torch.eval.network_viewer",
                      "egogaussian_tpu_torch.utils.visualize",
                      "egogaussian_tpu_torch.utils.native_io",
-                     "egogaussian_tpu_torch.cli.ply_tools"):
+                     "egogaussian_tpu_torch.cli.ply_tools",
+                     "egogaussian_tpu_torch.cli.train_multi"):
         assert expected in names
 
 
