@@ -94,6 +94,27 @@ nonzero and no result line is printed):
               launches against path 5's plus what video 1's records imply,
               a --resume rerun that trains nothing, every kernel against
               its twin on video 1's stage-3 and stage-5 inputs
+ 10e. distributed: (path 9, the distributed layer; NCCL takes one GPU per
+              rank, so the multi-rank runs are gloo ranks sharing the card)
+              9a: train_static on path 1's video at DIST_SCHEDULE and frame
+              batch 2 in this process, then twice in one 2-rank gloo
+              mesh (one frame per rank; the video sent through host
+              memory): both
+              ranks' final models bit for bit, the PLYs written by rank 0
+              alone, the second mesh run bit for bit the first, the mesh
+              run against the single process within DIST_STATIC_TOL, step
+              ms of both and the gloo all_gather of the step's buffer
+              timed alone; 9b: _dp_static_step on a one-rank NCCL group
+              against _static_step, DIST_STEPS steps bit for bit; 9c:
+              make_sharded_render and make_memory_sharded_render on 2
+              gloo ranks, path 3's kNN model at frame 0, backends "cuda"
+              and "tiled", against the single render within DEEP_FWD_TOL
+              with nothing dropped, and after the counts are read rows
+              1-2 against their twins on slab 0's layout; 9d:
+              cli/train_multi.py --mesh 2x1 --dist_backend gloo
+              --stage1_only over path 8's videos and flags (a child), every
+              stage-1.0/1.2 file byte for byte path 8's; 9e:
+              parallel/dryrun.py:dryrun_multichip(2) (two gloo CPU ranks)
  11. peak:    (row 10's path) the card's float32 FMA rate through
               utils/peak.py:fma_peak_gflops, beside the published 67 TFLOP/s
  12. checks after the paths: path 7's renders against backend="cuda"
@@ -139,6 +160,7 @@ Imports no JAX. Writes its outputs under chiprun_out/chip_smoke/.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import filecmp
@@ -200,8 +222,14 @@ FLAVOR_TOL = 1e-3  # norm-relative gradient error and relative loss error
 PHASE_LOG = []  # path of the run's phases.jsonl, once main has made out_dir
 
 
+STARTED = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    line = json.dumps({"phase": phase, **fields})
+    """One phase line, with the seconds since this process started the
+    script (where the time goes)."""
+    line = json.dumps({"phase": phase, **fields,
+                       "elapsed_s": round(time.perf_counter() - STARTED, 2)})
     print(line, flush=True)
     for path in PHASE_LOG:
         with open(path, "a") as f:
@@ -791,14 +819,11 @@ def nerfpp_radius(cameras) -> float:
     return r if r > 0 else 1.0
 
 
-def phase_slice(dev, out_dir):
+def slice_video(dev):
+    """Path 1's video (ground truth rendered by the oracle on the card)."""
     import torch
 
-    from egogaussian_tpu_torch.config import Config
-    from egogaussian_tpu_torch.data import make_synthetic_video, split_viewpoints_by_phase
-    from egogaussian_tpu_torch.models.gaussians import load_ply, save_ply
-    from egogaussian_tpu_torch.render.cuda_raster import TileGridCompositor
-    from egogaussian_tpu_torch.train.static import train_static
+    from egogaussian_tpu_torch.data import make_synthetic_video
 
     t0 = time.time()
     vid = make_synthetic_video(dev, seed=0, **SLICE_VIDEO)
@@ -806,6 +831,17 @@ def phase_slice(dev, out_dir):
     emit("slice_data", width=vid.cameras[0].width, height=vid.cameras[0].height,
          gaussians=len(vid.points),
          frames=len(vid.cameras), seconds=time.time() - t0)
+    return vid
+
+
+def phase_slice(dev, vid, out_dir):
+    import torch
+
+    from egogaussian_tpu_torch.config import Config
+    from egogaussian_tpu_torch.data import split_viewpoints_by_phase
+    from egogaussian_tpu_torch.models.gaussians import load_ply, save_ply
+    from egogaussian_tpu_torch.render.cuda_raster import TileGridCompositor
+    from egogaussian_tpu_torch.train.static import train_static
 
     cfg = Config()
     cfg.static = dataclasses.replace(cfg.static, **SLICE_SCHEDULE)
@@ -2077,7 +2113,7 @@ def phase_eval_profile(dev, vid, model, seq, out_dir, frames: int = 8):
                 raise AssertionError(f"a scan still runs in the eval frame: {scans}")
 
 
-def phase_profile(dev, vid, extent, out_dir, iters: int = 40, skip: int = 10):
+def phase_profile(dev, vid, extent, out_dir, iters: int = 25, skip: int = 5):
     """torch.profiler over std-mode iterations skip+1..iters of train_static
     (no densify): device time by kernel, and the device's busy share of the
     window's wall time (one stream, so kernel times add up). Table written
@@ -2999,6 +3035,451 @@ def check_viewers(v):
     shutil.rmtree(v["out"])
 
 
+# path 9: the distributed layer on the one card. NCCL takes one GPU per
+# rank, so the multi-rank runs are gloo ranks sharing the card (their
+# collectives staged through host memory); the one-rank case is NCCL.
+DIST_FB = 2  # path 9a's frames per step: one per rank
+# path 9a's stage-1.0 schedule, path 1's cut to 80 steps for the time
+# limit: one densify (iteration 50) and no opacity reset, so that after
+# 60 std steps opacities pass the entropy-end prune (0.5); the label phase
+DIST_SCHEDULE = dict(std_train_iter=60, entropy_reg_iter=10, label_train_iter=10,
+                     densify_from_iter=40, densify_until_iter=50)
+DIST_STEPS = 20  # path 9b's steps
+GATHER_REPS = 10  # gloo all_gathers timed at the step's buffer size
+
+
+PARAM_KEYS = ("xyz", "features_dc", "features_rest", "log_scales", "quats", "opacity_logit",
+              "label")
+
+
+def _host_state(model):
+    """Every parameter and statistic of a model as numpy (for comparisons
+    across processes)."""
+    return {k: v.detach().cpu().numpy()
+            for k, v in {**model.params.as_dict(), **model.aux.as_dict()}.items()}
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _dist_static_cfg(sizes):
+    from egogaussian_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.static = dataclasses.replace(cfg.static, frame_batch=DIST_FB, **sizes["schedule"])
+    cfg.opt = dataclasses.replace(cfg.opt, **sizes["opt"])
+    return cfg
+
+
+def dist_sizes():
+    """Path 9's schedule and rates, handed to its ranks (which import this
+    script afresh)."""
+    return dict(schedule=DIST_SCHEDULE, opt=SLICE_OPT, skip=STEADY_SKIP)
+
+
+def dist_static_run(dev, vid, out, sizes, mesh=None):
+    """train_static on path 1's video `vid` (first phase, seed 0) at frame
+    batch DIST_FB and DIST_SCHEDULE, on `mesh` or in this process: the
+    final model, std-mode steady it/s (host clock between syncs, the first
+    sizes["skip"] iterations left out), the losses and the PLYs this
+    process wrote."""
+    from egogaussian_tpu_torch.data import split_viewpoints_by_phase
+    from egogaussian_tpu_torch.train import static
+
+    groups = split_viewpoints_by_phase(vid.cameras, vid.static_phases)
+    cfg = _dist_static_cfg(sizes)
+    losses, clock, plys = [], {}, []
+    skip = sizes["skip"]
+
+    def on_step(it, mode, loss):
+        losses.append(loss)
+        if it in (skip, cfg.static.std_train_iter):
+            _sync(dev)
+            clock[it] = time.perf_counter()
+
+    save_ply = static.save_ply
+    static.save_ply = lambda model, path: (plys.append(path), save_ply(model, path))
+    try:
+        res = static.train_static(vid.cameras, vid.points, vid.colors, cfg, groups,
+                                  nerfpp_radius(vid.cameras), save_dir=out, seed=0,
+                                  first_phase_only=True, device=dev, mesh=mesh,
+                                  on_step=on_step)[0]
+    finally:
+        static.save_ply = save_ply
+    it_s = ((cfg.static.std_train_iter - skip)
+            / (clock[cfg.static.std_train_iter] - clock[skip]))
+    return dict(state=_host_state(res.model), alive=int(res.model.num_alive),
+                it_s=it_s, losses=[float(x) for x in losses], plys=plys,
+                dropped_pairs=res.dropped_pairs)
+
+
+def dist_static_rank(mesh, vid, outs, sizes):
+    """One gloo rank of path 9a on path 1's video (`vid` on the host): one
+    run into each of `outs` (a repeat in the same processes), then
+    GATHER_REPS all_gathers of the step's reduced buffer (parameter
+    gradients, loss, three per-Gaussian statistics, the drop count) timed
+    alone. Returns each run with its seconds, and the gather's ms and
+    bytes."""
+    import torch
+
+    from egogaussian_tpu_torch.parallel.mesh import gather_blocks, tree_map
+
+    vid = tree_map(lambda t: t.to(mesh.device), vid)
+    runs = []
+    for out in outs:
+        t0 = time.perf_counter()
+        runs.append(dist_static_run(mesh.device, vid, out, sizes, mesh))
+        runs[-1]["seconds"] = time.perf_counter() - t0
+    run = runs[0]
+    n = sum(v.size for k, v in run["state"].items() if k in PARAM_KEYS) + 2 + 3 * len(
+        run["state"]["alive"])
+    buf = torch.zeros(n, device=mesh.device)
+    gather_blocks(mesh, buf)
+    _sync(mesh.device)
+    t0 = time.perf_counter()
+    for _ in range(GATHER_REPS):
+        gather_blocks(mesh, buf)
+    _sync(mesh.device)
+    return dict(runs=runs, gather_ms=(time.perf_counter() - t0) / GATHER_REPS * 1e3,
+                gather_bytes=4 * n)
+
+
+def states_equal(a, b) -> bool:
+    """Whether two host states (_host_state) agree bit for bit."""
+    return all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def phase_dist_static(dev, vid, out_dir):
+    """Path 9a: train_static on path 1's video at frame batch DIST_FB in this
+    process, then twice on a 2-rank gloo mesh sharing the card (one frame
+    per rank, the gradients reduced in rank order; the video handed to the
+    ranks through host memory). Returns what check_dist_static needs."""
+    from egogaussian_tpu_torch.parallel.launch import spawn
+    from egogaussian_tpu_torch.parallel.mesh import tree_map
+
+    root = os.path.join("build", "dist_static")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    single = dist_static_run(dev, vid, os.path.join(root, "single"), dist_sizes())
+    single_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = spawn(dist_static_rank, 1, 2, "gloo", dev,
+                  args=(tree_map(lambda t: t.cpu(), vid),
+                        [os.path.join(root, f"mesh{i}") for i in range(2)], dist_sizes()))
+    return dict(root=root, single=single, single_s=single_s, ranks=ranks,
+                spawn_s=time.perf_counter() - t0)
+
+
+def check_dist_static(d):
+    """Both ranks' final models bit for bit, in both mesh runs; the PLYs
+    written by rank 0 alone; the second mesh run equal to the first bit for
+    bit; the mesh run against the single process within DIST_STATIC_TOL;
+    step rates of both."""
+    single = d["single"]
+    runs = [[r["runs"][i] for r in d["ranks"]] for i in range(2)]  # [run][rank]
+    ranks_same = all(states_equal(r[0]["state"], r[1]["state"]) for r in runs)
+    repeat_same = states_equal(runs[0][0]["state"], runs[1][0]["state"])
+    plys = [[len(r["plys"]) for r in run] for run in runs]
+    files = sorted(os.listdir(os.path.join(d["root"], "mesh0", "ply")))
+    a, b = single["state"], runs[0][0]["state"]
+    both = a["alive"] & b["alive"]
+    loss_s = np.mean(single["losses"][-10:])
+    loss_m = np.mean(runs[0][0]["losses"][-10:])
+    dist = {"alive_rel": abs(single["alive"] - runs[0][0]["alive"]) / max(single["alive"], 1),
+            "last10_loss_rel": abs(loss_m - loss_s) / loss_s}
+    # reported beside the bounds: the parameters of the rows alive in both
+    common = {k: float(np.abs(a[k][both].astype(np.float64) - b[k][both]).max(initial=0.0))
+              for k in PARAM_KEYS}
+    ok = (ranks_same and repeat_same and plys == [[3, 0], [3, 0]] and len(files) == 3
+          and single["alive"] > 0
+          and all(dist[k] <= tol for k, tol in DIST_STATIC_TOL.items())
+          and single["dropped_pairs"] == runs[0][0]["dropped_pairs"] == 0)
+    if ok:
+        shutil.rmtree(d["root"])
+    emit("dist_static", frame_batch=DIST_FB, ranks=2, backend="gloo",
+         single_it_s=single["it_s"], mesh_it_s=[r[0]["it_s"] for r in runs],
+         single_step_ms=1e3 / single["it_s"], mesh_step_ms=[1e3 / r[0]["it_s"] for r in runs],
+         single_seconds=d["single_s"], mesh_seconds=[r[0]["seconds"] for r in runs],
+         spawn_seconds=d["spawn_s"], gather_ms=[r["gather_ms"] for r in d["ranks"]],
+         gather_bytes=d["ranks"][0]["gather_bytes"],
+         alive=[single["alive"], runs[0][0]["alive"]], vs_single=dist, tol=DIST_STATIC_TOL,
+         param_max_abs_alive_in_both=common, first_loss_differing=next(
+             (i for i, (x, y) in enumerate(zip(single["losses"], runs[0][0]["losses"]))
+              if x != y), None),
+         ranks_bit_identical=ranks_same, repeat_bit_identical=repeat_same, plys_written=plys,
+         ply_files=files, ok=ok)
+    if not ok:
+        raise AssertionError(f"path 9a failed: ranks {ranks_same}, repeat {repeat_same}, "
+                             f"PLY writes {plys}, against the single run {dist}")
+
+
+# path 9a against the single process at the same frames: the ranks' mean
+# of means reassociates the frame sum, and a prune threshold can flip for
+# a few Gaussians. At 140 steps the card measured 1 alive Gaussian of
+# 5,207 and equal last-ten losses, at 80 steps equal alive counts and
+# 8.6e-9 (PERF.md §6)
+DIST_STATIC_TOL = {"alive_rel": 5e-3, "last10_loss_rel": 1e-4}
+
+
+def phase_dist_one_rank(dev, vid, extent):
+    """Path 9b: _dp_static_step on a one-rank NCCL group against
+    _static_step, DIST_STEPS steps each from path 1's initial model on
+    phase 0's frames (the same frame and background draws), every step's
+    loss, drop count and model bit for bit."""
+    import tempfile
+
+    import torch
+    import torch.distributed as tdist
+
+    from egogaussian_tpu_torch.data import split_viewpoints_by_phase, stack_cameras
+    from egogaussian_tpu_torch.models.gaussians import from_points
+    from egogaussian_tpu_torch.models.optim import adam_init
+    from egogaussian_tpu_torch.parallel.mesh import make_mesh
+    from egogaussian_tpu_torch.train.common import auto_tile_config
+    from egogaussian_tpu_torch.train.static import _dp_static_step, _static_step
+
+    cfg = _dist_static_cfg(dist_sizes())
+    frames = split_viewpoints_by_phase(vid.cameras, vid.static_phases)[0]
+    batch = stack_cameras([vid.cameras[i] for i in frames], dev)
+    model0 = from_points(vid.points, vid.colors, dev, spatial_lr_scale=extent, seed=0)
+    tile_cfg = auto_tile_config(model0, batch.camera(0))
+    with tempfile.TemporaryDirectory() as tmp:
+        tdist.init_process_group("nccl", store=tdist.FileStore(os.path.join(tmp, "s"), 1),
+                                 rank=0, world_size=1)
+        try:
+            mesh = make_mesh(n_data=1, device=dev)
+            states = []
+            for step in (_static_step, lambda *a, **k: _dp_static_step(*a, mesh=mesh, **k)):
+                rng = np.random.RandomState(0)
+                model, opt = model0, adam_init(model0.params)
+                drop = torch.zeros((), dtype=torch.int64, device=dev)
+                trace = []
+                for it in range(1, DIST_STEPS + 1):
+                    fidxs = [int(rng.randint(len(frames)))]
+                    bg = rng.rand(3).astype(np.float32)
+                    model, opt, loss, _, drop = step(
+                        model, opt, batch, fidxs, batch.hand_masks, it, drop, mode="std",
+                        backend="cuda", tile_config=tile_cfg, bg_color=bg, opt_cfg=cfg.opt)
+                    trace.append((loss, drop))
+                _sync(dev)
+                states.append((_host_state(model),
+                               [(float(l), int(d)) for l, d in trace],
+                               _host_state(dataclasses.replace(model0, params=opt.mu))))
+        finally:
+            tdist.destroy_process_group()
+    same_steps = states[0][1] == states[1][1]
+    same_model = states_equal(states[0][0], states[1][0])
+    same_moments = states_equal(states[0][2], states[1][2])
+    ok = same_steps and same_model and same_moments
+    emit("dist_one_rank", backend="nccl", steps=DIST_STEPS, losses_and_drops_equal=same_steps,
+         model_bit_identical=same_model, adam_moments_bit_identical=same_moments,
+         last_loss=states[0][1][-1][0], ok=ok)
+    if not ok:
+        raise AssertionError("path 9b: the one-rank NCCL step differs from _static_step")
+
+
+def dist_render_rank(mesh, cam, scene, tile_cfg):
+    """One gloo rank of path 9c: both sharded renders under both backends
+    (the memory-sharded one on this rank's block of rows)."""
+    import torch
+
+    from egogaussian_tpu_torch.parallel import (
+        make_memory_sharded_render,
+        make_sharded_render,
+        shard_batch,
+    )
+    from egogaussian_tpu_torch.parallel.mesh import tree_map
+
+    dev = mesh.device
+    cam = tree_map(lambda t: t.to(dev), cam)
+    scene = [torch.as_tensor(x, device=dev) for x in scene]
+    out = {}
+    for backend in ("cuda", "tiled"):
+        t0 = time.perf_counter()
+        rep = make_sharded_render(mesh, cam, backend=backend, tile_config=tile_cfg)(*scene)
+        _sync(dev)
+        t1 = time.perf_counter()
+        mem, dropped = make_memory_sharded_render(mesh, cam, backend=backend,
+                                                  tile_config=tile_cfg)(
+            *shard_batch(mesh, tuple(scene)))
+        _sync(dev)
+        out[backend] = dict(
+            replicated=[x.cpu().numpy() for x in (rep.image, rep.alpha, rep.depth)],
+            memory=[x.cpu().numpy() for x in (mem.image, mem.alpha, mem.depth)],
+            dropped=int(dropped), dropped_pairs=[int(rep.dropped_pairs), int(mem.dropped_pairs)],
+            seconds=[t1 - t0, time.perf_counter() - t1])
+    return out
+
+
+def phase_dist_render(dev, vid, eval_model):
+    """Path 9c: make_sharded_render and make_memory_sharded_render on 2
+    gloo ranks sharing the card, path 3's ~102k-Gaussian kNN model at frame
+    0 (640x480), backends "cuda" (rows 1-2 per slab) and "tiled" (row 6),
+    with auto_tile_config of the whole model."""
+    from egogaussian_tpu_torch.parallel.launch import spawn
+    from egogaussian_tpu_torch.parallel.mesh import tree_map
+    from egogaussian_tpu_torch.train.common import auto_tile_config, model_colors
+
+    cam = vid.cameras[0]
+    m = eval_model
+    scene = [x.detach().cpu().numpy() for x in (m.params.xyz, m.covariance(), model_colors(m),
+                                                m.opacity, m.aux.alive)]
+    tile_cfg = auto_tile_config(m, cam)
+    t0 = time.perf_counter()
+    ranks = spawn(dist_render_rank, 1, 2, "gloo", dev,
+                  args=(tree_map(lambda t: t.cpu(), cam), scene, tile_cfg))
+    return dict(ranks=ranks, tile_cfg=tile_cfg, seconds=time.perf_counter() - t0)
+
+
+def check_dist_render(dev, vid, eval_model, d, errs):
+    """After path 9's counts are read: every rank's merged images equal
+    rank 0's bit for bit; each against the single render of the same
+    backend and tile config within DEEP_FWD_TOL; the memory-sharded
+    render drops no Gaussian and no slab drops pairs; rows 1-2 against
+    their twins (check_layout) on slab 0's tile-grid layout."""
+    import torch
+
+    from egogaussian_tpu_torch.parallel.shard_render import depth_slab
+    from egogaussian_tpu_torch.render.api import render
+    from egogaussian_tpu_torch.render.project import project_gaussians
+    from egogaussian_tpu_torch.render.tiled import tilegrid_layout
+    from egogaussian_tpu_torch.train.common import model_colors
+
+    cam, m, cfg = vid.cameras[0], eval_model, d["tile_cfg"]
+    bg = torch.zeros(3, device=dev)
+    cols = model_colors(m)
+    worst, same, dropped = {}, True, []
+    with torch.no_grad():
+        for backend in ("cuda", "tiled"):
+            ref = render(cam, m.params.xyz, m.covariance(), m.opacity, bg, colors_precomp=cols,
+                         valid_mask=m.aux.alive, backend=backend, tile_config=cfg)
+            ref = [x.cpu().numpy() for x in (ref.image, ref.alpha, ref.depth)]
+            for kind in ("replicated", "memory"):
+                r0 = d["ranks"][0][backend][kind]
+                same &= all(np.array_equal(a, b) for a, b in zip(r0, d["ranks"][1][backend][kind]))
+                worst[f"{backend}_{kind}"] = {
+                    k: float(np.abs(a - b).max()) for k, a, b in zip(DEEP_FWD_TOL, r0, ref)}
+            dropped.append([backend, d["ranks"][0][backend]["dropped"],
+                            d["ranks"][0][backend]["dropped_pairs"]])
+        def project(valid):
+            return project_gaussians(m.params.xyz, m.covariance(), cam.viewmat, cam.fx,
+                                     cam.fy, cam.cx, cam.cy, cam.width, cam.height,
+                                     valid_mask=valid)
+
+        # slab 0's projection, as its render in make_sharded_render makes it
+        slab = depth_slab(project(m.aux.alive), 0, 2)
+        lay = tilegrid_layout(project(slab), cols, m.opacity, cam.width, cam.height, cfg)
+        if int(lay.dropped):
+            raise AssertionError("path 9c: slab 0's layout dropped pairs")
+    with torch.enable_grad():
+        check_layout(f"slab0_of_2_{cam.width}x{cam.height}", lay, 3, bg, DEEP_FWD_TOL,
+                     cam.width, cam.height, errs)
+    ok = (same and all(v[k] <= DEEP_FWD_TOL[k] for v in worst.values() for k in v)
+          and not any(n or any(p) for _, n, p in dropped))
+    emit("dist_render", ranks=2, backend="gloo", frame=0, width=cam.width, height=cam.height,
+         gaussians=int(m.num_alive), vs_single=worst, tol=DEEP_FWD_TOL, ranks_bit_identical=same,
+         dropped=dropped, seconds=d["seconds"],
+         per_render_seconds={b: d["ranks"][0][b]["seconds"] for b in ("cuda", "tiled")},
+         slab0_gaussians=int(slab.sum()), ok=ok)
+    if not ok:
+        raise AssertionError(f"path 9c failed: {worst}, dropped {dropped}, same {same}")
+
+
+def phase_dist_multi(dev, multi, out_dir):
+    """Path 9d: cli/train_multi.py --mesh 2x1 --dist_backend gloo
+    --stage1_only over path 8's two videos and flags, as a child process
+    (its ranks' launch counts come back through parallel/launch.py)."""
+    root = os.path.dirname(multi["outs"][0])
+    outs = [os.path.join(root, f"dist_multi{i}") for i in range(2)]
+    for o in outs:
+        shutil.rmtree(o, ignore_errors=True)
+    argv = list(multi["argv"])
+    argv[argv.index("--outputs") + 1:argv.index("--outputs") + 3] = outs
+    argv[argv.index("--mesh") + 1] = "2x1"
+    argv += ["--dist_backend", "gloo", "--stage1_only"]
+    ended, seconds, launches = run_child(argv, "dist_multi_run", out_dir,
+                                         flag="--train-multi-child")
+    if ended != "exit 0":
+        raise AssertionError(f"path 9d: the multi-video CLI ended with {ended}")
+    return dict(outs=outs, seconds=seconds), launches
+
+
+def check_dist_multi(multi, d):
+    """Every file of stages 1.0 and 1.2 (static/, background/) of each
+    video against path 8's, byte for byte."""
+    differ, n = [], 0
+    for a, b in zip(multi["outs"], d["outs"]):
+        for sub in ("static", "background"):
+            for dirpath, _, fs in os.walk(os.path.join(a, sub)):
+                for f in fs:
+                    rel = os.path.relpath(os.path.join(dirpath, f), a)
+                    n += 1
+                    if not (os.path.exists(os.path.join(b, rel))
+                            and filecmp.cmp(os.path.join(a, rel), os.path.join(b, rel),
+                                            shallow=False)):
+                        differ.append(rel)
+    stage_s = [{r["name"]: r["seconds"] for r in pipeline_records(o)
+                if r.get("event") == "stage_time"} for o in d["outs"]]
+    ok = n > 0 and not differ
+    emit("dist_multi", mesh="2x1", backend="gloo", seconds=d["seconds"], stage_seconds=stage_s,
+         files=n, files_differ=differ, ok=ok)
+    if not ok:
+        raise AssertionError(f"path 9d: stage-1 files differ from path 8's: {differ[:10]}")
+
+
+def phase_dist_dryrun():
+    """Path 9e: dryrun_multichip(2): with one card, two gloo CPU ranks."""
+    from egogaussian_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    lines = dryrun_multichip(2)
+    ok = len(lines) == 3 and all(line.endswith("OK") for line in lines)
+    emit("dist_dryrun", lines=lines, seconds=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise AssertionError(f"path 9e: {lines}")
+
+
+def path_9(dev, vid, extent, eval_model, multi, out_dir):
+    """Path 9a-9e, each with the launch counters set to 0 just before it and
+    read just after (the ranks' counts folded in by parallel/launch.py)."""
+    launches = {}
+    reset_launch_counts()
+    static = phase_dist_static(dev, vid, out_dir)
+    launches["dist_static"] = launch_counts()
+    reset_launch_counts()
+    phase_dist_one_rank(dev, vid, extent)
+    launches["dist_one_rank"] = launch_counts()
+    reset_launch_counts()
+    render = phase_dist_render(dev, vid, eval_model)
+    launches["dist_render"] = launch_counts()
+    reset_launch_counts()
+    dmulti, launches["dist_multi"] = phase_dist_multi(dev, multi, out_dir)
+    reset_launch_counts()
+    phase_dist_dryrun()
+    launches["dist_dryrun"] = launch_counts()
+    emit("dist_launches", **{p: {k: n for k, n in c.items() if n} for p, c in launches.items()})
+    need = {"dist_static": ("tilegrid_fwd_d3", "tilegrid_bwd_d3", "tilegrid_fwd_d1",
+                            "tilegrid_bwd_d1"),
+            "dist_one_rank": ("tilegrid_fwd_d3", "tilegrid_bwd_d3"),
+            "dist_render": ("tilegrid_fwd_d3", "window_chunked_fwd_d3"),
+            "dist_multi": ("tilegrid_fwd_d3", "tilegrid_bwd_d3", "tilegrid_fwd_d1",
+                           "tilegrid_bwd_d1")}
+    missing = [(p, k) for p, ks in need.items() for k in ks if launches[p][k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on path 9: {missing}")
+    return dict(static=static, render=render, multi=dmulti), launches
+
+
+def check_path_9(dev, vid, eval_model, multi, p9, errs):
+    check_dist_static(p9["static"])
+    check_dist_render(dev, vid, eval_model, p9["render"], errs)
+    check_dist_multi(multi, p9["multi"])
+
+
 # kernel key -> (kernels-line name stem, source, the TPU kernel it replaces)
 KERNELS = {
     "fwd": ("tilegrid_fwd", "egogaussian_tpu_torch/csrc/tilegrid_fwd.cu",
@@ -3101,7 +3582,11 @@ def main(argv=None) -> int:
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
     t0 = time.time()
-    path, log = cr.build_library()
+    # nvcc runs on the host's cores while the card renders path 1's video
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        build = pool.submit(cr.build_library)
+        vid = None if args.kernels_only else slice_video(dev)
+        path, log = build.result()
     cr.kernel_library()
     with open(os.path.join(out_dir, "ptxas.log"), "w") as f:
         f.write(log)
@@ -3110,9 +3595,6 @@ def main(argv=None) -> int:
 
     errs = {}
     if args.pipeline_only:
-        from egogaussian_tpu_torch.data import make_synthetic_video
-
-        vid = make_synthetic_video(dev, seed=0, **SLICE_VIDEO)
         pipe, path_launches = paths_5_to_8(dev, vid, out_dir, args.repro)
         check_paths_5_to_8(dev, pipe, errs)
         emit("launches", **path_launches)
@@ -3123,7 +3605,7 @@ def main(argv=None) -> int:
 
     # path 1: stage-1.0 static training
     reset_launch_counts()
-    vid, extent, _, slice_model = phase_slice(dev, out_dir)
+    vid, extent, _, slice_model = phase_slice(dev, vid, out_dir)
     path_launches = {"slice": launch_counts()}
     # path 2: stage-2 coarse pose, then its step under each flavor
     reset_launch_counts()
@@ -3150,6 +3632,11 @@ def main(argv=None) -> int:
     # the multi-video CLI over path 5's video and a second one
     pipe, launches5 = paths_5_to_8(dev, vid, out_dir)
     path_launches.update(launches5)
+    # path 9: the distributed layer (gloo ranks sharing the card, a
+    # one-rank NCCL group, the sharded renders, the multi-video CLI's scene
+    # axis, the dry run)
+    p9, launches9 = path_9(dev, vid, extent, eval_model, pipe[2], out_dir)
+    path_launches.update(launches9)
     # row 10's path: the FMA peak that bounds are read against
     reset_launch_counts()
     peak_gflops = phase_peak(dev)
@@ -3165,6 +3652,7 @@ def main(argv=None) -> int:
     # cuda backend, path 4 against the twins and the chunked pair, every
     # kernel against its twin at path 2's own shapes
     compare_eval_frames(vid, eval_model, eval_seq, buckets)
+    check_path_9(dev, vid, eval_model, pipe[2], p9, errs)  # before path 5's tree goes
     check_paths_5_to_8(dev, pipe, errs)
     check_entry(entry, vid.cameras[0], errs)
     phase_frame_kernels(model, fr, errs)

@@ -20,6 +20,15 @@ static/ckpt_static_phase{p}.npz, background/ckpt_bg.npz,
 coarse/ckpt_coarse.npz, fine_obj/<variant>/ckpt_fine_obj.npz and
 fine_all/ckpt_fine_all.npz, and a rerun resumes mid-stage from them, with
 or without --resume (which skips the stages whose files exist).
+
+--mesh N (N > 1) trains on N ranks started on this host
+(parallel/launch.py): stages 1.0 and 1.2 frame-data-parallel over them
+(their frame batch raised to a multiple of N), stages 2-6 on rank 0, which
+alone writes the tree. --dist_backend picks the collectives' backend:
+nccl (the default on cuda) takes one GPU per rank; gloo (the default on
+cpu) runs on the CPU with --device cpu, or lets several ranks share a
+card. N beyond what the backend can place is refused, as JAX's CLI
+refuses a mesh larger than its visible devices.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ from egogaussian_tpu_torch.data.readers import (
     read_split_file,
     write_scene_artifacts,
 )
+from egogaussian_tpu_torch.parallel.launch import BACKENDS, default_backend, placeable, spawn
 from egogaussian_tpu_torch.pipeline import run_pipeline
 from egogaussian_tpu_torch.utils.console import CONSOLE
 
@@ -52,15 +62,27 @@ def main(argv=None):
     parser.add_argument("--lpips_weights", default=None,
                         help=".npz LPIPS weights (eval/lpips.py)")
     parser.add_argument("--mesh", type=int, default=0, metavar="N",
-                        help="frame-data-parallel training over N devices (not ported yet)")
+                        help="frame-data-parallel stages 1.0/1.2 over N ranks (0 or 1: "
+                             "one process)")
+    parser.add_argument("--dist_backend", choices=BACKENDS, default=None,
+                        help="backend of a mesh's collectives (default: nccl on cuda, "
+                             "gloo on cpu)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to train and evaluate on (default: cuda)")
     args = parser.parse_args(argv)
-    if args.mesh > 1:
-        parser.error("--mesh > 1: frame-data-parallel training is not ported yet "
-                     "(ROADMAP.md §A, the parallel layer)")
     cfg = extract_config(args)
     device = torch.device(args.device)
+    if args.mesh > 1:
+        backend = args.dist_backend or default_backend(device)
+        if args.mesh > placeable(backend, device):
+            parser.error(f"--mesh {args.mesh}: the {backend} backend places "
+                         f"{placeable(backend, device)} ranks on {device.type}")
+        CONSOLE.print(f"Frame-data-parallel over {args.mesh} {backend} ranks on {device.type}")
+        metrics = spawn(_train_rank, 1, args.mesh, backend, device,
+                        args=(cfg, args.seed, args.resume, args.lpips_weights,
+                              args.checkpoint_every))
+        CONSOLE.print("Final metrics:", metrics[0])
+        return metrics
     lpips_fn = None
     if args.lpips_weights:
         from egogaussian_tpu_torch.eval.lpips import LPIPS
@@ -72,16 +94,32 @@ def main(argv=None):
     return result
 
 
+def _train_rank(mesh, cfg, seed, resume, lpips_weights, checkpoint_every):
+    """One rank of --mesh N: returns stage 6's metrics on rank 0, None on
+    the others."""
+    lpips_fn = None
+    if lpips_weights:
+        from egogaussian_tpu_torch.eval.lpips import LPIPS
+
+        lpips_fn = LPIPS(weights_path=lpips_weights, device=mesh.device)
+    result = train_video(cfg, seed=seed, resume=resume, lpips_fn=lpips_fn,
+                         checkpoint_every=checkpoint_every, device=mesh.device, mesh=mesh)
+    return None if result is None else result.metrics
+
+
 def train_video(cfg, seed: int, resume: bool, lpips_fn, checkpoint_every: int,
-                device: torch.device, fine_variant: str = "from-coarse", stop_after=None):
+                device: torch.device, fine_variant: str = "from-coarse", stop_after=None,
+                mesh=None):
     """The pipeline on the dataset at cfg.model.source_path, its tree under
     cfg.model.model_path (default <dataset>/output): cfg_args.json, the
     scene's input.ply and cameras.json, then run_pipeline's files. Returns
-    run_pipeline's result."""
+    run_pipeline's result. On a mesh, rank (s, 0) writes the tree."""
     src = cfg.model.source_path
     out = cfg.model.model_path or os.path.join(src, "output")
-    os.makedirs(out, exist_ok=True)
-    save_config(cfg, os.path.join(out, "cfg_args.json"))
+    writes = mesh is None or mesh.writes
+    if writes:
+        os.makedirs(out, exist_ok=True)
+        save_config(cfg, os.path.join(out, "cfg_args.json"))
 
     split_dir = os.path.join(src, "split")
     training_frames = read_split_file(os.path.join(split_dir, "training_frames.txt"))
@@ -96,7 +134,8 @@ def train_video(cfg, seed: int, resume: bool, lpips_fn, checkpoint_every: int,
                   f"extent {scene.cameras_extent:.3f}")
     # input.ply + cameras.json for external viewers (reference
     # scene/__init__.py:79-91)
-    write_scene_artifacts(scene, out)
+    if writes:
+        write_scene_artifacts(scene, out)
 
     return run_pipeline(
         scene, cfg, out,
@@ -111,6 +150,7 @@ def train_video(cfg, seed: int, resume: bool, lpips_fn, checkpoint_every: int,
         lpips_fn=lpips_fn,
         fine_variant=fine_variant,
         checkpoint_every=checkpoint_every,
+        mesh=mesh,
         device=device,
         stop_after=stop_after,
     )

@@ -1,19 +1,29 @@
-"""Multi-video training CLI: several datasets in one process on the one
-card.
+"""Multi-video training CLI: several datasets on a (scene, data) grid of
+ranks, or in one process.
 
 Port of `egogaussian_tpu/cli/train_multi.py`. The reference trains V videos
 as V jobs, one GPU each (train.sh:13-19); JAX's CLI trains them in one
-process, stacked on a scene axis in lockstep. Here the videos train one
-after the other, each through the six-stage pipeline of cli/train.py
-(run_pipeline) with seed --seed + i, so video i's output tree is the one
-`cli.train -s <dataset i> -m <output i> --seed <seed + i>` writes. Every
-scene is stepped on the one card either way; a lockstep whose scenes share
-one launch is ROADMAP.md §A's scene-batched launch, to be measured against
-this loop.
+process, stacked on a scene axis in lockstep. Here each video trains
+through the six-stage pipeline of cli/train.py (train_video) with seed
+--seed + i, so video i's output tree is the one
+`cli.train -s <dataset i> -m <output i> --seed <seed + i>` writes:
+
+  * --mesh 1x1 (the default): the videos one after the other in this
+    process.
+  * --mesh SxD with S·D > 1: S·D ranks started on this host
+    (parallel/launch.py); scene row s trains videos s, s+S, ... one after
+    the other, and its D data ranks run each video's stages 1.0 and 1.2
+    frame-data-parallel (stages 2-6 on the row's first rank). With D = 1
+    every video's tree equals its single run's byte for byte.
+
+This departs on purpose from JAX's lockstep stage loops, which step all
+scenes together through one vmapped step (ROADMAP.md §A item 11: a
+lockstep whose scenes share one launch, to be measured against this
+loop).
 
   python -m egogaussian_tpu_torch.cli.train_multi --videos ds1 ds2 \\
-      --outputs out1 out2 [--mesh 1x1] [--seed 0] [--stage1_only] \\
-      [--through_coarse] [--resume] [--checkpoint_every N] \\
+      --outputs out1 out2 [--mesh 1x1] [--dist_backend nccl] [--seed 0] \\
+      [--stage1_only] [--through_coarse] [--resume] [--checkpoint_every N] \\
       [--fine_variant from-coarse] [--lpips_weights f.npz] [--device cuda]
 
 Every dataset follows the reference layout (split/*.txt, as cli/train.py
@@ -21,9 +31,10 @@ reads it) and every config flag of cli/train.py applies to all videos.
 --stage1_only stops each video after stage 1.2 and --through_coarse after
 stage 2, where JAX's CLI stops; --resume skips every stage whose files
 exist, per video; --checkpoint_every is run_pipeline's. Runs on the card
-unless `--device cpu` is given. `--mesh SxD` with S·D > 1 is refused:
-sharding videos or frames over devices is the distributed layer, not
-ported yet (ROADMAP.md §A).
+unless `--device cpu` is given. --dist_backend: nccl (the default on cuda,
+one GPU per rank) or gloo (the default on cpu; on cuda, ranks may share a
+card). A mesh that is not SxD with positive axes, or that has more ranks
+than the backend can place, is refused before anything is written.
 """
 from __future__ import annotations
 
@@ -35,19 +46,25 @@ import torch
 
 from egogaussian_tpu_torch.cli.train import train_video
 from egogaussian_tpu_torch.config import add_config_args, extract_config
+from egogaussian_tpu_torch.parallel.launch import BACKENDS, default_backend, placeable, spawn
 from egogaussian_tpu_torch.utils.console import CONSOLE
 
 
-def _check_mesh(parser, text: str) -> None:
-    """Refuse any --mesh but one device (1x1)."""
+def _parse_mesh(parser, text: str, backend: str, device: torch.device):
+    """(S, D) from --mesh SxD; refuses malformed text, an axis below 1 and
+    more than one rank where the backend cannot place them all."""
+    parts = text.lower().split("x")
     try:
-        n_scene, n_data = (int(x) for x in text.lower().split("x"))
+        n_scene, n_data = (int(x) for x in parts)
     except ValueError:
-        parser.error(f"--mesh {text}: expected SxD, e.g. 1x1")
-    if n_scene * n_data != 1:
-        parser.error(f"--mesh {text}: {n_scene * n_data} devices; sharding videos or frames "
-                     "over devices is not ported yet (ROADMAP.md §A, the distributed slice); "
-                     "--mesh 1x1 trains every video on the one card")
+        parser.error(f"--mesh {text}: expected SxD, e.g. 2x1")
+    if n_scene < 1 or n_data < 1:
+        parser.error(f"--mesh {text}: every axis needs at least one rank")
+    n = n_scene * n_data
+    if n > 1 and n > placeable(backend, device):
+        parser.error(f"--mesh {text}: {n} ranks; the {backend} backend places "
+                     f"{placeable(backend, device)} on {device.type}")
+    return n_scene, n_data
 
 
 def main(argv=None) -> int:
@@ -57,7 +74,10 @@ def main(argv=None) -> int:
     parser.add_argument("--outputs", nargs="*", default=[], metavar="OUTPUT_DIR",
                         help="default: <dataset>/output per video")
     parser.add_argument("--mesh", default="1x1", metavar="SxD",
-                        help="scene x data mesh; only 1x1 (the one card) is ported")
+                        help="scene x data grid of ranks (1x1: one process)")
+    parser.add_argument("--dist_backend", choices=BACKENDS, default=None,
+                        help="backend of the mesh's collectives (default: nccl on cuda, "
+                             "gloo on cpu)")
     parser.add_argument("--seed", type=int, default=0, help="video i trains with seed + i")
     parser.add_argument("--stage1_only", action="store_true",
                         help="stop after stages 1.0-1.2")
@@ -74,9 +94,10 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda",
                         help="torch device to train and evaluate on (default: cuda)")
     args = parser.parse_args(argv)
-    _check_mesh(parser, args.mesh)
-    cfg = extract_config(args)
     device = torch.device(args.device)
+    backend = args.dist_backend or default_backend(device)
+    n_scene, n_data = _parse_mesh(parser, args.mesh, backend, device)
+    cfg = extract_config(args)
 
     srcs = [os.path.abspath(s) for s in args.videos]
     outs = [os.path.abspath(o) for o in args.outputs] or [os.path.join(s, "output")
@@ -84,22 +105,38 @@ def main(argv=None) -> int:
     if len(outs) != len(srcs):
         parser.error(f"{len(srcs)} videos but {len(outs)} outputs")
     stop_after = "background" if args.stage1_only else "coarse" if args.through_coarse else None
+    run = (cfg, srcs, outs, args.seed, args.resume, args.lpips_weights, args.checkpoint_every,
+           args.fine_variant, stop_after)
+    if n_scene * n_data > 1:
+        CONSOLE.print(f"[multi] mesh {n_scene}x{n_data} of {backend} ranks on {device.type}")
+        spawn(_scene_row, n_scene, n_data, backend, device, args=run)
+    else:
+        _train_videos(range(len(srcs)), device, None, *run)
+    return 0
 
+
+def _scene_row(mesh, *run):
+    """One rank of --mesh SxD: scene row s trains videos s, s+S, ..."""
+    _train_videos(range(mesh.coords["scene"], len(run[1]), mesh.shape["scene"]),
+                  mesh.device, mesh, *run)
+
+
+def _train_videos(videos, device, mesh, cfg, srcs, outs, seed, resume, lpips_weights,
+                  checkpoint_every, fine_variant, stop_after):
     lpips_fn = None
-    if args.lpips_weights:
+    if lpips_weights:
         from egogaussian_tpu_torch.eval.lpips import LPIPS
 
-        lpips_fn = LPIPS(weights_path=args.lpips_weights, device=device)
-    for i, (src, out) in enumerate(zip(srcs, outs)):
-        CONSOLE.print(f"[multi] video {i + 1} of {len(srcs)}: {src}")
+        lpips_fn = LPIPS(weights_path=lpips_weights, device=device)
+    for i in videos:
+        CONSOLE.print(f"[multi] video {i + 1} of {len(srcs)}: {srcs[i]}")
         cfg_i = dataclasses.replace(cfg, model=dataclasses.replace(
-            cfg.model, source_path=src, model_path=out))
-        result = train_video(cfg_i, seed=args.seed + i, resume=args.resume, lpips_fn=lpips_fn,
-                             checkpoint_every=args.checkpoint_every, device=device,
-                             fine_variant=args.fine_variant, stop_after=stop_after)
+            cfg.model, source_path=srcs[i], model_path=outs[i]))
+        result = train_video(cfg_i, seed=seed + i, resume=resume, lpips_fn=lpips_fn,
+                             checkpoint_every=checkpoint_every, device=device,
+                             fine_variant=fine_variant, stop_after=stop_after, mesh=mesh)
         if result is not None:
-            CONSOLE.print(f"{src}: final metrics {result.metrics}")
-    return 0
+            CONSOLE.print(f"{srcs[i]}: final metrics {result.metrics}")
 
 
 if __name__ == "__main__":

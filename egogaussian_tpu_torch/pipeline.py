@@ -23,6 +23,12 @@ mid-stage and resumes from it (train/ckpt_hook.py), with or without
 <save_dir>/logs/metrics.jsonl; each stage closes with a record
 stage="pipeline", event="stage_time": its wall-clock seconds, iterations
 and alive count, and whether it was resumed.
+
+On a mesh (parallel/mesh.py) stages 1.0 and 1.2 run frame-data-parallel
+on every data rank of the scene row; the pose stages 2-6 chain each
+frame's pose off the previous one and run on the row's first rank alone,
+which writes every file and the metrics log, while the other ranks wait
+at a barrier and return None.
 """
 from __future__ import annotations
 
@@ -105,13 +111,12 @@ def run_pipeline(
     `checkpoint_every` goes to every trainer (stage 2 saves per solved
     frame whatever its value). `stop_after="background"` ends the run after
     stage 1.2 and `"coarse"` after stage 2, returning None (the
-    multi-video CLI's --stage1_only and --through_coarse).
-
-    Not ported yet: frame-data-parallel meshes (mesh)."""
+    multi-video CLI's --stage1_only and --through_coarse). `mesh`: stages
+    1.0 and 1.2 frame-data-parallel over its data axis, the rest on rank
+    (s, 0), which alone returns the result; `device` then defaults to
+    mesh.device."""
     if device is None:
-        device = torch.device("cuda")
-    if mesh is not None:
-        raise NotImplementedError("frame-data-parallel training is not ported yet")
+        device = mesh.device if mesh is not None else torch.device("cuda")
     if stop_after not in STOP_AFTER:
         raise ValueError(f"stop_after={stop_after!r}: expected one of {STOP_AFTER}")
     cameras = scene.cameras
@@ -119,7 +124,7 @@ def run_pipeline(
     dynamic_groups = split_viewpoints_by_phase(cameras, dynamic_phases, training_frames)
     os.makedirs(save_dir, exist_ok=True)
     logger = MetricsLogger(
-        log_dir=os.path.join(save_dir, "logs"),
+        log_dir=os.path.join(save_dir, "logs") if mesh is None or mesh.writes else None,
         use_wandb=cfg.log.use_wandb,
         project=cfg.log.wandb_project,
         run_name=os.path.basename(os.path.normpath(save_dir)),
@@ -128,7 +133,7 @@ def run_pipeline(
         return _run_pipeline_stages(
             scene, cfg, save_dir, cameras, static_groups, dynamic_groups, training_frames,
             dynamic_eval_frames, static_eval_frames, dynamic_phases, seed, backend, resume,
-            lpips_fn, fine_variant, checkpoint_every, device, stop_after)
+            lpips_fn, fine_variant, checkpoint_every, device, stop_after, mesh)
 
 
 def _log_stage_time(name: str, t0: float, iterations: int, resumed: bool, alive=None):
@@ -144,7 +149,7 @@ def _log_stage_time(name: str, t0: float, iterations: int, resumed: bool, alive=
 def _run_pipeline_stages(scene, cfg, save_dir, cameras, static_groups, dynamic_groups,
                          training_frames, dynamic_eval_frames, static_eval_frames,
                          dynamic_phases, seed, backend, resume, lpips_fn, fine_variant,
-                         checkpoint_every, device, stop_after) -> Optional[PipelineResult]:
+                         checkpoint_every, device, stop_after, mesh) -> Optional[PipelineResult]:
     extent = scene.cameras_extent
     kw = dict(seed=seed, backend=backend, device=device, checkpoint_every=checkpoint_every)
     sh = cfg.model.sh_degree
@@ -162,7 +167,7 @@ def _run_pipeline_stages(scene, cfg, save_dir, cameras, static_groups, dynamic_g
     else:
         static_results = train_static(
             cameras, scene.points, scene.colors, cfg, static_groups, extent,
-            save_dir=static_dir, **kw)
+            save_dir=static_dir, mesh=mesh, **kw)
         pred_masks = {}
         for r in static_results:
             pred_masks.update(r.pred_masks)
@@ -203,11 +208,14 @@ def _run_pipeline_stages(scene, cfg, save_dir, cameras, static_groups, dynamic_g
         CONSOLE.log("[pipeline] resume: background artifacts found")
     else:
         train_background(cameras, scene.points, scene.colors, cfg, all_train_idx, extent,
-                         save_dir=bg_dir, **kw)
+                         save_dir=bg_dir, mesh=mesh, **kw)
     bg_model = load_ply(bg_ply, device, force_bg=True, spatial_lr_scale=extent, sh_degree=sh)
     iters = cfg.static_bg.std_train_iter + cfg.static_bg.entropy_reg_iter
     _log_stage_time("background", t0, 0 if resumed else iters, resumed, bg_model.num_alive)
     if stop_after == "background":
+        return None
+    if mesh is not None and not mesh.writes:
+        mesh.barrier()  # stages 2-6 run on rank (s, 0)
         return None
 
     # ---- Stage 2: coarse object pose
@@ -228,7 +236,7 @@ def _run_pipeline_stages(scene, cfg, save_dir, cameras, static_groups, dynamic_g
     iters = sum(len(g) + 1 for g in dynamic_groups) * cfg.coarse.total_num_iter
     _log_stage_time("coarse", t0, 0 if resumed else iters, resumed, coarse_model.num_alive)
     if stop_after == "coarse":
-        return None
+        return _row_done(mesh, None)
 
     # ---- Stage 3: fine-tune the object, both variants like the reference
     fine_results = {}
@@ -292,7 +300,15 @@ def _run_pipeline_stages(scene, cfg, save_dir, cameras, static_groups, dynamic_g
     )
     metrics = calculate_metric(buckets, save_dir=eval_dir, lpips_fn=lpips_fn, device=device)
     _log_stage_time("eval", t0, 0, False)
-    return PipelineResult(final_model=final_model, pose_seq=seq_final, metrics=metrics)
+    return _row_done(mesh, PipelineResult(final_model=final_model, pose_seq=seq_final,
+                                          metrics=metrics))
+
+
+def _row_done(mesh, result):
+    """Release the scene row's ranks waiting after stage 1.2."""
+    if mesh is not None:
+        mesh.barrier()
+    return result
 
 
 def _load_pred_masks(mask_dir: str) -> Dict[str, np.ndarray]:

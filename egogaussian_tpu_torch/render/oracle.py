@@ -100,7 +100,13 @@ def composite_oracle(
     img = torch.zeros((d, height, width), dtype=dt, device=dev)
     acc_alpha = torch.zeros((height, width), dtype=dt, device=dev)
     acc_depth = torch.zeros((height, width), dtype=dt, device=dev)
-    for lo in range(0, n, chunk_size):
+    # the culled Gaussians sort to the back; a chunk of culled ones only
+    # adds exact zeros (alpha 0: log1p(-0) = 0, w = 0), so the loop stops
+    # after the chunk that holds the last visible Gaussian, bit for bit the
+    # full loop's result (a host sync: the oracle is no hot path)
+    visible = torch.nonzero(valid_s)
+    n_iter = int(visible[-1, 0]) + 1 if visible.numel() else 0
+    for lo in range(0, n_iter, chunk_size):
         sl = slice(lo, lo + chunk_size)
         alpha = pixel_alphas(means2d[sl], conics[sl], ops[sl], xs, ys, valid_s[sl])
         log1m = torch.log1p(-alpha)  # alpha <= 0.99 so finite

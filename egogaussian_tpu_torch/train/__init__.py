@@ -1,4 +1,5 @@
 from egogaussian_tpu_torch.train.common import (
+    TrainState,
     render_gaussians,
     mask_grad,
     image_loss,

@@ -49,10 +49,14 @@ def _to_host(x):
 
 
 class StageCheckpointer:
-    def __init__(self, path: Optional[str], every: int = 0):
-        """path=None or every=0 turns checkpointing off."""
+    def __init__(self, path: Optional[str], every: int = 0, mesh=None):
+        """path=None or every=0 turns checkpointing off. `mesh`
+        (parallel/mesh.py): its rank (s, 0) alone writes the file, and the
+        scene row waits at a barrier after each save; every rank restores
+        from the same file."""
         self.path = path
         self.every = every
+        self.mesh = mesh
         self.extra: Any = None
 
     def maybe_save(self, it: int, state: Sequence[Any], rng: np.random.RandomState,
@@ -63,9 +67,12 @@ class StageCheckpointer:
         `self.extra` by try_restore."""
         if not self.path or not self.every or it % self.every:
             return
-        blob = pickle.dumps({"it": it, "rng": rng.get_state(), "gen": gen.get_state(),
-                             "extra": _to_host(extra)})
-        save_train_state(self.path, state_tensors(state), host_blob=blob)
+        if self.mesh is None or self.mesh.writes:
+            blob = pickle.dumps({"it": it, "rng": rng.get_state(), "gen": gen.get_state(),
+                                 "extra": _to_host(extra)})
+            save_train_state(self.path, state_tensors(state), host_blob=blob)
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def exists(self) -> bool:
         return bool(self.path) and os.path.exists(self.path)

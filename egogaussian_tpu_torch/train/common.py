@@ -21,11 +21,23 @@ import torch
 import torch.nn.functional as F
 
 from egogaussian_tpu_torch.models.gaussians import GaussianModel
+from egogaussian_tpu_torch.models.optim import AdamState
 from egogaussian_tpu_torch.ops.losses import l1_loss, ssim
 from egogaussian_tpu_torch.ops.sh import sh_to_rgb
 from egogaussian_tpu_torch.render.api import RenderResult, render, resolve_backend
 from egogaussian_tpu_torch.render.camera import Camera
 from egogaussian_tpu_torch.utils.console import CONSOLE
+
+
+@dataclasses.dataclass
+class TrainState:
+    """A model, its Adam state and the step count (JAX's TrainState, a
+    pytree there; here a plain dataclass). The trainers carry the three
+    separately and checkpoint them through train/ckpt_hook.py."""
+
+    model: GaussianModel
+    opt_state: AdamState
+    step: torch.Tensor  # 0-d int32
 
 
 def mask_grad(img: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

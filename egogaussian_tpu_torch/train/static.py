@@ -48,6 +48,7 @@ from egogaussian_tpu_torch.models.gaussians import (
 )
 from egogaussian_tpu_torch.models.optim import adam_init, adam_update, gaussian_lr_tree
 from egogaussian_tpu_torch.ops.losses import bce_with_logits
+from egogaussian_tpu_torch.parallel.mesh import gather_blocks, max_blocks, sum_blocks
 from egogaussian_tpu_torch.render.api import render
 from egogaussian_tpu_torch.train.ckpt_hook import (
     StageCheckpointer,
@@ -137,6 +138,19 @@ def _static_lr_tree(model, it, opt_cfg, mode, label_lr):
     return gaussian_lr_tree(it, opt_cfg, model.spatial_lr_scale, label_lr=0.0)
 
 
+def _apply_step(model, opt_state, lr_tree, param_grads, gn, den, rmax):
+    """Accumulate the densification statistics and take the Adam step."""
+    aux = dataclasses.replace(
+        model.aux,
+        xyz_gradient_accum=model.aux.xyz_gradient_accum + gn,
+        denom=model.aux.denom + den,
+        max_radii2d=torch.maximum(model.aux.max_radii2d, rmax),
+    )
+    with torch.no_grad():
+        new_params, new_opt = adam_update(model.params, param_grads, opt_state, lr_tree)
+    return dataclasses.replace(model, params=new_params, aux=aux), new_opt
+
+
 def _static_step(model, opt_state, batch, fidxs, grad_masks, it, drop_max,
                  mode="std", lambda_dssim=0.2, backend="tiled", tile_config=None,
                  bg_color=None, opt_cfg=None, label_lr=0.0):
@@ -150,17 +164,77 @@ def _static_step(model, opt_state, batch, fidxs, grad_masks, it, drop_max,
     param_grads, probe_grads, losses, radii, dropped = _frames_loss_grads(
         model, batch, fidxs, grad_masks, mode, lambda_dssim, backend, tile_config, bg)
     gn, den, rmax = _probe_stats(batch, probe_grads, radii, len(fidxs))
-    aux = dataclasses.replace(
-        model.aux,
-        xyz_gradient_accum=model.aux.xyz_gradient_accum + gn,
-        denom=model.aux.denom + den,
-        max_radii2d=torch.maximum(model.aux.max_radii2d, rmax),
-    )
-    with torch.no_grad():
-        new_params, new_opt = adam_update(model.params, param_grads, opt_state, lr_tree)
-    model = dataclasses.replace(model, params=new_params, aux=aux)
+    model, new_opt = _apply_step(model, opt_state, lr_tree, param_grads, gn, den, rmax)
     return (model, new_opt, torch.mean(losses), radii,
             torch.maximum(drop_max, torch.amax(dropped)))
+
+
+def _dp_static_step(model, opt_state, batch, fidxs, grad_masks, it, drop_max, mesh=None,
+                    mode="std", lambda_dssim=0.2, backend="tiled", tile_config=None,
+                    bg_color=None, opt_cfg=None, label_lr=0.0, axis="data"):
+    """Frame-data-parallel `_static_step` (JAX's `_dp_static_step`): the
+    K frames `fidxs` (K a multiple of the axis size; every rank passes the
+    same list) are cut into equal contiguous blocks, and rank d of the
+    mesh's `axis` runs the real per-frame body (`_frames_loss_grads`) on
+    block d. The parameter gradients and the loss are the mean of the
+    ranks' local means; the densification sums (grad-norm accumulator,
+    visibility counts) are summed and the max screen radius and dropped
+    pairs max-reduced, so the statistics equal K sequential reference
+    iterations. Every reduced tensor goes in one flat buffer through one
+    all_gather, and each rank reduces the blocks in rank order itself:
+    every replica gets the same bits, and Adam then runs replicated.
+    Returns (model, opt_state, loss, this rank's radii [K / n, C],
+    drop_max). On a one-rank axis it gives `_static_step`'s bits."""
+    n = mesh.shape[axis]
+    if len(fidxs) % n:
+        raise ValueError(f"frame batch {len(fidxs)} not divisible by {axis}={n}")
+    k = len(fidxs) // n
+    i = mesh.coords[axis]
+    lr_tree = _static_lr_tree(model, it, opt_cfg, mode, label_lr)
+    bg = (torch.zeros(3, device=model.device) if bg_color is None
+          else torch.as_tensor(bg_color, device=model.device))
+    param_grads, probe_grads, losses, radii, dropped = _frames_loss_grads(
+        model, batch, fidxs[i * k:(i + 1) * k], grad_masks, mode, lambda_dssim, backend,
+        tile_config, bg)
+    gn, den, rmax = _probe_stats(batch, probe_grads, radii, k)
+    grads = list(param_grads.as_dict().values())
+    # [grads | loss | grad-norm sums | counts] summed, [max radii] and the
+    # dropped count (int32 bits carried as float32) max-reduced
+    summed = torch.cat([g.reshape(-1) for g in grads] + [torch.mean(losses)[None], gn, den])
+    drop_bits = torch.amax(dropped).to(torch.int32).reshape(1).view(torch.float32)
+    blocks = gather_blocks(mesh, torch.cat([summed, rmax, drop_bits]), axis)
+    c = model.capacity
+    total = sum_blocks(blocks[:, :summed.numel()])
+    rmax = max_blocks(blocks[:, summed.numel():summed.numel() + c])
+    drop = torch.amax(blocks[:, -1].contiguous().view(torch.int32)).to(drop_max.dtype)
+    n_grad = summed.numel() - 1 - 2 * c
+    mean = total[:n_grad + 1] / n
+    split = torch.split(mean[:n_grad], [g.numel() for g in grads])
+    param_grads = GaussianParams(**{name: g.view_as(x) for (name, x), g in
+                                    zip(param_grads.as_dict().items(), split)})
+    gn, den = total[n_grad + 1:n_grad + 1 + c], total[n_grad + 1 + c:]
+    model, new_opt = _apply_step(model, opt_state, lr_tree, param_grads, gn, den, rmax)
+    return model, new_opt, mean[n_grad], radii, torch.maximum(drop_max, drop)
+
+
+def _run_static_step(mesh, model, opt_state, batch, fidxs, grad_masks, it, drop_max, **kw):
+    """Route one static / background iteration to the single-rank step or,
+    on a mesh whose data axis has more than one rank, the
+    frame-data-parallel one."""
+    if mesh is None or mesh.shape["data"] <= 1:
+        return _static_step(model, opt_state, batch, fidxs, grad_masks, it, drop_max, **kw)
+    return _dp_static_step(model, opt_state, batch, fidxs, grad_masks, it, drop_max,
+                           mesh=mesh, **kw)
+
+
+def _dp_frame_batch(fb: int, mesh) -> int:
+    """Frames per step: at least 1 and, on a mesh, a multiple of the data
+    axis size (one frame per rank at least)."""
+    fb = max(1, fb)
+    if mesh is None:
+        return fb
+    n = mesh.shape["data"]
+    return (fb + n - 1) // n * n
 
 
 def _log_dropped_pairs(stage: str, phase, drop_max) -> None:
@@ -227,11 +301,15 @@ def train_static(
     phase's state goes to save_dir/ckpt_static_phase{phase}.npz, and a
     phase whose file exists resumes from it (train/ckpt_hook.py).
 
-    Not ported yet: frame-data-parallel meshes (mesh)."""
+    `mesh` (parallel/mesh.py): the frame batch is sharded over the data
+    axis (_dp_static_step; frame_batch raised to a multiple of its size).
+    Every rank of the scene row draws the same frames and noise from the
+    same seeds, densifies, prunes and regrows from the same reduced
+    tensors, so the replicas stay identical; rank (s, 0) alone writes the
+    PLYs, masks and checkpoints, and the row waits at a barrier after
+    each write. `device` then defaults to mesh.device."""
     if device is None:
-        device = torch.device("cuda")
-    if mesh is not None:
-        raise NotImplementedError("frame-data-parallel training is not ported yet")
+        device = mesh.device if mesh is not None else torch.device("cuda")
     # float32 throughout: cuDNN would run the SSIM convolutions in TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -256,7 +334,7 @@ def train_static(
 
         ckpt = StageCheckpointer(
             os.path.join(save_dir, f"ckpt_static_phase{phase}.npz")
-            if save_dir and checkpoint_every else None, checkpoint_every)
+            if save_dir and checkpoint_every else None, checkpoint_every, mesh)
         start_it = 0
         if ckpt.exists():
             model, opt_state = grow_to_capacity(model, opt_state, ckpt.peek_capacity())
@@ -275,7 +353,7 @@ def train_static(
                                  sp.rewind_frames, mask_valid)
         CONSOLE.log(f"[static] phase {phase}: {len(phase_cams)} frames, "
                     f"{total_iters} iters, capacity {model.capacity}")
-        fb = max(1, sp.frame_batch)
+        fb = _dp_frame_batch(sp.frame_batch, mesh)
         for it in range(start_it + 1, total_iters + 1):
             if fb == 1:
                 fidxs = [stack[rng.randint(len(stack))]]
@@ -288,8 +366,8 @@ def train_static(
             else:
                 mode = "label"
             bg_color = rng.rand(3).astype(np.float32) if opt_cfg.random_background else None
-            model, opt_state, loss, _, drop_max = _static_step(
-                model, opt_state, batch, fidxs, batch.hand_masks, it, drop_max,
+            model, opt_state, loss, _, drop_max = _run_static_step(
+                mesh, model, opt_state, batch, fidxs, batch.hand_masks, it, drop_max,
                 mode=mode, lambda_dssim=opt_cfg.lambda_dssim, backend=backend,
                 tile_config=tile_cfg, bg_color=bg_color, opt_cfg=opt_cfg,
                 label_lr=sp.label_lr,
@@ -357,7 +435,7 @@ def train_static(
                                          tile_config=tile_cfg)
                 pred_masks[cam_obj.image_name] = (lbl[0] > 0.5).to(torch.float32).cpu().numpy()
 
-        if save_dir:
+        if save_dir and (mesh is None or mesh.writes):
             ply_dir = os.path.join(save_dir, "ply")
             save_ply(model, os.path.join(ply_dir, f"static_phase{phase}.ply"))
             save_ply(obj_model, os.path.join(ply_dir, f"static_phase{phase}_obj.ply"))
@@ -372,6 +450,8 @@ def train_static(
                 for name, msk in pred_masks.items():
                     Image.fromarray((msk * 255).astype(np.uint8)).save(
                         os.path.join(mask_dir, f"{name}.png"))
+        if mesh is not None:
+            mesh.barrier()
 
         results.append(StaticPhaseResult(
             model=model, obj_model=obj_model, bg_model=bg_model,
@@ -409,12 +489,10 @@ def train_background(
     completes the object masks of static frames only). `checkpoint_every`
     > 0 (with save_dir): the state goes to save_dir/ckpt_bg.npz every that
     many iterations, and a run whose file exists resumes from it.
-
-    Not ported yet: frame-data-parallel meshes (mesh)."""
+    `mesh`: frame-data-parallel over its data axis, as train_static's;
+    rank (s, 0) alone writes the checkpoints and the PLY."""
     if device is None:
-        device = torch.device("cuda")
-    if mesh is not None:
-        raise NotImplementedError("frame-data-parallel training is not ported yet")
+        device = mesh.device if mesh is not None else torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -448,7 +526,7 @@ def train_background(
 
     ckpt = StageCheckpointer(
         os.path.join(save_dir, "ckpt_bg.npz") if save_dir and checkpoint_every else None,
-        checkpoint_every)
+        checkpoint_every, mesh)
     start_it = 0
     if ckpt.exists():
         model, opt_state = grow_to_capacity(model, opt_state, ckpt.peek_capacity())
@@ -458,15 +536,15 @@ def train_background(
         backend = pick_backend(tile_cfg, backend)
     CONSOLE.log(f"[bg] {len(train_cams)} frames, {total_iters} iters")
 
-    fb = max(1, bp.frame_batch)
+    fb = _dp_frame_batch(bp.frame_batch, mesh)
     for it in range(start_it + 1, total_iters + 1):
         if fb == 1:
             fidxs = [rng.randint(len(train_cams))]
         else:
             fidxs = list(rng.randint(len(train_cams), size=fb))
         mode = "std" if it <= bp.std_train_iter else "entropy"
-        model, opt_state, loss, _, drop_max = _static_step(
-            model, opt_state, batch, fidxs, int_masks, it, drop_max,
+        model, opt_state, loss, _, drop_max = _run_static_step(
+            mesh, model, opt_state, batch, fidxs, int_masks, it, drop_max,
             mode=mode, lambda_dssim=opt_cfg.lambda_dssim, backend=backend,
             tile_config=tile_cfg, opt_cfg=opt_cfg,
         )
@@ -511,6 +589,8 @@ def train_background(
     _log_dropped_pairs("bg", None, drop_max)
     log_metrics("bg", total_iters, event="stage_end", steps=total_iters,
                 dropped_pairs=drop_max)
-    if save_dir:
+    if save_dir and (mesh is None or mesh.writes):
         save_ply(model, os.path.join(save_dir, "static_bg.ply"))
+    if mesh is not None:
+        mesh.barrier()
     return model

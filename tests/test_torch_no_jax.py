@@ -53,7 +53,12 @@ def test_port_modules_found():
                      "egogaussian_tpu_torch.utils.visualize",
                      "egogaussian_tpu_torch.utils.native_io",
                      "egogaussian_tpu_torch.cli.ply_tools",
-                     "egogaussian_tpu_torch.cli.train_multi"):
+                     "egogaussian_tpu_torch.cli.train_multi",
+                     "egogaussian_tpu_torch.parallel.mesh",
+                     "egogaussian_tpu_torch.parallel.launch",
+                     "egogaussian_tpu_torch.parallel.data_parallel",
+                     "egogaussian_tpu_torch.parallel.shard_render",
+                     "egogaussian_tpu_torch.parallel.dryrun"):
         assert expected in names
 
 

@@ -12,8 +12,11 @@
   * the training CLI on a 64x48 video exported in the reference's dataset
     layout, with --device cpu; the same run with --checkpoint_every,
     stopped inside stage 3 and rerun with --resume, gives the unbroken
-    run's PLYs and pose files byte for byte and its metrics; --mesh 2 is
-    refused;
+    run's PLYs and pose files byte for byte and its metrics; with --mesh 2
+    (two gloo ranks, stages 1.0 and 1.2 frame-data-parallel) rank 0 writes
+    the same tree and one metrics record per stage, and the stage-1 PLYs
+    are a single process's at frame batch 2 within 5e-5 (the PLY bound of
+    the last test: the ranks' mean of means reassociates float sums);
   * the whole pipeline against JAX's `run_pipeline` on the same 48x36
     video at a schedule shorter than tiny_config with every densify window
     empty (JAX in interpret-mode Pallas, the port on its plain twins).
@@ -40,7 +43,8 @@ from egogaussian_tpu.models.pose import load_pose_sequence as j_load_pose_sequen
 from egogaussian_tpu.pipeline import run_pipeline as j_run_pipeline
 from egogaussian_tpu.train.static import train_background as j_train_background
 from egogaussian_tpu_torch.cli.train import main as train_main
-from egogaussian_tpu_torch.config import Config
+from egogaussian_tpu_torch.cli.train import train_video
+from egogaussian_tpu_torch.config import Config, add_config_args, extract_config
 from egogaussian_tpu_torch.data import make_synthetic_video
 from egogaussian_tpu_torch.data.export_colmap import export_colmap_dataset
 from egogaussian_tpu_torch.data.readers import SceneData, compute_nerfpp_norm
@@ -242,8 +246,27 @@ def test_train_cli_on_exported_dataset(tmp_path, monkeypatch):
     with open(os.path.join(src, "split", "dynamic_eval_frames.txt")) as f:
         held_out = vid.image_names.index(f.read().strip())
     assert bool(res.pose_seq.solved[held_out])
-    with pytest.raises(SystemExit):
-        train_main(["-s", src, "-m", out, "--device", "cpu", "--mesh", "2"])
+
+    # --mesh 2: two gloo ranks; rank 0 alone returns the metrics and writes
+    mesh_out = str(tmp_path / "mesh")
+    per_rank = train_main(["-s", src, "-m", mesh_out, "--device", "cpu", "--mesh", "2"]
+                          + schedule)
+    assert per_rank[1] is None and set(per_rank[0]) == set(res.metrics)
+    assert _tree(mesh_out) == _tree(out)
+    timed = [r["name"] for r in _records(mesh_out) if r.get("event") == "stage_time"]
+    assert len(timed) == len(set(timed)) == len(STAGES) + 2  # + interpolate, eval
+    single = str(tmp_path / "single_fb2")
+    cfg = extract_config(_config_args(["-s", src, "-m", single, "--s_frame_batch", "2",
+                                       "--b_frame_batch", "2"] + schedule))
+    train_video(cfg, seed=0, resume=False, lpips_fn=None, checkpoint_every=0, device=CPU,
+                stop_after="background")
+    for ply in ("static/ply/static_phase0.ply", "static/ply/static_phase1.ply",
+                "background/static_bg.ply"):
+        vs, _ = read_ply(os.path.join(single, ply))
+        vm, _ = read_ply(os.path.join(mesh_out, ply))
+        assert len(vm["x"]) == len(vs["x"]) > 0, ply
+        for k in vs:
+            np.testing.assert_allclose(vm[k], vs[k], atol=5e-5, rtol=0, err_msg=f"{ply}: {k}")
 
     # --checkpoint_every: stopped inside stage 3 right after its checkpoint
     # of iteration 2, then rerun with --resume, it ends where the unbroken
@@ -281,6 +304,14 @@ def test_train_cli_on_exported_dataset(tmp_path, monkeypatch):
 
 class _Stopped(RuntimeError):
     """Stands in for a killed process."""
+
+
+def _config_args(argv):
+    from argparse import ArgumentParser
+
+    parser = ArgumentParser()
+    add_config_args(parser)
+    return parser.parse_args(argv)
 
 
 def _short(cfg):

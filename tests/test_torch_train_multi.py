@@ -8,9 +8,14 @@ with --device cpu:
     evaluation image and results.txt byte for byte (cfg_args.json names
     its own paths, metrics.jsonl its own timings);
   * a --resume rerun trains nothing and scores the same;
+  * on a 2x1 mesh (two gloo ranks, one scene row per video) each video's
+    tree equals its cli.train run's the same way; on a 1x2 mesh (one
+    scene row of two data ranks) --stage1_only runs stages 1.0 and 1.2
+    frame-data-parallel, rank 0 writing every video's files and metrics;
   * --stage1_only stops after stage 1.2 and --through_coarse after stage 2,
     where JAX's CLI stops, and run_pipeline refuses any other stop;
-  * --mesh beyond 1x1 and a videos / outputs mismatch are refused;
+  * a malformed mesh, a zero axis, more ranks than the backend places and
+    a videos / outputs mismatch are refused before anything is written;
   * the CLI runs on the card unless told otherwise.
 
 The comparison with JAX's training CLI per video (interpret-mode Pallas,
@@ -87,13 +92,21 @@ def _multi(datasets, outs, *flags):
                              "--seed", "0", *flags] + SCHEDULE)
 
 
-def test_train_multi_equals_per_video_train_cli(datasets, tmp_path):
-    outs = [str(tmp_path / f"multi{i}") for i in range(2)]
-    assert _multi(datasets, outs, "--mesh", "1x1") == 0
-    for i, (src, out) in enumerate(zip(datasets, outs)):
-        single = str(tmp_path / f"single{i}")
-        res = train_main(["-s", src, "-m", single, "--device", "cpu", "--seed", str(i)]
+@pytest.fixture(scope="module")
+def singles(datasets, tmp_path_factory):
+    """Each video through the per-video training CLI with seed i."""
+    root = tmp_path_factory.mktemp("single")
+    outs = []
+    for i, src in enumerate(datasets):
+        outs.append(str(root / f"single{i}"))
+        res = train_main(["-s", src, "-m", outs[-1], "--device", "cpu", "--seed", str(i)]
                          + SCHEDULE)
+        assert res.metrics  # the per-video run scored
+    return outs
+
+
+def _assert_equals_singles(datasets, outs, singles):
+    for i, (src, out, single) in enumerate(zip(datasets, outs, singles)):
         tree = _tree(out)
         assert tree == _tree(single)
         assert "fine_all/gaussians_all.ply" in tree and "evaluation/results.txt" in tree
@@ -107,9 +120,15 @@ def test_train_multi_equals_per_video_train_cli(datasets, tmp_path):
         assert saved["static"]["label_lr"] == 0.1
         timed = [r for r in _records(out) if r.get("event") == "stage_time"]
         assert {r["name"] for r in timed} == STAGES and not any(r["resumed"] for r in timed)
+        assert len(timed) == len(STAGES)
         ends = [r["stage"] for r in _records(out) if r.get("event") == "stage_end"]
         assert ends == [r["stage"] for r in _records(single) if r.get("event") == "stage_end"]
-        assert res.metrics  # the per-video run scored
+
+
+def test_train_multi_equals_per_video_train_cli(datasets, singles, tmp_path):
+    outs = [str(tmp_path / f"multi{i}") for i in range(2)]
+    assert _multi(datasets, outs, "--mesh", "1x1") == 0
+    _assert_equals_singles(datasets, outs, singles)
 
     # --resume: every stage's files exist, nothing trains, the same scores
     before = [len(_records(out)) for out in outs]
@@ -119,10 +138,30 @@ def test_train_multi_equals_per_video_train_cli(datasets, tmp_path):
         assert {r["stage"] for r in later} == {"pipeline"}
         assert all(r["resumed"] for r in later if r.get("event") == "stage_time"
                    and r["name"] not in ("interpolate", "eval"))
-    for i, out in enumerate(outs):
+    for out, single in zip(outs, singles):
         assert filecmp.cmp(os.path.join(out, "evaluation", "results.txt"),
-                           os.path.join(tmp_path / f"single{i}", "evaluation", "results.txt"),
-                           shallow=False)
+                           os.path.join(single, "evaluation", "results.txt"), shallow=False)
+
+
+def test_scene_mesh_equals_per_video_train_cli(datasets, singles, tmp_path):
+    """--mesh 2x1: rank s trains video s, each byte for byte its single run."""
+    outs = [str(tmp_path / f"multi{i}") for i in range(2)]
+    assert _multi(datasets, outs, "--mesh", "2x1") == 0
+    _assert_equals_singles(datasets, outs, singles)
+
+
+def test_data_mesh_runs_stage1_frame_data_parallel(datasets, tmp_path):
+    """--mesh 1x2 --stage1_only: one scene row of two data ranks trains both
+    videos' stages 1.0 and 1.2 in turn; rank 0 writes each video's files
+    and one stage_time record per stage."""
+    outs = [str(tmp_path / f"out{i}") for i in range(2)]
+    assert _multi(datasets, outs, "--mesh", "1x2", "--stage1_only") == 0
+    for out in outs:
+        assert os.path.exists(os.path.join(out, "static", "ply", "static_phase1_obj.ply"))
+        assert os.path.exists(os.path.join(out, "background", "static_bg.ply"))
+        assert not os.path.exists(os.path.join(out, "coarse"))
+        timed = [r["name"] for r in _records(out) if r.get("event") == "stage_time"]
+        assert timed == ["static", "background"]
 
 
 def test_stage1_only_and_through_coarse_stop_where_jax_does(datasets, tmp_path):
@@ -149,11 +188,15 @@ def test_run_pipeline_refuses_an_unknown_stop(tmp_path):
     assert not os.path.exists(tmp_path / "out")
 
 
-@pytest.mark.parametrize("mesh", ["2x1", "1x2", "2x4", "one"])
+@pytest.mark.parametrize("mesh", [["one"], ["0x2"], ["2x1", "--dist_backend", "nccl"],
+                                  ["2x2x1"]])
 def test_meshes_beyond_1x1_are_refused(datasets, tmp_path, mesh):
+    """Meshes that stay refused: malformed text, a zero axis, more ranks
+    than the backend places (nccl takes one GPU per rank and places none
+    on the CPU), three axes (JAX's CLI fails on it too)."""
     with pytest.raises(SystemExit):
         train_multi.main(["--videos", *datasets, "--outputs", str(tmp_path / "a"),
-                          str(tmp_path / "b"), "--device", "cpu", "--mesh", mesh])
+                          str(tmp_path / "b"), "--device", "cpu", "--mesh", *mesh])
     assert not os.path.exists(tmp_path / "a")
 
 
