@@ -34,7 +34,10 @@ nonzero and no result line is printed):
               edge cases (stream_probe, whole and cut at the slot
               capacity); the cuda render (tile-grid and stream)
               against the oracle; the exact-total render's gradients
-              within 5e-6
+              within 5e-6; the scene axis (scene_axis_check): each case
+              beside a second scene at twice its binning capacities in
+              one launch of rows 1-3 and 6-7 against two one-scene
+              launches, and so the twins, bit for bit
   4. slice:   (path 1) stage-1.0 static training (train_static) on a
               640x480 synthetic video with ~100k Gaussians, shortened
               schedule; launch counters must show the tile-grid kernels
@@ -94,6 +97,22 @@ nonzero and no result line is printed):
               launches against path 5's plus what video 1's records imply,
               a --resume rerun that trains nothing, every kernel against
               its twin on video 1's stage-3 and stage-5 inputs
+ 10f. lockstep: (path 10) path 8's videos and flags in lockstep
+              through cli/train.py:train_videos (every training stage one
+              batched step per iteration for both videos, one compositor
+              launch for both scenes' tiles) as a child (this script with
+              --train-lockstep-child, lockstep_main): wall time and
+              per-stage seconds beside path 8's, launches beside path 8's;
+              checks after the counts: each video against its path-8 tree,
+              stages 1.0 and 1.2 byte for byte, the rest within
+              LOCKSTEP_TOL, the files whose bytes differ named; then CUDA
+              kernels, runtime launch calls, ATen ops and wall ms per
+              iteration at S = 1 and S = 2 (torch.profiler) of the static
+              step and, on path 5's stage-3 start, the cropped stage-2 and
+              stage-3 pose steps and the stage-5 step; and the stage-3
+              pose gradient of that start under doubled binning
+              capacities, a doubled model capacity and a lockstep lane of
+              twice the capacity (pose_probe)
  10e. distributed: (path 9, the distributed layer; NCCL takes one GPU per
               rank, so the multi-rank runs are gloo ranks sharing the card)
               9a: train_static on path 1's video at DIST_SCHEDULE and frame
@@ -114,7 +133,10 @@ nonzero and no result line is printed):
               cli/train_multi.py --mesh 2x1 --dist_backend gloo
               --stage1_only over path 8's videos and flags (a child), every
               stage-1.0/1.2 file byte for byte path 8's; 9e:
-              parallel/dryrun.py:dryrun_multichip(2) (two gloo CPU ranks)
+              parallel/dryrun.py:dryrun_multichip(2) (two gloo CPU ranks),
+              the frame-data-parallel checks, then the scene-axis checks;
+              9c-9e run in a thread beside path 6 (whose runs are checked
+              by their files alone), 9a-9b alone after path 10
  11. peak:    (row 10's path) the card's float32 FMA rate through
               utils/peak.py:fma_peak_gflops, beside the published 67 TFLOP/s
  12. checks after the paths: path 7's renders against backend="cuda"
@@ -140,7 +162,9 @@ nonzero and no result line is printed):
               (bytes over the HBM rate or instructions over the float32
               instruction rate, whichever is larger) on the covered
               evaluations of the same inputs, beside the dense count's
-              bound and the bound at the measured FMA rate
+              bound and the bound at the measured FMA rate; rows 1-3 and
+              6-7 at S = 2 (frames 0 and 1 in one launch) beside the sum
+              of the two one-scene launches
  14. profile: torch.profiler over std-mode steps at the slice's size:
               device time by kernel and the device's busy share
               (table in chiprun_out/chip_smoke/profile.txt)
@@ -151,7 +175,7 @@ nonzero and no result line is printed):
               after
 Launch counters are set to 0 just before each path and read just after.
 Then the kernel table, the nvidia-smi line, and the result line
-{"ok": true, "device": {...}}. With --pipeline-only, paths 5-8 and their
+{"ok": true, "device": {...}}. With --pipeline-only, paths 5-8 and 10 and their
 checks alone (no result line); --repro adds a second unbroken run of path
 5's flags and prints its spread against path 5 (what PATH6_TOL holds).
 
@@ -169,6 +193,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -220,6 +245,7 @@ FLAVOR_TOL = 1e-3  # norm-relative gradient error and relative loss error
 
 
 PHASE_LOG = []  # path of the run's phases.jsonl, once main has made out_dir
+EMIT_LOCK = threading.Lock()  # paths 9c-9e emit from a thread beside path 6
 
 
 STARTED = time.perf_counter()
@@ -230,10 +256,11 @@ def emit(phase: str, **fields) -> None:
     script (where the time goes)."""
     line = json.dumps({"phase": phase, **fields,
                        "elapsed_s": round(time.perf_counter() - STARTED, 2)})
-    print(line, flush=True)
-    for path in PHASE_LOG:
-        with open(path, "a") as f:
-            f.write(line + "\n")
+    with EMIT_LOCK:
+        print(line, flush=True)
+        for path in PHASE_LOG:
+            with open(path, "a") as f:
+                f.write(line + "\n")
 
 
 def nvidia_smi_line() -> str:
@@ -737,15 +764,29 @@ def phase_kernels(dev, errs):
     )
     from egogaussian_tpu_torch.train.common import auto_tile_config, model_colors
 
-    def scene_cases(name, cam, means, cov3d, colors, ops, cfg_of, tol):
+    def scene_cases(name, cam, means, cov3d, colors, ops, cfg_of, tol, other, twins=True):
         proj = project_gaussians(means, cov3d, cam.viewmat, cam.fx, cam.fy, cam.cx,
                                  cam.cy, cam.width, cam.height)
         labels = torch.as_tensor(
             np.random.RandomState(3).randn(means.shape[0], 1).astype(np.float32), device=dev)
+        # the scene axis: a second scene (`other`: camera, means, covariances,
+        # colors, opacities) at twice the binning capacities, in one launch
+        cam2, means2, cov2, colors2, ops2 = other
+        proj2 = project_gaussians(means2, cov2, cam2.viewmat, cam2.fx, cam2.fy, cam2.cx,
+                                  cam2.cy, cam2.width, cam2.height)
+        labels2 = torch.as_tensor(
+            np.random.RandomState(4).randn(means2.shape[0], 1).astype(np.float32), device=dev)
         for ts in (16, 32):
             cfg = cfg_of(ts)
-            for d, cols, bg in ((3, colors, torch.tensor([0.2, 0.1, 0.4], device=dev)),
-                                (1, labels, torch.zeros(1, device=dev))):
+            cfg2 = dc.replace(cfg, max_pairs=2 * cfg.max_pairs,
+                              max_per_tile=2 * cfg.max_per_tile,
+                              max_slots=2 * (cfg.max_slots or cfg.max_pairs))
+            for d, cols, cols2, bg in ((3, colors, colors2, torch.tensor([0.2, 0.1, 0.4],
+                                                                         device=dev)),
+                                       (1, labels, labels2, torch.zeros(1, device=dev))):
+                scene_axis_check(f"{name}_scenes2", [(proj, cols, ops), (proj2, cols2, ops2)],
+                                 [cfg, cfg2], [bg, torch.full_like(bg, 0.3)], cam.width,
+                                 cam.height, dev, twins=twins)
                 lay = tilegrid_layout(proj, cols, ops, cam.width, cam.height, cfg)
                 slay = stream_layout(proj, cols, ops, cam.width, cam.height,
                                      dc.replace(cfg, compositor="stream"))
@@ -768,7 +809,8 @@ def phase_kernels(dev, errs):
     cam = look_at_camera(48, 32, dev)
     means, cov3d, colors, ops = random_scene(60, 11, dev)
     small_cfg = lambda ts: TileConfig(max_per_tile=256, max_pairs=8192, tile_size=ts)  # noqa: E731
-    scene_cases("random60_48x32", cam, means, cov3d, colors, ops, small_cfg, FWD_TOL)
+    scene_cases("random60_48x32", cam, means, cov3d, colors, ops, small_cfg, FWD_TOL,
+                (cam, *random_scene(60, 13, dev)))
     # the cuda render against the port's oracle on the same scene: the
     # tile-grid forward, the stream forward and gradients
     bg = torch.tensor([0.2, 0.1, 0.4], device=dev)
@@ -801,7 +843,8 @@ def phase_kernels(dev, errs):
     cam = look_at_camera(256, 192, dev, focal=240.0)
     means, cov3d, colors, ops = random_scene(2000, 12, dev)
     mid_cfg = lambda ts: TileConfig(max_per_tile=2048, max_pairs=262144, tile_size=ts)  # noqa: E731
-    scene_cases("random2k_256x192", cam, means, cov3d, colors, ops, mid_cfg, FWD_TOL)
+    scene_cases("random2k_256x192", cam, means, cov3d, colors, ops, mid_cfg, FWD_TOL,
+                (cam, *random_scene(2000, 14, dev)))
 
     # 3) kNN-init deep tiles at 320x240 (the bench's knn check scene)
     vid = make_synthetic_video(dev, **KNN_SCENE)
@@ -810,7 +853,164 @@ def phase_kernels(dev, errs):
     opac = torch.where(model.aux.alive, model.opacity, torch.zeros_like(model.opacity))
     knn_cfg = lambda ts: auto_tile_config(model, cam, tile_size=ts)  # noqa: E731
     scene_cases("knn_deep_320x240", cam, model.params.xyz, model.covariance(),
-                model_colors(model), opac, knn_cfg, DEEP_FWD_TOL)
+                model_colors(model), opac, knn_cfg, DEEP_FWD_TOL,
+                (vid.cameras[1], model.params.xyz, model.covariance(), model_colors(model),
+                 opac), twins=False)
+
+
+
+# ---------------------------------------------------------------------------
+# The scene axis of rows 1-3 and 6-7 (the lockstep's one launch for all
+# scenes): an S-scene launch against S one-scene launches
+# ---------------------------------------------------------------------------
+
+def scene_axis_layouts(scenes, cfgs, width, height):
+    """One-scene tile-grid layouts and gather windows of `scenes` (proj,
+    colors, opacities per scene, one frame size) and their S-scene layout
+    and window (render/tiled.py tilegrid_layout_scenes /
+    window_layout_scenes) over the scenes' own capacities."""
+    import torch
+
+    from egogaussian_tpu_torch.render.project import ProjectedGaussians
+    from egogaussian_tpu_torch.render.tiled import (
+        scene_caps,
+        tilegrid_layout,
+        tilegrid_layout_scenes,
+        window_layout,
+        window_layout_scenes,
+    )
+
+    singles = [(tilegrid_layout(p, c, o, width, height, cfg),
+                window_layout(p, c, o, width, height, cfg))
+               for (p, c, o), cfg in zip(scenes, cfgs)]
+    proj = ProjectedGaussians(*(torch.stack(list(x)) for x in zip(*(s[0] for s in scenes))))
+    caps = scene_caps(cfgs, [(width, height)] * len(scenes), scenes[0][1].device,
+                      scenes[0][1].shape[0])
+    cols = torch.stack([s[1] for s in scenes])
+    ops = torch.stack([s[2] for s in scenes])
+    return singles, (tilegrid_layout_scenes(proj, cols, ops, caps),
+                     window_layout_scenes(proj, cols, ops, caps))
+
+
+SCENE_TWIN_TOL = 1e-5  # the twins' S-scene calls against their one-scene calls, on the card
+
+
+def scene_axis_check(name, scenes, cfgs, bgs, width, height, dev, twins=True):
+    """Rows 1-3 and 6-7 on S scenes in one launch against each scene's
+    one-scene launch, bit for bit: forward outputs tile for tile, both
+    tile-grid backward flavors slot for slot over each scene's fitting
+    slots, the chunked backward row for row over each scene's own window
+    (and zeros past it). With `twins`, the plain twins' S-scene calls
+    against their one-scene calls the same way, within SCENE_TWIN_TOL: on
+    the card cuBLAS picks the twins' batched products by batch count (on
+    the CPU the twins agree bit for bit, tests/test_torch_multi_scene.py).
+    Emits one scene_axis line; raises on any kernel difference."""
+    import torch
+
+    from egogaussian_tpu_torch.render import cuda_raster as cr
+    from egogaussian_tpu_torch.render import window_raster as wr
+
+    singles, (lay, wlay) = scene_axis_layouts(scenes, cfgs, width, height)
+    s_n = len(scenes)
+    ts, n_tx = lay.tile_size, lay.n_tx
+    n_t = lay.n_tx * lay.n_ty
+    bg = torch.stack(bgs).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    same, errs_of = {}, {}
+
+    def tiles(x, s):
+        return x[s * n_t:(s + 1) * n_t]
+
+    impls = [("kernel", cr.tilegrid_forward, cr.tilegrid_backward, wr.window_chunked_forward,
+              wr.window_chunked_backward)]
+    if twins:
+        impls.append(("twin", cr.composite_tilegrid_plain_fwd, cr.composite_tilegrid_plain_bwd,
+                      wr.composite_window_chunked_plain_fwd,
+                      wr.composite_window_chunked_plain_bwd))
+    vals = lay.vals.detach().contiguous()
+    data = wlay.data.detach().contiguous()
+    for kind, fwd, bwd, wfwd, wbwd in impls:
+        with torch.no_grad():
+            out = fwd(lay.meta, vals, bg, ts, n_tx)
+            cot = [torch.randn(x.shape, generator=gen, device=dev) * 1e-3 for x in out]
+            dv = {e: bwd(lay.meta, vals, bg, *out, *cot, ts, n_tx, exact_total=e)
+                  for e in (False, True)}
+            wout = wfwd(wlay.counts, data, bg, ts, n_tx)
+            wcot = [torch.randn(x.shape, generator=gen, device=dev) * 1e-3 for x in wout[:3]]
+            wdd = wbwd(wlay.counts, data, bg, wout[3], *wcot, ts, n_tx)
+            ok, err = True, 0.0
+            sps = vals.shape[0] // s_n
+
+            def agree(a, b):
+                nonlocal err
+                err = max(err, max_err(a, b))
+                return torch.equal(a, b)
+
+            for s, ((l1, w1), b1) in enumerate(zip(singles, bgs)):
+                v1 = l1.vals.detach().contiguous()
+                o1 = fwd(l1.meta, v1, b1[None].contiguous(), ts, n_tx)
+                ok &= all([agree(tiles(a, s), b) for a, b in zip(out, o1)])
+                fit = int(l1.meta[2, 0])
+                for e in (False, True):
+                    d1 = bwd(l1.meta, v1, b1[None].contiguous(), *o1,
+                             *(tiles(c, s) for c in cot), ts, n_tx, exact_total=e)
+                    ok &= agree(dv[e][s * sps:s * sps + fit], d1[:fit])
+                d1w = w1.data.detach().contiguous()
+                wo1 = wfwd(w1.counts, d1w, b1[None].contiguous(), ts, n_tx)
+                ok &= all([agree(tiles(a, s), b) for a, b in zip(wout, wo1)])
+                wd1 = wbwd(w1.counts, d1w, b1[None].contiguous(), wo1[3],
+                           *(tiles(c, s) for c in wcot), ts, n_tx)
+                m1 = d1w.shape[1]
+                ok &= agree(tiles(wdd, s)[:, :m1], wd1)
+                ok &= not bool(tiles(wdd, s)[:, m1:].any())
+            same[kind] = bool(ok)
+            errs_of[kind] = err
+    twin_ok = not twins or errs_of["twin"] <= SCENE_TWIN_TOL
+    emit("scene_axis", case=name, scenes=s_n, d=bg.shape[1], tile_size=ts, tiles=n_t * s_n,
+         slots=vals.shape[0], window_rows=data.shape[1], bit_identical=same,
+         max_abs_err=errs_of, ok=same["kernel"] and twin_ok)
+    if not (same["kernel"] and twin_ok):
+        raise AssertionError(f"scene axis: {name} S={s_n} d={bg.shape[1]} ts={ts}: an "
+                             f"S-scene launch differs from the one-scene launches {same}")
+
+
+def time_scene_axis(name, scenes, cfgs, bgs, width, height, dev):
+    """Rows 1-3 and 6-7 at S = len(scenes): one S-scene launch against the
+    sum of the one-scene launches (CUDA events; the layouts of
+    scene_axis_layouts). Returns {key: (S-scene ms, sum of one-scene ms)}."""
+    import torch
+
+    from egogaussian_tpu_torch.render import cuda_raster as cr
+    from egogaussian_tpu_torch.render import window_raster as wr
+
+    singles, (lay, wlay) = scene_axis_layouts(scenes, cfgs, width, height)
+    bg = torch.stack(bgs).contiguous()
+    ts, n_tx = lay.tile_size, lay.n_tx
+
+    def ms_of(meta, vals, counts, data, b):
+        vals, data = vals.detach().contiguous(), data.detach().contiguous()
+        with torch.no_grad():
+            out = cr.tilegrid_forward(meta, vals, b, ts, n_tx)
+            wout = wr.window_chunked_forward(counts, data, b, ts, n_tx)
+            return {
+                "fwd": cuda_ms(lambda: cr.tilegrid_forward(meta, vals, b, ts, n_tx)),
+                "bwd": cuda_ms(lambda: cr.tilegrid_backward(meta, vals, b, *out, *out, ts, n_tx)),
+                "bwd_exact": cuda_ms(lambda: cr.tilegrid_backward(
+                    meta, vals, b, *out, *out, ts, n_tx, exact_total=True)),
+                "window_chunked_fwd": cuda_ms(lambda: wr.window_chunked_forward(
+                    counts, data, b, ts, n_tx)),
+                "window_chunked_bwd": cuda_ms(lambda: wr.window_chunked_backward(
+                    counts, data, b, wout[3], *wout[:3], ts, n_tx))}
+
+    multi = ms_of(lay.meta, lay.vals, wlay.counts, wlay.data, bg)
+    ones = [ms_of(l1.meta, l1.vals, w1.counts, w1.data, b[None].contiguous())
+            for (l1, w1), b in zip(singles, bgs)]
+    times = {k: (multi[k], sum(o[k] for o in ones)) for k in multi}
+    emit("scene_axis_timing", case=name, scenes=len(scenes), d=bg.shape[1], tile_size=ts,
+         **{f"{k}_ms_s{len(scenes)}": v[0] for k, v in times.items()},
+         **{f"{k}_ms_s1_sum": v[1] for k, v in times.items()},
+         **{f"{k}_ms_s1": [o[k] for o in ones] for k in multi})
+    return times
 
 
 def nerfpp_radius(cameras) -> float:
@@ -1464,9 +1664,13 @@ def scan_pair_owner(offsets, counts, n_slots):
     """The scan form of render/tiled.py:pair_owner, as the port computed it
     before the parallel lookup (and the JAX package still does): each
     Gaussian of count > 0 marked with g + 1 at its start slot, a running
-    max, minus one. A check only: the port does not call it."""
+    max, minus one. A check only: the port does not call it. A leading
+    scene axis ([S, N], as render/tiled.py:bin_scenes passes) is scanned
+    scene by scene."""
     import torch
 
+    if offsets.dim() == 2:
+        return torch.stack([scan_pair_owner(o, c, n_slots) for o, c in zip(offsets, counts)])
     n = offsets.shape[0]
     start = torch.where(counts > 0, offsets, torch.full_like(offsets, n_slots))
     marks = torch.arange(1, n + 1, dtype=torch.int64, device=offsets.device)
@@ -1474,9 +1678,12 @@ def scan_pair_owner(offsets, counts, n_slots):
 
 
 def scan_slot_owner(starts2, n_slots):
-    """The scan form of render/tiled.py:slot_owner (check only)."""
+    """The scan form of render/tiled.py:slot_owner (check only; a leading
+    scene axis is scanned scene by scene)."""
     import torch
 
+    if starts2.dim() == 2:
+        return torch.stack([scan_slot_owner(s, n_slots) for s in starts2])
     tiles = torch.arange(starts2.shape[0], dtype=torch.int64, device=starts2.device)
     return _scan_owner(n_slots, starts2, tiles)
 
@@ -1925,6 +2132,19 @@ def phase_timing(dev, vid, extent, errs, peak_gflops):
             if kind == "main":
                 times.update({(k, d): v for k, v in t.items()})
                 bounds.update(b)
+                # the scene axis at this frame: frames 0 and 1 in one launch
+                # against two one-scene launches (checked, then timed)
+                cam1 = vid.cameras[1]
+                proj1 = project_gaussians(model.params.xyz, model.covariance(), cam1.viewmat,
+                                          cam1.fx, cam1.fy, cam1.cx, cam1.cy, cam1.width,
+                                          cam1.height, valid_mask=model.aux.alive)
+                two = [(proj, cols, opac), (proj1, cols, opac)]
+                cfgs = [cfg, auto_tile_config(model, cam1)]
+                scene_axis_check(f"{case}_scenes2", two, cfgs, [bg, bg], cam.width, cam.height,
+                                 dev, twins=False)
+                for k, v in time_scene_axis(f"{case}_scenes2", two, cfgs, [bg, bg], cam.width,
+                                            cam.height, dev).items():
+                    times[("scenes2", k, d)] = v
             keys = [k for k in KERNELS if k in t]
             emit("timing", frame=f"{cam.width}x{cam.height}", config=kind, d=d, tile_size=ts,
                  gaussians=int(model.num_alive), tiles=n_tiles, deepest_tile=int(meta[1].max()),
@@ -2438,18 +2658,20 @@ CHILD_TIMEOUT = 600  # seconds, per training-CLI child
 
 
 # the child entry flags of this script and the CLI module each one runs
+# (None: path 10's lockstep_main, below)
 CHILD_CLIS = {"--train-child": "egogaussian_tpu_torch.cli.train",
-              "--train-multi-child": "egogaussian_tpu_torch.cli.train_multi"}
+              "--train-multi-child": "egogaussian_tpu_torch.cli.train_multi",
+              "--train-lockstep-child": None}
 
 
 def train_child(counts_path, argv, module=CHILD_CLIS["--train-child"]) -> int:
-    """A training CLI's main (`module`) in a child process of paths 6 and
-    8, with the launch counters flushed to counts_path every 0.1 s (a
+    """A training CLI's main (`module`, or lockstep_main for None) in a
+    child process of paths 6, 8, 9d and 10, with the launch counters flushed to counts_path every 0.1 s (a
     SIGKILLed child keeps what its last flush wrote) and at exit."""
     import importlib
     import threading
 
-    train_main = importlib.import_module(module).main
+    train_main = lockstep_main if module is None else importlib.import_module(module).main
 
     def flush():
         tmp = counts_path + ".tmp"
@@ -2644,14 +2866,12 @@ MULTI_STAGES = ("static", "background", "coarse", "fine_obj/from-static",
                 "fine_obj/from-coarse", "fine_all", "eval")
 
 
-def phase_multi(dev, vid, src, model_dir5, weights, out_dir):
-    """Path 8: cli/train_multi.py (--mesh 1x1, --seed 0) over path 5's
-    exported 640x480 video and a second one (make_synthetic_video seed
-    MULTI_SEED, same sizes, other content and motion, exported the same
-    way), each initialized at 102,000 Gaussians, with path 5's flags and
-    LPIPS weights, as a child process (train_child) whose launch counts
-    are flushed to a file. Returns (what check_multi needs, launch
-    counts)."""
+def multi_inputs(dev, vid, src, model_dir5, weights):
+    """Path 8's videos and command line: path 5's exported 640x480 video
+    and a second one (make_synthetic_video seed MULTI_SEED, same sizes,
+    other content and motion, exported the same way), each initialized at
+    102,000 Gaussians; cli/train_multi.py's arguments (--mesh 1x1, --seed
+    0) with path 5's flags and LPIPS weights."""
     from egogaussian_tpu_torch.data import make_synthetic_video
     from egogaussian_tpu_torch.data.export_colmap import export_colmap_dataset
 
@@ -2659,15 +2879,23 @@ def phase_multi(dev, vid, src, model_dir5, weights, out_dir):
     vid1 = make_synthetic_video(dev, seed=MULTI_SEED, **SLICE_VIDEO)
     src1 = export_colmap_dataset(vid1, os.path.join(root, "data_multi1"))
     outs = [os.path.join(root, f"multi{i}") for i in range(2)]
-    for o in outs:
-        shutil.rmtree(o, ignore_errors=True)
     argv = (["--videos", src, src1, "--outputs", *outs, "--mesh", "1x1", "--seed", "0",
              "--device", str(dev), "--lpips_weights", weights] + pipeline_flags())
-    ended, seconds, launches = run_child(argv, "multi_run", out_dir, flag="--train-multi-child")
+    return dict(vids=[vid, vid1], srcs=[src, src1], outs=outs, argv=argv)
+
+
+def phase_multi(multi, out_dir):
+    """Path 8: cli/train_multi.py with multi_inputs' arguments, as a child
+    process (train_child) whose launch counts are flushed to a file.
+    Returns the launch counts; multi gains the run's seconds."""
+    for o in multi["outs"]:
+        shutil.rmtree(o, ignore_errors=True)
+    ended, seconds, launches = run_child(multi["argv"], "multi_run", out_dir,
+                                         flag="--train-multi-child")
     if ended != "exit 0":
         raise AssertionError(f"path 8: the multi-video CLI ended with {ended}")
-    return dict(vids=[vid, vid1], srcs=[src, src1], outs=outs, argv=argv,
-                seconds=seconds), launches
+    multi["seconds"] = seconds
+    return launches
 
 
 def expected_launches(vid, model_dir):
@@ -3088,6 +3316,7 @@ def dist_static_run(dev, vid, out, sizes, mesh=None):
     sizes["skip"] iterations left out), the losses and the PLYs this
     process wrote."""
     from egogaussian_tpu_torch.data import split_viewpoints_by_phase
+    from egogaussian_tpu_torch.parallel import scene_trainer
     from egogaussian_tpu_torch.train import static
 
     groups = split_viewpoints_by_phase(vid.cameras, vid.static_phases)
@@ -3101,15 +3330,16 @@ def dist_static_run(dev, vid, out, sizes, mesh=None):
             _sync(dev)
             clock[it] = time.perf_counter()
 
-    save_ply = static.save_ply
-    static.save_ply = lambda model, path: (plys.append(path), save_ply(model, path))
+    # the stage loop is the one-scene case of the lockstep driver, which saves
+    save_ply = scene_trainer.save_ply
+    scene_trainer.save_ply = lambda model, path: (plys.append(path), save_ply(model, path))
     try:
         res = static.train_static(vid.cameras, vid.points, vid.colors, cfg, groups,
                                   nerfpp_radius(vid.cameras), save_dir=out, seed=0,
                                   first_phase_only=True, device=dev, mesh=mesh,
                                   on_step=on_step)[0]
     finally:
-        static.save_ply = save_ply
+        scene_trainer.save_ply = save_ply
     it_s = ((cfg.static.std_train_iter - skip)
             / (clock[cfg.static.std_train_iter] - clock[skip]))
     return dict(state=_host_state(res.model), alive=int(res.model.num_alive),
@@ -3425,34 +3655,32 @@ def check_dist_multi(multi, d):
     stage_s = [{r["name"]: r["seconds"] for r in pipeline_records(o)
                 if r.get("event") == "stage_time"} for o in d["outs"]]
     ok = n > 0 and not differ
-    emit("dist_multi", mesh="2x1", backend="gloo", seconds=d["seconds"], stage_seconds=stage_s,
-         files=n, files_differ=differ, ok=ok)
+    emit("dist_multi", mesh="2x1", backend="gloo", seconds=d["seconds"], ran_beside="path 6",
+         stage_seconds=stage_s, files=n, files_differ=differ, ok=ok)
     if not ok:
         raise AssertionError(f"path 9d: stage-1 files differ from path 8's: {differ[:10]}")
 
 
 def phase_dist_dryrun():
-    """Path 9e: dryrun_multichip(2): with one card, two gloo CPU ranks."""
+    """Path 9e: dryrun_multichip(2): with one card, two gloo CPU ranks; the
+    frame-data-parallel checks, then the scene-axis checks on a 2x1 grid."""
     from egogaussian_tpu_torch.parallel.dryrun import dryrun_multichip
 
     t0 = time.perf_counter()
     lines = dryrun_multichip(2)
-    ok = len(lines) == 3 and all(line.endswith("OK") for line in lines)
+    ok = len(lines) == 6 and all(line.endswith("OK") for line in lines)
     emit("dist_dryrun", lines=lines, seconds=time.perf_counter() - t0, ok=ok)
     if not ok:
         raise AssertionError(f"path 9e: {lines}")
 
 
-def path_9(dev, vid, extent, eval_model, multi, out_dir):
-    """Path 9a-9e, each with the launch counters set to 0 just before it and
-    read just after (the ranks' counts folded in by parallel/launch.py)."""
+def path_9_beside_6(dev, vid, eval_model, multi, out_dir):
+    """Paths 9c-9e, run in a thread beside path 6 (paths_5_to_8), each with
+    the launch counters set to 0 just before it and read just after (the
+    ranks' counts folded in by parallel/launch.py; path 6's runs are child
+    processes with counts of their own, so they launch nothing here).
+    Returns (what check_path_9 needs of them, launch counts)."""
     launches = {}
-    reset_launch_counts()
-    static = phase_dist_static(dev, vid, out_dir)
-    launches["dist_static"] = launch_counts()
-    reset_launch_counts()
-    phase_dist_one_rank(dev, vid, extent)
-    launches["dist_one_rank"] = launch_counts()
     reset_launch_counts()
     render = phase_dist_render(dev, vid, eval_model)
     launches["dist_render"] = launch_counts()
@@ -3461,6 +3689,20 @@ def path_9(dev, vid, extent, eval_model, multi, out_dir):
     reset_launch_counts()
     phase_dist_dryrun()
     launches["dist_dryrun"] = launch_counts()
+    return dict(render=render, multi=dmulti), launches
+
+
+def path_9(dev, vid, extent, beside, out_dir):
+    """Paths 9a and 9b (timed, so alone on the card), each with the launch
+    counters set to 0 just before it and read just after, beside what
+    path_9_beside_6 returned for 9c-9e."""
+    p9, launches = beside
+    reset_launch_counts()
+    static = phase_dist_static(dev, vid, out_dir)
+    launches["dist_static"] = launch_counts()
+    reset_launch_counts()
+    phase_dist_one_rank(dev, vid, extent)
+    launches["dist_one_rank"] = launch_counts()
     emit("dist_launches", **{p: {k: n for k, n in c.items() if n} for p, c in launches.items()})
     need = {"dist_static": ("tilegrid_fwd_d3", "tilegrid_bwd_d3", "tilegrid_fwd_d1",
                             "tilegrid_bwd_d1"),
@@ -3471,7 +3713,7 @@ def path_9(dev, vid, extent, eval_model, multi, out_dir):
     missing = [(p, k) for p, ks in need.items() for k in ks if launches[p][k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on path 9: {missing}")
-    return dict(static=static, render=render, multi=dmulti), launches
+    return dict(p9, static=static), launches
 
 
 def check_path_9(dev, vid, eval_model, multi, p9, errs):
@@ -3511,10 +3753,343 @@ PATH_OF = {"fwd": "slice", "bwd": "slice", "bwd_exact": "coarse", "stream_fwd": 
            "fma_peak": "peak"}
 
 
-def paths_5_to_8(dev, vid, out_dir, repro=False):
-    """Paths 5, 6, 7 and 8, each with the launch counters set to 0 just
-    before it and read just after (paths 6's and 8's from their child
-    processes). Returns (what the checks need, {path: launch counts})."""
+
+# ---------------------------------------------------------------------------
+# Path 10: the scene lockstep over path 8's two videos
+# ---------------------------------------------------------------------------
+
+# path 10's videos against their per-video runs (path 8's trees): stages
+# 1.0 and 1.2 byte for byte (their steps are batch-invariant on the card);
+# from stage 2 on the lanes part (PERF.md §7: a lane's rigid move and pose
+# products run as batched products at S = 2 where its own run makes
+# unbatched ones, and its pose gradient reduces over the stack's padded
+# rows), so the check holds them to these bounds: the largest distances the
+# H100 measured over both videos (alive 359, pose 0.0692, PSNR 0.693 dB,
+# SSIM 0.0056, no solved frame apart) times 1.5
+LOCKSTEP_TOL = {"solved": 0, "alive": 540, "pose": 0.105, "psnr": 1.05, "ssim": 0.0085}
+
+
+def lockstep_main(argv=None) -> int:
+    """Path 10's child (--train-lockstep-child): the videos of path 8's
+    multi-video command line in lockstep through cli/train.py's
+    train_videos, video i with --seed + i, every config flag for all."""
+    import dataclasses as dc
+
+    import torch
+
+    from egogaussian_tpu_torch.cli.train import train_videos
+    from egogaussian_tpu_torch.config import add_config_args, extract_config
+    from egogaussian_tpu_torch.eval.lpips import LPIPS
+
+    parser = argparse.ArgumentParser(description="the videos in lockstep (path 10)")
+    add_config_args(parser)
+    parser.add_argument("--videos", nargs="+", required=True)
+    parser.add_argument("--outputs", nargs="+", required=True)
+    parser.add_argument("--mesh", default="1x1", choices=("1x1",))
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--lpips_weights", default=None)
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args(argv)
+    dev = torch.device(args.device)
+    cfg = extract_config(args)
+    cfgs = [dc.replace(cfg, model=dc.replace(cfg.model, source_path=os.path.abspath(s),
+                                             model_path=os.path.abspath(o)))
+            for s, o in zip(args.videos, args.outputs)]
+    lpips_fn = LPIPS(weights_path=args.lpips_weights, device=dev) if args.lpips_weights else None
+    train_videos(cfgs, [args.seed + i for i in range(len(cfgs))], resume=False,
+                 lpips_fn=lpips_fn, checkpoint_every=0, device=dev)
+    return 0
+
+
+def phase_lockstep(dev, multi, out_dir):
+    """Path 10: path 8's two videos and flags in lockstep (lockstep_main:
+    every training stage one batched step per iteration for both videos,
+    one compositor launch for both scenes' tiles) into other outputs, as a
+    child process (--train-lockstep-child). Returns (outputs and seconds,
+    launch counts)."""
+    outs = [os.path.join(os.path.dirname(multi["outs"][0]), f"lockstep{i}") for i in range(2)]
+    for o in outs:
+        shutil.rmtree(o, ignore_errors=True)
+    argv = list(multi["argv"])
+    at = argv.index("--outputs")
+    argv[at + 1:at + 1 + len(outs)] = outs
+    ended, seconds, launches = run_child(argv, "lockstep_run", out_dir,
+                                         flag="--train-lockstep-child")
+    if ended != "exit 0":
+        raise AssertionError(f"path 10: the lockstep multi-video run ended with {ended}")
+    return dict(outs=outs, seconds=seconds), launches
+
+
+def differing_files(dir_a, dir_b):
+    """Files of dir_a (cfg_args.json and the metrics log aside) that dir_b
+    lacks or holds with other bytes."""
+    files = sorted(os.path.relpath(os.path.join(d, f), dir_a)
+                   for d, _, fs in os.walk(dir_a) for f in fs)
+    files = [f for f in files if f != "cfg_args.json" and not f.startswith("logs")]
+    return [f for f in files if not os.path.exists(os.path.join(dir_b, f))
+            or not filecmp.cmp(os.path.join(dir_a, f), os.path.join(dir_b, f), shallow=False)]
+
+
+def check_lockstep(multi, lock, launches8, launches10):
+    """Path 10 against path 8, which runs the same videos one after the
+    other (video 0's tree is path 5's byte for byte): each video's tree
+    against path 8's (compare_runs: alive counts, solved frames, pose
+    values, the final PLY, stage 6's scores; and the files whose bytes
+    differ): stages 1.0 and 1.2 byte for byte, the rest within
+    LOCKSTEP_TOL; per-stage seconds (the lockstep's stage spans both
+    videos) beside the sum of path 8's two; the launches beside path
+    8's."""
+    per_video_diff = []
+    for ref, out in zip(multi["outs"], lock["outs"]):
+        diff = compare_runs(ref, out)
+        diff.pop("handover")
+        per_video_diff.append(dict(diff, files_differ=differing_files(ref, out)))
+    timed = [{r["name"]: r for r in pipeline_records(o) if r.get("event") == "stage_time"}
+             for o in (*multi["outs"], lock["outs"][0])]
+    stages = {k: {"per_video_s": timed[0][k]["seconds"] + timed[1][k]["seconds"],
+                  "lockstep_s": timed[2][k]["seconds"]} for k in MULTI_STAGES}
+    per_video = sum(v["per_video_s"] for v in stages.values())
+    lockstep = sum(v["lockstep_s"] for v in stages.values())
+    rows = ("tilegrid_fwd_d3", "tilegrid_bwd_d3", "tilegrid_fwd_d1", "tilegrid_bwd_d1",
+            "window_chunked_fwd_d3")
+    stage1_exact = not any(f.startswith(("static/", "background/"))
+                           for v in per_video_diff for f in v["files_differ"])
+    ok = stage1_exact and all(all(v[k] <= tol for k, tol in LOCKSTEP_TOL.items())
+                              for v in per_video_diff)
+    emit("lockstep", seconds=lock["seconds"], path8_seconds=multi["seconds"],
+         stage_seconds={"per_video": per_video, "lockstep": lockstep},
+         speedup=per_video / lockstep, stages=stages, videos=per_video_diff,
+         launches={k: {"path10": launches10[k], "path8": launches8[k]} for k in rows},
+         stage1_byte_for_byte=stage1_exact, tolerance=LOCKSTEP_TOL, ok=ok)
+    if not ok:
+        raise AssertionError(f"path 10: a lockstep video parts from its own run "
+                             f"{per_video_diff}")
+
+
+def coarse_start(dev, model_dir5):
+    """Path 5's stage-3 from-coarse start: its COLMAP scene's frames, the
+    coarse object model and pose sequence, a solved dynamic frame f past
+    the first and its stored pose, the auto tile config."""
+    import dataclasses as dc
+
+    from egogaussian_tpu_torch.data.readers import load_colmap_scene, stack_cameras
+    from egogaussian_tpu_torch.models.gaussians import load_ply
+    from egogaussian_tpu_torch.models.pose import identity_pose, load_pose_sequence
+    from egogaussian_tpu_torch.train.common import auto_tile_config
+
+    scene = load_colmap_scene(os.path.join(os.path.dirname(model_dir5), "data"), dev)
+    batch = stack_cameras(scene.cameras, dev)
+    model = load_ply(os.path.join(model_dir5, "coarse", "ply", "gaussians_final.ply"), dev,
+                     is_object=True)
+    seq, _ = load_pose_sequence(os.path.join(model_dir5, "coarse", "obj_pose_sequence.npz"), dev)
+    dyn = [i for i in range(seq.num_frames) if bool(seq.solved[i]) and i > 0]
+    f = dyn[len(dyn) // 2]
+    pose = dc.replace(identity_pose(dev), translation=seq.translations[f],
+                      rot6d=seq.rotations[f][:, :2])
+    return dict(batch=batch, model=model, seq=seq, f=f, pose=pose,
+                tcfg=auto_tile_config(model, batch.camera(0)))
+
+
+def step_launches(dev, step, iters):
+    """Per iteration of step(it) (after three warm-up calls): the CUDA
+    kernels the card ran (CUPTI activity, memcpy and memset aside), the
+    runtime launch calls, the ATen ops, the compositor's own counters and
+    the wall ms, under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for it in range(1, 4):  # warm-up: allocator, library, cuDNN plans
+        step(it)
+    _sync(dev)
+    reset_launch_counts()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for it in range(4, 4 + iters):
+            step(it)
+        _sync(dev)
+        wall = (time.perf_counter() - t0) / iters
+    own = {k: n / iters for k, n in launch_counts().items() if n}
+    events = prof.events()
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.name.startswith(("Memcpy", "Memset"))]
+    runtime = [e for e in events if e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                               "cuLaunchKernel", "cuLaunchKernelEx",
+                                               "cudaLaunchKernelEx")]
+    aten = [e for e in events if e.name.startswith("aten::")]
+    return {"device_kernels_per_iteration": len(device) / iters,
+            "runtime_launches_per_iteration": len(runtime) / iters,
+            "aten_ops_per_iteration": len(aten) / iters,
+            "wall_ms_per_iteration": wall * 1e3,
+            "compositor_launches_per_iteration": own}
+
+
+def phase_lockstep_launches(dev, vid, model_dir5, iters=3):
+    """Launches per iteration of the lockstep's steps at S = 1 and at S = 2
+    (the same scene twice), step_launches each: stage 1.0's static step
+    (std mode, path 1's video and 102,000-Gaussian initial model, a
+    six-frame batch), and on path 5's stage-3 start (coarse_start) the
+    stage-2 and stage-3 pose steps as their drivers call them (crop
+    windows of pose_crop_size, the pose trained) and the stage-5 step on
+    path 5's final model. Emits each step's rows and S = 2 over S = 1."""
+    import torch
+
+    from egogaussian_tpu_torch.config import Config
+    from egogaussian_tpu_torch.data import stack_cameras
+    from egogaussian_tpu_torch.models import adam_init, from_points
+    from egogaussian_tpu_torch.models.gaussians import load_ply
+    from egogaussian_tpu_torch.models.pose import identity_pose
+    from egogaussian_tpu_torch.parallel.multi_scene import multi_scene_static_step, stack_scenes
+    from egogaussian_tpu_torch.render.tiled import scene_caps
+    from egogaussian_tpu_torch.train.coarse_pose import _accum_tables, coarse_scenes_step
+    from egogaussian_tpu_torch.train.common import auto_tile_config, pose_crop_size
+    from egogaussian_tpu_torch.train.fine_all import fine_all_scenes_step
+    from egogaussian_tpu_torch.train.fine_obj import accum_tables, fine_scenes_step
+
+    cfg = Config()
+    init = from_points(vid.points, vid.colors, dev, spatial_lr_scale=nerfpp_radius(vid.cameras),
+                       seed=0)
+    b6 = stack_cameras(vid.cameras[:6], dev)
+    t6 = auto_tile_config(init, b6.camera(0))
+    p = coarse_start(dev, model_dir5)
+    batch, obj, seq, f = p["batch"], p["model"], p["seq"], p["f"]
+    full = load_ply(os.path.join(model_dir5, "fine_all", "gaussians_all.ply"), dev)
+    t_full = auto_tile_config(full, batch.camera(0))
+    size = (batch.width, batch.height)
+
+    def zeros(s_n, *shape, dtype=torch.int64):
+        return torch.zeros((s_n,) + shape, dtype=dtype, device=dev)
+
+    def static_step(s_n):
+        models, opts = stack_scenes([init] * s_n), stack_scenes([adam_init(init.params)] * s_n)
+        batches, masks = stack_scenes([b6] * s_n), stack_scenes([b6.hand_masks] * s_n)
+        caps = scene_caps([t6] * s_n, [(b6.width, b6.height)] * s_n, dev, init.capacity)
+        return lambda it: multi_scene_static_step(
+            models, opts, batches, torch.tensor([[(it + s) % 6] for s in range(s_n)]), masks,
+            it, zeros(s_n), mode="std", backend="cuda", tile_config=caps, opt_cfg=cfg.opt)
+
+    def pose_caps(s_n, stage, model):
+        crop = pose_crop_size(batch, cfg, stage)
+        return crop is not None, scene_caps([p["tcfg"]] * s_n, [crop or size] * s_n, dev,
+                                            model.capacity)
+
+    def coarse_step(s_n):
+        crop, caps = pose_caps(s_n, "coarse", obj)
+        t_T, t_R = (stack_scenes([t] * s_n) for t in _accum_tables(seq))
+        args = (stack_scenes([obj] * s_n), stack_scenes([adam_init(obj.params)] * s_n),
+                stack_scenes([p["pose"]] * s_n),
+                stack_scenes([adam_init(identity_pose(dev))] * s_n), stack_scenes([batch] * s_n))
+        return lambda it: coarse_scenes_step(
+            *args, [f] * s_n, t_T, t_R, [f - 1] * s_n, cfg.coarse.warm_up_iter + it,
+            zeros(s_n), [True] * s_n, [False] * s_n, True, opt_cfg=cfg.opt,
+            coarse_cfg=cfg.coarse, backend="cuda", tile_config=caps, crop=crop,
+            crop_maxes=zeros(s_n, 3, dtype=torch.int32) if crop else None)
+
+    def fine_step(s_n):
+        crop, caps = pose_caps(s_n, "fine_obj", obj)
+        seqs = stack_scenes([seq] * s_n)
+        args = (stack_scenes([obj] * s_n), stack_scenes([adam_init(obj.params)] * s_n), seqs,
+                stack_scenes([adam_init(identity_pose(dev))] * s_n), stack_scenes([batch] * s_n))
+        accums = accum_tables(seqs)
+        return lambda it: fine_scenes_step(
+            *args, [f] * s_n, cfg.fine.densify_until_iter + it, zeros(s_n), [True] * s_n,
+            opt_cfg=cfg.opt, fine_cfg=cfg.fine, backend="cuda", tile_config=caps, crop=crop,
+            crop_maxes=zeros(s_n, 3, dtype=torch.int32) if crop else None, accums=accums)
+
+    def fine_all_step(s_n):
+        caps = scene_caps([t_full] * s_n, [size] * s_n, dev, full.capacity)
+        acc_T = torch.stack([seq.accum_T()] * s_n)
+        acc_R = torch.stack([seq.accum_R()] * s_n)
+        models = stack_scenes([full] * s_n)
+        opts = stack_scenes([adam_init(full.params)] * s_n)
+        return lambda it: fine_all_scenes_step(
+            models, opts, stack_scenes([batch] * s_n), [f] * s_n, acc_T, acc_R, it, False,
+            zeros(s_n), lambda_dssim=cfg.fine_all.lambda_dssim, backend="cuda",
+            tile_config=caps, opt_cfg=cfg.opt)
+
+    out = {}
+    for name, make in (("static std", static_step), ("coarse", coarse_step),
+                       ("fine_obj", fine_step), ("fine_all", fine_all_step)):
+        rows = {s_n: step_launches(dev, make(s_n), iters) for s_n in (1, 2)}
+        key = ("device_kernels_per_iteration" if dev.type == "cuda"
+               else "aten_ops_per_iteration")
+        ratio = rows[2][key] / max(rows[1][key], 1.0)
+        out[name] = dict(scenes=rows, s2_over_s1=ratio, within_10_percent=ratio <= 1.10)
+    emit("lockstep_launches", steps=out)
+    return out
+
+
+def phase_pose_probe(dev, model_dir5):
+    """The stage-3 pose gradient of path 5's from-coarse start
+    (coarse_start: a dynamic frame with the pose trained) against the same
+    gradient under (a) doubled binning capacities (max_pairs,
+    max_per_tile, max_slots), (b) the model padded to twice its capacity
+    with dead rows, and (c) the lockstep at S = 2 beside a second lane of
+    twice the capacity: per case the largest difference of the loss, the
+    pose gradient and the parameter gradients (0 = bit for bit)."""
+    import dataclasses as dc
+
+    import torch
+
+    from egogaussian_tpu_torch.config import Config
+    from egogaussian_tpu_torch.models.gaussians import ensure_capacity
+    from egogaussian_tpu_torch.models.optim import adam_init
+    from egogaussian_tpu_torch.parallel.multi_scene import stack_scenes
+    from egogaussian_tpu_torch.render.tiled import scene_caps
+    from egogaussian_tpu_torch.train.coarse_pose import pose_loss_grads_scenes
+
+    p = coarse_start(dev, model_dir5)
+    batch, model, seq, f, tcfg = p["batch"], p["model"], p["seq"], p["f"], p["tcfg"]
+    acc_T, acc_R = seq.accum_T(), seq.accum_R()
+    lam = Config().fine
+
+    def grads(models, caps, lanes=1):
+        return pose_loss_grads_scenes(
+            models, stack_scenes([p["pose"]] * lanes), stack_scenes([batch] * lanes),
+            torch.tensor([f] * lanes, device=dev), acc_T[f - 1][None].expand(lanes, 4, 4),
+            acc_R[f - 1][None].expand(lanes, 3, 3), [True] * lanes,
+            lambda_image=lam.lambda_Ll1_image, lambda_dssim=lam.lambda_dssim,
+            lambda_l1_alpha=lam.lambda_Ll1_alpha, lambda_l2_alpha=lam.lambda_Ll2_alpha,
+            backend="cuda", caps=caps)
+
+    size = [(batch.width, batch.height)]
+    base = grads(stack_scenes([model]), scene_caps([tcfg], size, dev, model.capacity))
+    double = dc.replace(tcfg, max_pairs=2 * tcfg.max_pairs, max_per_tile=2 * tcfg.max_per_tile,
+                        max_slots=2 * (tcfg.max_slots or tcfg.max_pairs))
+    padded, _, _ = ensure_capacity(model, adam_init(model.params), min_free=model.capacity + 1)
+    cases = {
+        "binning_capacities_x2": grads(stack_scenes([model]),
+                                       scene_caps([double], size, dev, model.capacity)),
+        "model_capacity_x2": grads(stack_scenes([padded]),
+                                   scene_caps([tcfg], size, dev, padded.capacity)),
+        "lockstep_s2_beside_x2_lane": grads(stack_scenes([model, padded]),
+                                            scene_caps([tcfg, tcfg], size * 2, dev,
+                                                       padded.capacity), lanes=2),
+    }
+    c = model.capacity
+    out = {}
+    for name, g in cases.items():
+        out[name] = {
+            "loss": float((g.loss[0] - base.loss[0]).abs()),
+            "pose_translation": float((g.pose.translation[0] - base.pose.translation[0])
+                                      .abs().max()),
+            "pose_rot6d": float((g.pose.rot6d[0] - base.pose.rot6d[0]).abs().max()),
+            "params": max(max_err(getattr(g.params, k)[0][:c], getattr(base.params, k)[0])
+                          for k in base.params.as_dict()),
+            "probe": float((g.probe[0][:c] - base.probe[0]).abs().max()),
+        }
+    emit("pose_probe", frame=f, gaussians=int(model.num_alive), capacity=c,
+         pose_grad_scale=float(base.pose.rot6d.abs().max()), cases=out)
+    return out
+
+
+def paths_5_to_8(dev, vid, out_dir, repro=False, beside_6=None):
+    """Paths 5, 6, 7, 8 and 10, each with the launch counters set to 0 just
+    before it and read just after (paths 6's, 8's and 10's from their
+    child processes). beside_6(multi), where given, runs in a thread while
+    path 6 runs: path 6's three runs are child processes checked by their
+    files alone, so no time of theirs is compared. Returns (what the checks
+    need, {path: launch counts}, what beside_6 returned)."""
     launches = {}
     reset_launch_counts()
     pipe = phase_pipeline(dev, vid, out_dir)
@@ -3523,30 +4098,40 @@ def paths_5_to_8(dev, vid, out_dir, repro=False):
     for name in ("tilegrid_fwd_d3", "tilegrid_bwd_d3", "window_chunked_fwd_d3"):
         if launches["pipeline"][name] <= 0:
             raise AssertionError(f"{name} never launched on the pipeline path")
-    src, model_dir, _, argv, _ = pipe
+    src, model_dir, weights, argv, _ = pipe
     if repro:
         repro_run(argv, model_dir, out_dir)
-    reset_launch_counts()
-    _, launches["checkpoint"] = phase_checkpoint(argv, model_dir, out_dir)
+    multi = multi_inputs(dev, vid, src, model_dir, weights)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        side = pool.submit(beside_6, multi) if beside_6 else None
+        _, launches["checkpoint"] = phase_checkpoint(argv, model_dir, out_dir)
+        side = side.result() if side else None
     reset_launch_counts()
     views = phase_viewers(dev, src, model_dir, out_dir)
     launches["viewers"] = launch_counts()
     emit("viewers_launches", **{k: n for k, n in launches["viewers"].items() if n})
     if launches["viewers"]["window_chunked_fwd_d3"] <= 0:
         raise AssertionError("window_chunked_fwd_d3 never launched on the viewer path")
-    reset_launch_counts()
-    multi, launches["multi"] = phase_multi(dev, vid, src, model_dir, pipe[2], out_dir)
+    launches["multi"] = phase_multi(multi, out_dir)
     emit("multi_launches", **{k: n for k, n in launches["multi"].items() if n})
-    for name in ("tilegrid_fwd_d3", "tilegrid_bwd_d3", "tilegrid_fwd_d1", "tilegrid_bwd_d1",
-                 "window_chunked_fwd_d3"):
-        if launches["multi"][name] <= 0:
-            raise AssertionError(f"{name} never launched on the multi-video path")
-    return (pipe, views, multi, launches), launches
+    lock, launches["lockstep"] = phase_lockstep(dev, multi, out_dir)
+    emit("lockstep_launches_path10", **{k: n for k, n in launches["lockstep"].items() if n})
+    for path in ("multi", "lockstep"):
+        for name in ("tilegrid_fwd_d3", "tilegrid_bwd_d3", "tilegrid_fwd_d1", "tilegrid_bwd_d1",
+                     "window_chunked_fwd_d3"):
+            if launches[path][name] <= 0:
+                raise AssertionError(f"{name} never launched on the {path} path")
+    # per-iteration launches of the lockstep's steps at S = 1 and 2 (after
+    # every path's counts are read)
+    phase_lockstep_launches(dev, vid, model_dir)
+    return (pipe, views, multi, lock, launches), launches, side
 
 
 def check_paths_5_to_8(dev, pipe, errs):
-    pipe, views, multi, launches = pipe
+    pipe, views, multi, lock, launches = pipe
     check_viewers(views)
+    check_lockstep(multi, lock, launches["multi"], launches["lockstep"])
+    phase_pose_probe(dev, pipe[1])
     check_multi(dev, multi, pipe[1], launches["pipeline"], launches["multi"], errs)
     check_pipeline(dev, *pipe, errs)
 
@@ -3595,7 +4180,7 @@ def main(argv=None) -> int:
 
     errs = {}
     if args.pipeline_only:
-        pipe, path_launches = paths_5_to_8(dev, vid, out_dir, args.repro)
+        pipe, path_launches, _ = paths_5_to_8(dev, vid, out_dir, args.repro)
         check_paths_5_to_8(dev, pipe, errs)
         emit("launches", **path_launches)
         return 0
@@ -3630,12 +4215,15 @@ def main(argv=None) -> int:
     # paths 5-8: the six-stage pipeline through the training CLI, the same
     # run killed and resumed from its checkpoints, the viewers and tools,
     # the multi-video CLI over path 5's video and a second one
-    pipe, launches5 = paths_5_to_8(dev, vid, out_dir)
+    # (and path 10, the two videos in lockstep), with path 9's sharded
+    # renders, multi-video CLI's scene axis and dry run beside path 6
+    pipe, launches5, beside = paths_5_to_8(
+        dev, vid, out_dir,
+        beside_6=lambda multi: path_9_beside_6(dev, vid, eval_model, multi, out_dir))
     path_launches.update(launches5)
     # path 9: the distributed layer (gloo ranks sharing the card, a
-    # one-rank NCCL group, the sharded renders, the multi-video CLI's scene
-    # axis, the dry run)
-    p9, launches9 = path_9(dev, vid, extent, eval_model, pipe[2], out_dir)
+    # one-rank NCCL group; 9c-9e ran beside path 6)
+    p9, launches9 = path_9(dev, vid, extent, beside, out_dir)
     path_launches.update(launches9)
     # row 10's path: the FMA peak that bounds are read against
     reset_launch_counts()
@@ -3678,6 +4266,11 @@ def main(argv=None) -> int:
                 "bound_ms_at_measured_rate": bounds[(key, d)][3],
                 # no single PyTorch call composites Gaussians or chains FMAs
                 "library_ms": None,
+                # rows 1-3 and 6-7: frames 0 and 1 in one launch (the scene
+                # axis) beside the two one-scene launches' sum
+                **({"ms_scenes2": times[("scenes2", key, d)][0],
+                    "ms_scenes1_sum": times[("scenes2", key, d)][1]}
+                   if ("scenes2", key, d) in times else {}),
             })
     missing = [k["name"] for k in table if k["launches"] <= 0]
     if missing:

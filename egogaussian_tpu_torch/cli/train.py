@@ -45,7 +45,7 @@ from egogaussian_tpu_torch.data.readers import (
     write_scene_artifacts,
 )
 from egogaussian_tpu_torch.parallel.launch import BACKENDS, default_backend, placeable, spawn
-from egogaussian_tpu_torch.pipeline import run_pipeline
+from egogaussian_tpu_torch.pipeline import VideoRun, run_pipeline_scenes
 from egogaussian_tpu_torch.utils.console import CONSOLE
 
 
@@ -114,6 +114,30 @@ def train_video(cfg, seed: int, resume: bool, lpips_fn, checkpoint_every: int,
     cfg.model.model_path (default <dataset>/output): cfg_args.json, the
     scene's input.ply and cameras.json, then run_pipeline's files. Returns
     run_pipeline's result. On a mesh, rank (s, 0) writes the tree."""
+    return train_videos([cfg], [seed], resume, lpips_fn, checkpoint_every, device,
+                        fine_variant=fine_variant, stop_after=stop_after, mesh=mesh)[0]
+
+
+def train_videos(cfgs, seeds, resume: bool, lpips_fn, checkpoint_every: int,
+                 device: torch.device, fine_variant: str = "from-coarse", stop_after=None,
+                 mesh=None):
+    """train_video for several datasets in lockstep (cfgs[i] and seeds[i]
+    per video, the other settings cfgs[0]'s): every training stage runs
+    one batched step per iteration for all of them (run_pipeline_scenes),
+    and each tree holds the files its own train_video writes: stages 1.0
+    and 1.2 bit for bit, later stages within the distances PERF.md §7
+    measures. Returns the per-video results."""
+    runs = [video_run(cfg, seed, lpips_fn, device, mesh) for cfg, seed in zip(cfgs, seeds)]
+    return run_pipeline_scenes(runs, cfgs[0], backend=cfgs[0].render.backend, resume=resume,
+                               fine_variant=fine_variant, checkpoint_every=checkpoint_every,
+                               mesh=mesh, device=device, stop_after=stop_after)
+
+
+def video_run(cfg, seed: int, lpips_fn, device: torch.device, mesh=None) -> VideoRun:
+    """The dataset at cfg.model.source_path loaded for the pipeline, with
+    the tree's first files written under cfg.model.model_path (default
+    <dataset>/output): cfg_args.json, the scene's input.ply and
+    cameras.json. Returns run_pipeline_scenes' VideoRun."""
     src = cfg.model.source_path
     out = cfg.model.model_path or os.path.join(src, "output")
     writes = mesh is None or mesh.writes
@@ -136,24 +160,10 @@ def train_video(cfg, seed: int, resume: bool, lpips_fn, checkpoint_every: int,
     # scene/__init__.py:79-91)
     if writes:
         write_scene_artifacts(scene, out)
-
-    return run_pipeline(
-        scene, cfg, out,
-        training_frames=training_frames,
-        dynamic_eval_frames=dynamic_eval,
-        static_eval_frames=static_eval,
-        static_phases=static_phases,
-        dynamic_phases=dynamic_phases,
-        seed=seed,
-        backend=cfg.render.backend,
-        resume=resume,
-        lpips_fn=lpips_fn,
-        fine_variant=fine_variant,
-        checkpoint_every=checkpoint_every,
-        mesh=mesh,
-        device=device,
-        stop_after=stop_after,
-    )
+    return VideoRun(scene, out, training_frames=training_frames,
+                    dynamic_eval_frames=dynamic_eval, static_eval_frames=static_eval,
+                    static_phases=static_phases, dynamic_phases=dynamic_phases, seed=seed,
+                    lpips_fn=lpips_fn)
 
 
 if __name__ == "__main__":

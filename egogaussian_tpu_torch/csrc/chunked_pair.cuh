@@ -154,7 +154,7 @@ __global__ void __launch_bounds__(kThreads, 4)
     chunked_fwd_kernel(const Rows rows, const float* __restrict__ data,
                        const float* __restrict__ bg, float* __restrict__ img,
                        float* __restrict__ alpha_out, float* __restrict__ depth_out,
-                       float* __restrict__ logt_out, int n_tx) {
+                       float* __restrict__ logt_out, int n_tx, int tps) {
   constexpr int NCTA = tg::ctas_per_tile<TS>();
   constexpr int P = TS * TS;
   constexpr int CH = 7 + D;
@@ -171,7 +171,8 @@ __global__ void __launch_bounds__(kThreads, 4)
   const int cnt = run.cnt;
   const int n_chunks = (cnt + kChunk - 1) / kChunk;
   const float* window = data + run.row0 * CH;
-  const tg::Pixel pix = tg::pixel_of<TS>(t, n_tx, rank);
+  const int scene = t / tps;  // scene-major tiles: tps tiles per scene
+  const tg::Pixel pix = tg::pixel_of<TS>(t - scene * tps, n_tx, rank);
 
   tg::Ring ring;
   ring.init(stage0, stage1, bar, kChunk * CH * 4);
@@ -220,7 +221,7 @@ __global__ void __launch_bounds__(kThreads, 4)
   const size_t idx = static_cast<size_t>(t) * P + pix.local;
   const float t_final = expf(logT);
 #pragma unroll
-  for (int d = 0; d < D; ++d) img[idx * D + d] = acc[d] + t_final * bg[d];
+  for (int d = 0; d < D; ++d) img[idx * D + d] = acc[d] + t_final * bg[scene * D + d];
   alpha_out[idx] = acc_a;
   depth_out[idx] = acc_z;
   logt_out[idx] = logT;
@@ -243,7 +244,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                        const float* __restrict__ bg, const float* __restrict__ logt,
                        const float* __restrict__ gimg, const float* __restrict__ galpha,
                        const float* __restrict__ gdepth, float* __restrict__ ddata,
-                       int n_tx) {
+                       int n_tx, int tps) {
   constexpr int NCTA = tg::ctas_per_tile<TS>();
   constexpr int P = TS * TS;
   constexpr int NV = 7 + D;            // fields per row == gradient values per row
@@ -272,7 +273,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* dwindow = ddata + run.row0 * NV;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const tg::Pixel pix = tg::pixel_of<TS>(t, n_tx, rank);
+  const int scene = t / tps;  // scene-major tiles: tps tiles per scene
+  const tg::Pixel pix = tg::pixel_of<TS>(t - scene * tps, n_tx, rank);
   const size_t idx = static_cast<size_t>(t) * P + pix.local;
 
   // rows past the tile's last real chunk: zero gradient (each CTA a share)
@@ -285,7 +287,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     gi[d] = gimg[idx * D + d];
-    g_dot_bg += gi[d] * bg[d];
+    g_dot_bg += gi[d] * bg[scene * D + d];
   }
   const float ga = galpha[idx];
   const float gz = gdepth[idx];
@@ -409,15 +411,15 @@ __global__ void __launch_bounds__(kThreads, 2)
 // cudaGetLastError() after the launch, or -1 for a (d, ts) not built.
 template <bool CULL, class Rows>
 int launch_fwd(Rows rows, const float* data, const float* bg, float* img, float* alpha,
-               float* depth, float* logt, int n_tiles, int n_tx, int ts, int d,
-               void* stream) {
+               float* depth, float* logt, int n_tiles, int n_tx, int tps, int ts,
+               int d, void* stream) {
   if (n_tiles == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define EGOGS_CPFWD(D_, TS_)                                                              \
   if (d == D_ && ts == TS_)                                                               \
     return static_cast<int>(tg::launch_tiles<1>(                                          \
         chunked_fwd_kernel<Rows, D_, TS_, CULL>, n_tiles * tg::ctas_per_tile<TS_>(),      \
-        fwd_smem_bytes<D_>(), s, rows, data, bg, img, alpha, depth, logt, n_tx));
+        fwd_smem_bytes<D_>(), s, rows, data, bg, img, alpha, depth, logt, n_tx, tps));
   EGOGS_CPFWD(3, 16)
   EGOGS_CPFWD(3, 32)
   EGOGS_CPFWD(1, 16)
@@ -430,14 +432,14 @@ int launch_fwd(Rows rows, const float* data, const float* bg, float* img, float*
 template <bool CULL, class Rows>
 int launch_bwd(Rows rows, const float* data, const float* bg, const float* logt,
                const float* gimg, const float* galpha, const float* gdepth, float* ddata,
-               int n_tiles, int n_tx, int ts, int d, void* stream) {
+               int n_tiles, int n_tx, int tps, int ts, int d, void* stream) {
   if (n_tiles == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define EGOGS_CPBWD(D_, TS_)                                                               \
   if (d == D_ && ts == TS_)                                                                \
     return static_cast<int>(tg::launch_tiles<tg::ctas_per_tile<TS_>()>(                    \
         chunked_bwd_kernel<Rows, D_, TS_, CULL>, n_tiles, bwd_smem_bytes<D_>(), s, rows,   \
-        data, bg, logt, gimg, galpha, gdepth, ddata, n_tx));
+        data, bg, logt, gimg, galpha, gdepth, ddata, n_tx, tps));
   EGOGS_CPBWD(3, 16)
   EGOGS_CPBWD(3, 32)
   EGOGS_CPBWD(1, 16)

@@ -50,7 +50,7 @@ extern "C" int egogs_stream_bwd(const int* meta, const float* vals, const float*
   using namespace egogs::cp;
   if (n_slots == 0) return 0;
   return launch_bwd<true>(StreamRows{meta, n_slots}, vals, bg, logt, gimg, galpha, gdepth,
-                          dvals, n_tiles, n_tx, ts, d, stream);
+                          dvals, n_tiles, n_tx, n_tiles, ts, d, stream);
 }
 
 // The same kernel with the per-warp cull compiled out: a check instance,
@@ -63,5 +63,5 @@ extern "C" int egogs_stream_bwd_nocull(const int* meta, const float* vals, const
   using namespace egogs::cp;
   if (n_slots == 0) return 0;
   return launch_bwd<false>(StreamRows{meta, n_slots}, vals, bg, logt, gimg, galpha, gdepth,
-                           dvals, n_tiles, n_tx, ts, d, stream);
+                           dvals, n_tiles, n_tx, n_tiles, ts, d, stream);
 }

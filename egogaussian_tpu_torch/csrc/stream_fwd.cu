@@ -54,7 +54,7 @@ extern "C" int egogs_stream_fwd(const int* meta, const float* vals, const float*
   using namespace egogs::cp;
   if (n_slots == 0) return 0;
   return launch_fwd<true>(StreamRows{meta, n_slots}, vals, bg, img, alpha, depth, logt,
-                          n_tiles, n_tx, ts, d, stream);
+                          n_tiles, n_tx, n_tiles, ts, d, stream);
 }
 
 // The same kernel with the per-warp cull compiled out: a check instance,
@@ -66,5 +66,5 @@ extern "C" int egogs_stream_fwd_nocull(const int* meta, const float* vals, const
   using namespace egogs::cp;
   if (n_slots == 0) return 0;
   return launch_fwd<false>(StreamRows{meta, n_slots}, vals, bg, img, alpha, depth, logt,
-                           n_tiles, n_tx, ts, d, stream);
+                           n_tiles, n_tx, n_tiles, ts, d, stream);
 }

@@ -29,6 +29,9 @@
 // a warp are covered. Device-memory traffic (pair chunk in, gradient chunk
 // out) is small next to both.
 //
+// The scene axis as in the forward: tiles scene-major, tps per scene, bg
+// [S, D].
+//
 // Design: the forward's (tilegrid_fwd.cu): one cluster per tile, one pixel
 // per thread, 8x4 warp patches, the cluster-wide vote, the bulk-copy
 // ring, and the per-warp cull by reach box (bit-identical to CULL =
@@ -89,7 +92,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                         const float* __restrict__ gimg,
                         const float* __restrict__ galpha,
                         const float* __restrict__ gdepth,
-                        float* __restrict__ dvals, int n_tiles, int n_tx) {
+                        float* __restrict__ dvals, int n_tiles, int n_tx,
+                        int tps) {
   constexpr int NCTA = tg::ctas_per_tile<TS>();
   constexpr int P = TS * TS;
   constexpr int CH = ch16_of(D);
@@ -113,14 +117,15 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int n_chunks = (cnt + kChunk - 1) / kChunk;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const tg::Pixel pix = tg::pixel_of<TS>(t, n_tx, rank);
+  const int scene = t / tps;  // scene-major tiles: tps tiles per scene
+  const tg::Pixel pix = tg::pixel_of<TS>(t - scene * tps, n_tx, rank);
   const size_t idx = static_cast<size_t>(t) * P + pix.local;
 
   float bgv[D], gi[D];
   float g_dot_bg = 0.0f, total = 0.0f, base_s = 0.0f;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    bgv[d] = bg[d];
+    bgv[d] = bg[scene * D + d];
     gi[d] = gimg[idx * D + d];
     g_dot_bg += gi[d] * bgv[d];
   }
@@ -303,23 +308,23 @@ template <int D, int TS, bool EXACT, bool CULL>
 int launch_bwd(const int* meta, const float* vals, const float* bg,
                const float* img, const float* alpha, const float* depth,
                const float* gimg, const float* galpha, const float* gdepth,
-               float* dvals, int n_tiles, int n_tx, cudaStream_t stream) {
+               float* dvals, int n_tiles, int n_tx, int tps, cudaStream_t stream) {
   return static_cast<int>(tg::launch_tiles<tg::ctas_per_tile<TS>()>(
       tilegrid_bwd_kernel<D, TS, EXACT, CULL>, n_tiles, bwd_smem_bytes<D>(), stream, meta,
-      vals, bg, img, alpha, depth, gimg, galpha, gdepth, dvals, n_tiles, n_tx));
+      vals, bg, img, alpha, depth, gimg, galpha, gdepth, dvals, n_tiles, n_tx, tps));
 }
 
 template <bool CULL>
 int dispatch_bwd(const int* meta, const float* vals, const float* bg, const float* img,
                  const float* alpha, const float* depth, const float* gimg,
                  const float* galpha, const float* gdepth, float* dvals, int n_tiles,
-                 int n_tx, int ts, int d, int exact_total, void* stream) {
+                 int n_tx, int tps, int ts, int d, int exact_total, void* stream) {
   if (n_tiles == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define EGOGS_BWD(D_, TS_, EX_)                                                      \
   if (d == D_ && ts == TS_ && (exact_total != 0) == EX_)                             \
     return launch_bwd<D_, TS_, EX_, CULL>(meta, vals, bg, img, alpha, depth, gimg,   \
-                                          galpha, gdepth, dvals, n_tiles, n_tx, s);
+                                          galpha, gdepth, dvals, n_tiles, n_tx, tps, s);
   EGOGS_BWD(3, 16, false)
   EGOGS_BWD(3, 32, false)
   EGOGS_BWD(1, 16, false)
@@ -343,10 +348,10 @@ extern "C" int egogs_tilegrid_bwd(const int* meta, const float* vals,
                                   const float* alpha, const float* depth,
                                   const float* gimg, const float* galpha,
                                   const float* gdepth, float* dvals,
-                                  int n_tiles, int n_tx, int ts, int d,
+                                  int n_tiles, int n_tx, int tps, int ts, int d,
                                   int exact_total, void* stream) {
   return egogs::dispatch_bwd<true>(meta, vals, bg, img, alpha, depth, gimg, galpha, gdepth,
-                                   dvals, n_tiles, n_tx, ts, d, exact_total, stream);
+                                   dvals, n_tiles, n_tx, tps, ts, d, exact_total, stream);
 }
 
 // The same kernels with the per-warp cull compiled out: check instances,
@@ -356,8 +361,8 @@ extern "C" int egogs_tilegrid_bwd_nocull(const int* meta, const float* vals,
                                          const float* alpha, const float* depth,
                                          const float* gimg, const float* galpha,
                                          const float* gdepth, float* dvals,
-                                         int n_tiles, int n_tx, int ts, int d,
+                                         int n_tiles, int n_tx, int tps, int ts, int d,
                                          int exact_total, void* stream) {
   return egogs::dispatch_bwd<false>(meta, vals, bg, img, alpha, depth, gimg, galpha, gdepth,
-                                    dvals, n_tiles, n_tx, ts, d, exact_total, stream);
+                                    dvals, n_tiles, n_tx, tps, ts, d, exact_total, stream);
 }

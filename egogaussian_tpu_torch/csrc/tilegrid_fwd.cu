@@ -9,6 +9,10 @@
 // transmittance carried in linear space; img = sum w*col + T_final*bg,
 // alpha = sum w, depth = sum w*z. Once every pixel of the tile has
 // T < 1e-7 the remaining chunks are skipped (the TPU kernel's rule).
+// The scene axis (the batch axis vmap adds to the pallas_call): the n_tiles
+// tiles are S scenes' grids, scene-major, tps tiles per scene; tile t takes
+// its pixel origin from t % tps and its background from bg[t / tps] ([S, D]).
+// Per tile the work is that of a one-scene launch.
 //
 // What bounds it on the card: the per-pixel, per-pair arithmetic (one expf
 // and ~20 other instructions per covered pair and pixel); pair data is
@@ -55,7 +59,8 @@ __global__ void __launch_bounds__(kThreads, 4)
                         const float* __restrict__ vals,
                         const float* __restrict__ bg, float* __restrict__ img,
                         float* __restrict__ alpha_out,
-                        float* __restrict__ depth_out, int n_tiles, int n_tx) {
+                        float* __restrict__ depth_out, int n_tiles, int n_tx,
+                        int tps) {
   constexpr int NCTA = tg::ctas_per_tile<TS>();
   constexpr int P = TS * TS;
   constexpr int CH = ch16_of(D);
@@ -71,7 +76,8 @@ __global__ void __launch_bounds__(kThreads, 4)
   const int start = meta[t];
   const int cnt = meta[n_tiles + t];
   const int n_chunks = (cnt + kChunk - 1) / kChunk;
-  const tg::Pixel pix = tg::pixel_of<TS>(t, n_tx, rank);
+  const int scene = t / tps;  // scene-major tiles: tps tiles per scene
+  const tg::Pixel pix = tg::pixel_of<TS>(t - scene * tps, n_tx, rank);
 
   tg::Ring ring;
   ring.init(stage0, stage1, bar, CH * kChunk * 4);
@@ -119,30 +125,30 @@ __global__ void __launch_bounds__(kThreads, 4)
 
   const size_t idx = static_cast<size_t>(t) * P + pix.local;
 #pragma unroll
-  for (int d = 0; d < D; ++d) img[idx * D + d] = acc[d] + T * bg[d];
+  for (int d = 0; d < D; ++d) img[idx * D + d] = acc[d] + T * bg[scene * D + d];
   alpha_out[idx] = acc_a;
   depth_out[idx] = acc_z;
 }
 
 template <int D, int TS, bool CULL>
 int launch_fwd(const int* meta, const float* vals, const float* bg, float* img,
-               float* alpha, float* depth, int n_tiles, int n_tx,
+               float* alpha, float* depth, int n_tiles, int n_tx, int tps,
                cudaStream_t stream) {
   return static_cast<int>(tg::launch_tiles<tg::ctas_per_tile<TS>()>(
       tilegrid_fwd_kernel<D, TS, CULL>, n_tiles, fwd_smem_bytes<D>(), stream, meta, vals,
-      bg, img, alpha, depth, n_tiles, n_tx));
+      bg, img, alpha, depth, n_tiles, n_tx, tps));
 }
 
 template <bool CULL>
 int dispatch_fwd(const int* meta, const float* vals, const float* bg, float* img,
-                 float* alpha, float* depth, int n_tiles, int n_tx, int ts, int d,
-                 void* stream) {
+                 float* alpha, float* depth, int n_tiles, int n_tx, int tps, int ts,
+                 int d, void* stream) {
   if (n_tiles == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 3 && ts == 16) return launch_fwd<3, 16, CULL>(meta, vals, bg, img, alpha, depth, n_tiles, n_tx, s);
-  if (d == 3 && ts == 32) return launch_fwd<3, 32, CULL>(meta, vals, bg, img, alpha, depth, n_tiles, n_tx, s);
-  if (d == 1 && ts == 16) return launch_fwd<1, 16, CULL>(meta, vals, bg, img, alpha, depth, n_tiles, n_tx, s);
-  if (d == 1 && ts == 32) return launch_fwd<1, 32, CULL>(meta, vals, bg, img, alpha, depth, n_tiles, n_tx, s);
+  if (d == 3 && ts == 16) return launch_fwd<3, 16, CULL>(meta, vals, bg, img, alpha, depth, n_tiles, n_tx, tps, s);
+  if (d == 3 && ts == 32) return launch_fwd<3, 32, CULL>(meta, vals, bg, img, alpha, depth, n_tiles, n_tx, tps, s);
+  if (d == 1 && ts == 16) return launch_fwd<1, 16, CULL>(meta, vals, bg, img, alpha, depth, n_tiles, n_tx, tps, s);
+  if (d == 1 && ts == 32) return launch_fwd<1, 32, CULL>(meta, vals, bg, img, alpha, depth, n_tiles, n_tx, tps, s);
   return -1;
 }
 
@@ -152,9 +158,9 @@ int dispatch_fwd(const int* meta, const float* vals, const float* bg, float* img
 // (d, ts) the library was not built for. vals must be 16-byte aligned.
 extern "C" int egogs_tilegrid_fwd(const int* meta, const float* vals,
                                   const float* bg, float* img, float* alpha,
-                                  float* depth, int n_tiles, int n_tx, int ts,
-                                  int d, void* stream) {
-  return egogs::dispatch_fwd<true>(meta, vals, bg, img, alpha, depth, n_tiles, n_tx, ts, d,
+                                  float* depth, int n_tiles, int n_tx, int tps,
+                                  int ts, int d, void* stream) {
+  return egogs::dispatch_fwd<true>(meta, vals, bg, img, alpha, depth, n_tiles, n_tx, tps, ts, d,
                                    stream);
 }
 
@@ -162,8 +168,8 @@ extern "C" int egogs_tilegrid_fwd(const int* meta, const float* vals,
 // whose outputs must equal egogs_tilegrid_fwd's bit for bit.
 extern "C" int egogs_tilegrid_fwd_nocull(const int* meta, const float* vals,
                                          const float* bg, float* img, float* alpha,
-                                         float* depth, int n_tiles, int n_tx, int ts,
-                                         int d, void* stream) {
-  return egogs::dispatch_fwd<false>(meta, vals, bg, img, alpha, depth, n_tiles, n_tx, ts, d,
+                                         float* depth, int n_tiles, int n_tx, int tps,
+                                         int ts, int d, void* stream) {
+  return egogs::dispatch_fwd<false>(meta, vals, bg, img, alpha, depth, n_tiles, n_tx, tps, ts, d,
                                     stream);
 }

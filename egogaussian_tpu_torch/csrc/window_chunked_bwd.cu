@@ -22,7 +22,8 @@
 // tile's last chunk are zeros, as the TPU kernel's zeroed block.
 //
 // Interface (the TPU kernel's): counts [T] int32 (clamped to [0, M]), data
-// [T, M, 7+D] row-major, M a multiple of 128; bg [1, D]; logt [T, 1, P];
+// [T, M, 7+D] row-major, M a multiple of 128; bg [S, D] (T = S x tps
+// tiles, scene-major, as in the forward); logt [T, 1, P];
 // gimg [T, P, D], galpha, gdepth [T, P, 1] -> ddata [T, M, 7+D].
 //
 // What bounds it on the card: per covered pair and pixel two expf, one
@@ -52,10 +53,10 @@ extern "C" int egogs_window_chunked_bwd(const int* counts, const float* data,
                                         const float* bg, const float* logt,
                                         const float* gimg, const float* galpha,
                                         const float* gdepth, float* ddata, int n_tiles,
-                                        int m, int n_tx, int ts, int d, void* stream) {
+                                        int m, int n_tx, int tps, int ts, int d, void* stream) {
   using namespace egogs::cp;
   return launch_bwd<true>(WindowRows{counts, m}, data, bg, logt, gimg, galpha, gdepth, ddata,
-                          n_tiles, n_tx, ts, d, stream);
+                          n_tiles, n_tx, tps, ts, d, stream);
 }
 
 // The same kernel with the per-warp cull compiled out: a check instance,
@@ -64,9 +65,9 @@ extern "C" int egogs_window_chunked_bwd_nocull(const int* counts, const float* d
                                                const float* bg, const float* logt,
                                                const float* gimg, const float* galpha,
                                                const float* gdepth, float* ddata,
-                                               int n_tiles, int m, int n_tx, int ts, int d,
+                                               int n_tiles, int m, int n_tx, int tps, int ts, int d,
                                                void* stream) {
   using namespace egogs::cp;
   return launch_bwd<false>(WindowRows{counts, m}, data, bg, logt, gimg, galpha, gdepth, ddata,
-                           n_tiles, n_tx, ts, d, stream);
+                           n_tiles, n_tx, tps, ts, d, stream);
 }

@@ -18,7 +18,9 @@
 //
 // Interface (the TPU kernel's): counts [T] int32 (clamped to [0, M] here),
 // data [T, M, 7+D] row-major (mu_x, mu_y, a, b, c, op, col x D, z), M a
-// multiple of 128; bg [1, D].
+// multiple of 128; bg [S, D]. The scene axis (vmap over the pallas_call on
+// the TPU): the T tiles are S scenes' tiles, scene-major, tps per scene;
+// tile t draws its pixel origin from t % tps and its bg from row t / tps.
 //
 // What bounds it on the card: per covered pair and pixel (gated alpha > 0)
 // one expf for alpha, one log1pf, one expf for the weight and ~20 other
@@ -44,10 +46,10 @@
 extern "C" int egogs_window_chunked_fwd(const int* counts, const float* data,
                                         const float* bg, float* img, float* alpha,
                                         float* depth, float* logt, int n_tiles, int m,
-                                        int n_tx, int ts, int d, void* stream) {
+                                        int n_tx, int tps, int ts, int d, void* stream) {
   using namespace egogs::cp;
   return launch_fwd<true>(WindowRows{counts, m}, data, bg, img, alpha, depth, logt, n_tiles,
-                          n_tx, ts, d, stream);
+                          n_tx, tps, ts, d, stream);
 }
 
 // The same kernel with the per-warp cull compiled out: a check instance,
@@ -55,8 +57,8 @@ extern "C" int egogs_window_chunked_fwd(const int* counts, const float* data,
 extern "C" int egogs_window_chunked_fwd_nocull(const int* counts, const float* data,
                                                const float* bg, float* img, float* alpha,
                                                float* depth, float* logt, int n_tiles, int m,
-                                               int n_tx, int ts, int d, void* stream) {
+                                               int n_tx, int tps, int ts, int d, void* stream) {
   using namespace egogs::cp;
   return launch_fwd<false>(WindowRows{counts, m}, data, bg, img, alpha, depth, logt, n_tiles,
-                           n_tx, ts, d, stream);
+                           n_tx, tps, ts, d, stream);
 }

@@ -48,7 +48,7 @@ def add_densification_stats(
     """Accumulate screen-space gradient norms of visible Gaussians
     (reference add_densification_stats; visibility filter radii > 0)."""
     visible = radii > 0
-    gnorm = torch.linalg.vector_norm(means2d_grad[:, :2], dim=-1)
+    gnorm = torch.linalg.vector_norm(means2d_grad[..., :2], dim=-1)
     zero = torch.zeros_like(gnorm)
     aux = dataclasses.replace(
         model.aux,
@@ -240,7 +240,7 @@ def reset_opacity(
     new_op = torch.minimum(opacity, opacity.new_tensor(max_opacity))
     new_logit = torch.log(new_op / (1.0 - new_op))
     if which_object is not None:
-        m = (model.aux.is_object == which_object)[:, None]
+        m = (model.aux.is_object == which_object)[..., None]
         new_logit = torch.where(m, new_logit, p.opacity_logit)
     new_params = dataclasses.replace(p, opacity_logit=new_logit)
     return (

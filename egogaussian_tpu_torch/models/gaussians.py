@@ -88,7 +88,7 @@ class GaussianModel:
 
     @property
     def opacity(self) -> torch.Tensor:
-        return torch.sigmoid(self.params.opacity_logit[:, 0])
+        return torch.sigmoid(self.params.opacity_logit[..., 0])
 
     def covariance(self, scale_modifier: float = 1.0) -> torch.Tensor:
         return covariance_from_scaling_rotation(

@@ -66,6 +66,14 @@ def adam_state_from_jax_arrays(
                      count=torch.tensor(int(count), dtype=torch.int32, device=device))
 
 
+def per_scene(x, like: torch.Tensor):
+    """A per-scene [S] tensor shaped to broadcast over `like` ([S, ...]);
+    floats and 0-d tensors pass unchanged."""
+    if isinstance(x, torch.Tensor) and x.dim() == 1:
+        return x.reshape((-1,) + (1,) * (like.dim() - 1))
+    return x
+
+
 def adam_update(
     params,
     grads,
@@ -77,19 +85,24 @@ def adam_update(
 ):
     """One Adam step with a learning rate per field (`lr_tree`: field ->
     float or 0-d tensor, zero allowed) on a dataclass of tensors. Returns
-    (new params, new state); inputs are not modified."""
+    (new params, new state); inputs are not modified.
+
+    A scene-stacked state (every field [S, ...], count [S]) steps every
+    scene at its own count; a learning rate may then be an [S] tensor, one
+    per scene."""
     count = state.count + 1
     c = count.to(torch.float32)
     bc1 = 1.0 - b1 ** c
     bc2 = 1.0 - b2 ** c
     mu, nu, new = {}, {}, {}
     for k in _fields(params):
+        p = getattr(params, k)
         g = getattr(grads, k)
         m = b1 * getattr(state.mu, k) + (1 - b1) * g
         v = b2 * getattr(state.nu, k) + (1 - b2) * (g * g)
-        m_hat = m / bc1
-        v_hat = v / bc2
-        new[k] = getattr(params, k) - lr_tree[k] * m_hat / (torch.sqrt(v_hat) + eps)
+        m_hat = m / per_scene(bc1, p)
+        v_hat = v / per_scene(bc2, p)
+        new[k] = p - per_scene(lr_tree[k], p) * m_hat / (torch.sqrt(v_hat) + eps)
         mu[k], nu[k] = m, v
     cls = type(params)
     return cls(**new), AdamState(mu=cls(**mu), nu=cls(**nu), count=count)

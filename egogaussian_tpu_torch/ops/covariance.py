@@ -86,11 +86,13 @@ def covariance_from_scaling_rotation_rotated(
 
 
 def congruence_transform(cov: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
-    """X Sigma X^T on packed [..., 6] covariances, channel-wise (X [3, 3])."""
+    """X Sigma X^T on packed [..., 6] covariances, channel-wise (X [3, 3];
+    with a leading scene axis cov [S, N, 6] and X [S, 3, 3])."""
     xx, xy, xz, yy, yz, zz = (cov[..., i] for i in range(6))
-    x00, x01, x02 = X[0, 0], X[0, 1], X[0, 2]
-    x10, x11, x12 = X[1, 0], X[1, 1], X[1, 2]
-    x20, x21, x22 = X[2, 0], X[2, 1], X[2, 2]
+    Xn = X[..., None, :, :]  # entries broadcast over the covariances
+    x00, x01, x02 = Xn[..., 0, 0], Xn[..., 0, 1], Xn[..., 0, 2]
+    x10, x11, x12 = Xn[..., 1, 0], Xn[..., 1, 1], Xn[..., 1, 2]
+    x20, x21, x22 = Xn[..., 2, 0], Xn[..., 2, 1], Xn[..., 2, 2]
     # T = X @ Sigma (rows of the intermediate as channels)
     t00 = x00 * xx + x01 * xy + x02 * xz
     t01 = x00 * xy + x01 * yy + x02 * yz

@@ -17,15 +17,22 @@ import torch
 import torch.nn.functional as F
 
 
+def image_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean of an image [C, H, W] (or of anything up to 3-D); with a leading
+    scene axis [S, C, H, W], the mean of each scene's image, [S]."""
+    return torch.mean(x) if x.dim() <= 3 else torch.mean(x, dim=(-3, -2, -1))
+
+
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Mean |pred - target|, with the JAX package's slope +1 at 0 (torch.abs
-    takes 0 there; masked-object losses have many exact zeros)."""
+    takes 0 there; masked-object losses have many exact zeros). Per scene
+    for [S, C, H, W] inputs."""
     d = pred - target
-    return torch.mean(torch.where(d >= 0, d, -d))
+    return image_mean(torch.where(d >= 0, d, -d))
 
 
 def l2_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return torch.mean((pred - target) ** 2)
+    return image_mean((pred - target) ** 2)
 
 
 def psnr(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -43,16 +50,18 @@ def _gaussian_window(window_size: int, sigma: float):
 
 def _depthwise_blur(img: torch.Tensor, window_size: int, sigma: float) -> torch.Tensor:
     """Separable Gaussian blur per channel, zero SAME padding.
-    img [C, H, W] -> [C, H, W]."""
-    c = img.shape[0]
+    img [C, H, W] -> [C, H, W]; [S, C, H, W] -> [S, C, H, W] in one call."""
+    batched = img.dim() == 4
+    x = img if batched else img[None]
+    c = x.shape[1]
     w = torch.tensor(_gaussian_window(window_size, sigma), dtype=img.dtype,
                      device=img.device)
     kernel_h = w.reshape(1, 1, window_size, 1).expand(c, 1, window_size, 1)
     kernel_w = w.reshape(1, 1, 1, window_size).expand(c, 1, 1, window_size)
     pad = window_size // 2
-    x = F.conv2d(img[None], kernel_h, padding=(pad, 0), groups=c)
+    x = F.conv2d(x, kernel_h, padding=(pad, 0), groups=c)
     x = F.conv2d(x, kernel_w, padding=(0, pad), groups=c)
-    return x[0]
+    return x if batched else x[0]
 
 
 def ssim(
@@ -62,23 +71,30 @@ def ssim(
     sigma: float = 1.5,
 ) -> torch.Tensor:
     """Mean SSIM between images [C, H, W] in [0,1] (reference protocol:
-    utils/loss_utils.py:66-106)."""
+    utils/loss_utils.py:66-106); per scene for [S, C, H, W] inputs."""
     C1 = 0.01**2
     C2 = 0.03**2
     # one stacked depthwise blur for the five blurred planes
-    c = img1.shape[0]
-    stacked = torch.cat([img1, img2, img1 * img1, img2 * img2, img1 * img2], dim=0)
+    c = img1.shape[-3]
+    # contiguous: the renders are views of channel-last memory, and a 4-D
+    # concatenation of them stays channel-last, which cuDNN blurs with other
+    # kernels than the [C, H, W] concatenation's (a no-op for that one)
+    stacked = torch.cat([img1, img2, img1 * img1, img2 * img2, img1 * img2], dim=-3).contiguous()
     blurred = _depthwise_blur(stacked, window_size, sigma)
-    mu1 = blurred[0 * c : 1 * c]
-    mu2 = blurred[1 * c : 2 * c]
-    sigma1_sq = blurred[2 * c : 3 * c] - mu1 * mu1
-    sigma2_sq = blurred[3 * c : 4 * c] - mu2 * mu2
+
+    def plane(k):
+        return blurred[..., k * c:(k + 1) * c, :, :]
+
+    mu1 = plane(0)
+    mu2 = plane(1)
+    sigma1_sq = plane(2) - mu1 * mu1
+    sigma2_sq = plane(3) - mu2 * mu2
     mu1_mu2 = mu1 * mu2
-    sigma12 = blurred[4 * c : 5 * c] - mu1_mu2
+    sigma12 = plane(4) - mu1_mu2
     ssim_map = ((2 * mu1_mu2 + C1) * (2 * sigma12 + C2)) / (
         (mu1 * mu1 + mu2 * mu2 + C1) * (sigma1_sq + sigma2_sq + C2)
     )
-    return torch.mean(ssim_map)
+    return image_mean(ssim_map)
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -88,7 +104,7 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor
     label pixels are exactly 0, so the tie gradients follow JAX: `maximum`
     splits 1/2 : 1/2 and |x| takes slope +1 at 0 (torch.abs would take 0)."""
     abs_logits = torch.where(logits >= 0, logits, -logits)
-    return torch.mean(
+    return image_mean(
         torch.maximum(logits, logits.new_zeros(())) - logits * targets
         + torch.log1p(torch.exp(-abs_logits))
     )

@@ -13,10 +13,12 @@ for the PyTorch package:
       - the real static step (train/static.py:_dp_static_step), frames
         sharded over the data axis;
       - the dp step (make_dp_train_step on replicate / shard_batch inputs);
-      - the memory-sharded render (make_memory_sharded_render).
-    JAX's scene-axis checks (multi_scene_static_step, and the coarse,
-    fine_obj and fine_all steps on the scene axis) wait for the port of
-    JAX's scene lockstep (ROADMAP.md §A item 11).
+      - the memory-sharded render (make_memory_sharded_render);
+      - for even n, on a second grid of 2 scene rows x n / 2 data ranks:
+        the real static step with two scenes stacked on each rank's scene
+        axis (multi_scene_static_step, per-scene xyz-rate factors, frames
+        sharded over the row's data axis), then the coarse, fine_obj and
+        fine_all steps on the scene axis with per-scene flags.
 
   python -m egogaussian_tpu_torch.parallel.dryrun [N]
 """
@@ -107,6 +109,79 @@ def _dryrun_rank(mesh, n):
     return lines
 
 
+def _dryrun_scene_rank(mesh, n):
+    """The scene-axis checks on one rank of a 2 x n / 2 grid: each rank
+    stacks two scenes (its own scene row's) on its scene axis."""
+    from egogaussian_tpu_torch.config import Config
+    from egogaussian_tpu_torch.models import adam_init
+    from egogaussian_tpu_torch.models.pose import empty_pose_sequence, identity_pose
+    from egogaussian_tpu_torch.parallel.multi_scene import (
+        multi_scene_coarse_step,
+        multi_scene_fine_all_step,
+        multi_scene_fine_step,
+        multi_scene_static_step,
+        stack_scenes,
+    )
+    from egogaussian_tpu_torch.train.common import auto_tile_config
+
+    dev = mesh.device
+    b = mesh.shape["data"]
+    model, opt_state, batch = _flagship(dev, n_gaussians=2048, width=64, height=48,
+                                        frames=max(b, 2))
+    cfg = Config()
+    tile_cfg = auto_tile_config(model, batch.camera(0))
+    lines = []
+    models = stack_scenes([model, model])
+    opts = stack_scenes([opt_state, adam_init(model.params)])
+    batches = stack_scenes([batch, batch])
+    gmasks = stack_scenes([batch.hand_masks, batch.hand_masks])
+    fidxs = torch.arange(b, device=dev)[None].repeat(2, 1)
+    mult = torch.tensor([1.0, 1.3], device=dev)
+    m2, o2, losses, _, drop2 = multi_scene_static_step(
+        models, opts, batches, fidxs, gmasks, 100, xyz_lr_mult=mult, mesh=mesh, mode="std",
+        backend="tiled", tile_config=tile_cfg, opt_cfg=cfg.opt)
+    if not (torch.isfinite(losses).all() and torch.isfinite(m2.aux.xyz_gradient_accum).all()):
+        raise AssertionError(f"scene x data static step: losses {losses.tolist()}")
+    lines.append(f"dryrun_multichip({n}) REAL static step, scene x data 2x{b} "
+                 f"(two scenes per rank): losses={np.round(losses.tolist(), 5).tolist()} "
+                 f"dropped={drop2.tolist()} OK")
+
+    pose = identity_pose(dev)
+    poses = stack_scenes([pose, pose])
+    pose_opts = stack_scenes([adam_init(pose), adam_init(pose)])
+    f_n = batch.viewmats.shape[0]
+    eye4 = torch.eye(4, device=dev).expand(2, f_n + 1, 4, 4)
+    eye3 = torch.eye(3, device=dev).expand(2, f_n + 1, 3, 3)
+    zero = torch.zeros((2,), dtype=torch.int64, device=dev)
+    m3, o3, p3, po3, loss3, _, drop3, _ = multi_scene_coarse_step(
+        m2, o2, poses, pose_opts, batches, [0, 0], eye4, eye3, [-1, -1], 100, zero,
+        train_poses=[True, False], first_frames=[False, True], grad_params=True,
+        xyz_lr_mult=mult, mesh=mesh, opt_cfg=cfg.opt, coarse_cfg=cfg.coarse,
+        backend="tiled", tile_config=tile_cfg)
+    if not torch.isfinite(loss3).all():
+        raise AssertionError(f"scene-axis coarse step: losses {loss3.tolist()}")
+    lines.append(f"dryrun_multichip({n}) REAL coarse step, scene axis: "
+                 f"losses={np.round(loss3.tolist(), 5).tolist()} OK")
+
+    seq = empty_pose_sequence(f_n, device=dev)
+    seqs = stack_scenes([seq, seq])
+    m4, o4, _, _, loss4, drop4, _ = multi_scene_fine_step(
+        m3, o3, seqs, po3, batches, [0, 0], 100, zero, train_poses=[True, False],
+        xyz_lr_mult=mult, mesh=mesh, opt_cfg=cfg.opt, fine_cfg=cfg.fine, backend="tiled",
+        tile_config=tile_cfg)
+    _, _, loss5, _ = multi_scene_fine_all_step(
+        m4, o4, batches, [0, 0], eye4[:, :f_n], eye3[:, :f_n], 100, False, zero,
+        xyz_lr_mult=mult, mesh=mesh, backend="tiled", tile_config=tile_cfg, opt_cfg=cfg.opt)
+    if not (torch.isfinite(loss4).all() and torch.isfinite(loss5).all()):
+        raise AssertionError(f"scene-axis fine steps: {loss4.tolist()} / {loss5.tolist()}")
+    lines.append(f"dryrun_multichip({n}) REAL fine_obj + fine_all steps, scene axis: "
+                 f"losses={np.round(loss4.tolist(), 5).tolist()} / "
+                 f"{np.round(loss5.tolist(), 5).tolist()} OK")
+    if mesh.rank == 0:
+        print("\n".join(lines), flush=True)
+    return lines
+
+
 def dryrun_multichip(n_devices: int):
     """The dry run on n_devices ranks (see the module docstring). Returns
     rank 0's lines; raises on any rank's failure."""
@@ -114,8 +189,12 @@ def dryrun_multichip(n_devices: int):
 
     on_cards = torch.cuda.is_available() and torch.cuda.device_count() >= n_devices
     device = torch.device("cuda" if on_cards else "cpu")
-    return spawn(_dryrun_rank, 1, n_devices, "nccl" if on_cards else "gloo", device,
-                 args=(n_devices,))[0]
+    backend = "nccl" if on_cards else "gloo"
+    lines = spawn(_dryrun_rank, 1, n_devices, backend, device, args=(n_devices,))[0]
+    if n_devices >= 2 and n_devices % 2 == 0:
+        lines = lines + spawn(_dryrun_scene_rank, 2, n_devices // 2, backend, device,
+                              args=(n_devices,))[0]
+    return lines
 
 
 if __name__ == "__main__":

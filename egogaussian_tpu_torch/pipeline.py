@@ -24,6 +24,12 @@ mid-stage and resumes from it (train/ckpt_hook.py), with or without
 stage="pipeline", event="stage_time": its wall-clock seconds, iterations
 and alive count, and whether it was resumed.
 
+`run_pipeline_scenes` runs V videos through the stages in lockstep: each
+training stage is its lockstep driver over the videos
+(parallel/scene_trainer.py, one batched step per iteration for all of
+them), and every video writes the tree and metrics log its own
+run_pipeline writes; `run_pipeline` is its one-video case.
+
 On a mesh (parallel/mesh.py) stages 1.0 and 1.2 run frame-data-parallel
 on every data rank of the scene row; the pose stages 2-6 chain each
 frame's pose off the previous one and run on the row's first rank alone,
@@ -54,12 +60,8 @@ from egogaussian_tpu_torch.models.pose import (
     load_pose_sequence,
     save_pose_sequence,
 )
-from egogaussian_tpu_torch.train.coarse_pose import estimate_coarse_obj_pose
-from egogaussian_tpu_torch.train.fine_all import fine_tune_all
-from egogaussian_tpu_torch.train.fine_obj import fine_tune_obj
-from egogaussian_tpu_torch.train.static import train_background, train_static
 from egogaussian_tpu_torch.utils.console import CONSOLE
-from egogaussian_tpu_torch.utils.logging import MetricsLogger, active_logger, log_metrics
+from egogaussian_tpu_torch.utils.logging import MetricsLogger, log_metrics, use_logger
 
 # run_pipeline's stop_after: None runs all six stages
 STOP_AFTER = (None, "background", "coarse")
@@ -85,6 +87,22 @@ def apply_predicted_masks(cameras, pred_masks: Dict[str, np.ndarray]):
             cam = dataclasses.replace(cam, obj_mask=mask)
         out.append(cam)
     return out
+
+
+@dataclasses.dataclass(eq=False)
+class VideoRun:
+    """One video of run_pipeline_scenes: run_pipeline's per-video
+    arguments."""
+
+    scene: SceneData
+    save_dir: str
+    training_frames: Optional[Sequence[str]] = None
+    dynamic_eval_frames: Optional[Sequence[str]] = None
+    static_eval_frames: Optional[Sequence[str]] = None
+    static_phases: Optional[List] = None
+    dynamic_phases: Optional[List] = None
+    seed: int = 0
+    lpips_fn: object = None
 
 
 def run_pipeline(
@@ -114,26 +132,79 @@ def run_pipeline(
     multi-video CLI's --stage1_only and --through_coarse). `mesh`: stages
     1.0 and 1.2 frame-data-parallel over its data axis, the rest on rank
     (s, 0), which alone returns the result; `device` then defaults to
-    mesh.device."""
+    mesh.device. The one-video case of run_pipeline_scenes."""
+    video = VideoRun(scene, save_dir, training_frames, dynamic_eval_frames, static_eval_frames,
+                     static_phases, dynamic_phases, seed, lpips_fn)
+    return run_pipeline_scenes([video], cfg, backend=backend, resume=resume,
+                               fine_variant=fine_variant, checkpoint_every=checkpoint_every,
+                               mesh=mesh, device=device, stop_after=stop_after)[0]
+
+
+def run_pipeline_scenes(
+    videos: Sequence[VideoRun],
+    cfg: Config,
+    backend: str = "auto",
+    resume: bool = False,
+    fine_variant: str = "from-coarse",
+    checkpoint_every: int = 0,
+    mesh=None,
+    device: Optional[torch.device] = None,
+    stop_after: Optional[str] = None,
+) -> List[Optional[PipelineResult]]:
+    """The six stages for V videos in lockstep: each training stage runs its
+    lockstep driver (parallel/scene_trainer.py) over the videos that have
+    not finished it, one batched step per iteration for all of them; stage
+    3 runs each variant as one lockstep pass over the videos; stages 1.1,
+    4 and 6 run per video. Every video writes the tree and metrics log its
+    run_pipeline run writes, and the stages hand on through the files as
+    there. Returns one result per video (None as run_pipeline returns
+    it)."""
     if device is None:
         device = mesh.device if mesh is not None else torch.device("cuda")
     if stop_after not in STOP_AFTER:
         raise ValueError(f"stop_after={stop_after!r}: expected one of {STOP_AFTER}")
-    cameras = scene.cameras
-    static_groups = split_viewpoints_by_phase(cameras, static_phases, training_frames)
-    dynamic_groups = split_viewpoints_by_phase(cameras, dynamic_phases, training_frames)
-    os.makedirs(save_dir, exist_ok=True)
-    logger = MetricsLogger(
-        log_dir=os.path.join(save_dir, "logs") if mesh is None or mesh.writes else None,
-        use_wandb=cfg.log.use_wandb,
-        project=cfg.log.wandb_project,
-        run_name=os.path.basename(os.path.normpath(save_dir)),
-    )
-    with active_logger(logger):
-        return _run_pipeline_stages(
-            scene, cfg, save_dir, cameras, static_groups, dynamic_groups, training_frames,
-            dynamic_eval_frames, static_eval_frames, dynamic_phases, seed, backend, resume,
-            lpips_fn, fine_variant, checkpoint_every, device, stop_after, mesh)
+    runs = []
+    for v in videos:
+        os.makedirs(v.save_dir, exist_ok=True)
+        logger = MetricsLogger(
+            log_dir=os.path.join(v.save_dir, "logs") if mesh is None or mesh.writes else None,
+            use_wandb=cfg.log.use_wandb,
+            project=cfg.log.wandb_project,
+            run_name=os.path.basename(os.path.normpath(v.save_dir)),
+        )
+        cams = v.scene.cameras
+        runs.append(_Run(v, logger, cams,
+                         split_viewpoints_by_phase(cams, v.static_phases, v.training_frames),
+                         split_viewpoints_by_phase(cams, v.dynamic_phases, v.training_frames)))
+    try:
+        return _run_pipeline_stages(runs, cfg, backend, resume, fine_variant, checkpoint_every,
+                                    device, stop_after, mesh)
+    finally:
+        for r in runs:
+            r.logger.close()
+
+
+@dataclasses.dataclass(eq=False)
+class _Run:
+    """One video's state between the stages of run_pipeline_scenes (compared
+    by identity: it holds tensors)."""
+
+    video: VideoRun
+    logger: MetricsLogger
+    cameras: list
+    static_groups: list
+    dynamic_groups: list
+    obj_model: Optional[GaussianModel] = None
+    bg_model: Optional[GaussianModel] = None
+    pose_seq: Optional[PoseSequence] = None
+    coarse_model: Optional[GaussianModel] = None
+
+    def path(self, *parts) -> str:
+        return os.path.join(self.video.save_dir, *parts)
+
+    @property
+    def extent(self) -> float:
+        return self.video.scene.cameras_extent
 
 
 def _log_stage_time(name: str, t0: float, iterations: int, resumed: bool, alive=None):
@@ -146,162 +217,221 @@ def _log_stage_time(name: str, t0: float, iterations: int, resumed: bool, alive=
                 **extra)
 
 
-def _run_pipeline_stages(scene, cfg, save_dir, cameras, static_groups, dynamic_groups,
-                         training_frames, dynamic_eval_frames, static_eval_frames,
-                         dynamic_phases, seed, backend, resume, lpips_fn, fine_variant,
-                         checkpoint_every, device, stop_after, mesh) -> Optional[PipelineResult]:
-    extent = scene.cameras_extent
-    kw = dict(seed=seed, backend=backend, device=device, checkpoint_every=checkpoint_every)
+def _run_pipeline_stages(runs: List[_Run], cfg, backend, resume, fine_variant, checkpoint_every,
+                         device, stop_after, mesh) -> List[Optional[PipelineResult]]:
+    from egogaussian_tpu_torch.parallel.scene_trainer import (
+        CoarseSceneInput,
+        FineAllSceneInput,
+        FineSceneInput,
+        SceneInput,
+        train_background_scenes,
+        train_coarse_scenes,
+        train_fine_all_scenes,
+        train_fine_scenes,
+        train_static_scenes,
+    )
+
+    kw = dict(backend=backend, device=device, checkpoint_every=checkpoint_every)
     sh = cfg.model.sh_degree
+    none = [None] * len(runs)
 
     # ---- Stage 1.0: every static phase, each from the point cloud; the
     # object model handed on is phase 0's, the predicted masks all phases'
     t0 = time.perf_counter()
-    static_dir = os.path.join(save_dir, "static")
-    obj_ply = os.path.join(static_dir, "ply", "static_phase0_obj.ply")
-    last_ply = os.path.join(static_dir, "ply", f"static_phase{len(static_groups) - 1}.ply")
-    resumed = resume and os.path.exists(obj_ply) and os.path.exists(last_ply)
-    if resumed:
-        CONSOLE.log("[pipeline] resume: static stage artifacts found")
-        pred_masks = _load_pred_masks(os.path.join(static_dir, "obj_masks"))
-    else:
-        static_results = train_static(
-            cameras, scene.points, scene.colors, cfg, static_groups, extent,
-            save_dir=static_dir, mesh=mesh, **kw)
-        pred_masks = {}
-        for r in static_results:
-            pred_masks.update(r.pred_masks)
-        log_metrics("static", 0, event="stage_end",
-                    dropped_pairs=max(r.dropped_pairs for r in static_results),
-                    obj_alive=[int(r.obj_model.num_alive) for r in static_results],
-                    bg_alive=[int(r.bg_model.num_alive) for r in static_results])
-    # handed on as its file holds it, trained or resumed alike
-    obj_model = load_ply(obj_ply, device, is_object=True, spatial_lr_scale=extent,
-                         sh_degree=sh)
+    todo, pred = [], {}
+    for r in runs:
+        obj_ply = r.path("static", "ply", "static_phase0_obj.ply")
+        last_ply = r.path("static", "ply", f"static_phase{len(r.static_groups) - 1}.ply")
+        if resume and os.path.exists(obj_ply) and os.path.exists(last_ply):
+            CONSOLE.log("[pipeline] resume: static stage artifacts found")
+            pred[id(r)] = _load_pred_masks(r.path("static", "obj_masks"))
+        else:
+            todo.append(r)
+    if todo:
+        results = train_static_scenes(
+            [SceneInput(r.cameras, r.video.scene.points, r.video.scene.colors, r.static_groups,
+                        r.extent, save_dir=r.path("static"), seed=r.video.seed,
+                        logger=r.logger) for r in todo], cfg, mesh=mesh, **kw)
+        for r, res in zip(todo, results):
+            pred[id(r)] = {}
+            for phase in res:
+                pred[id(r)].update(phase.pred_masks)
+            with use_logger(r.logger):
+                log_metrics("static", 0, event="stage_end",
+                            dropped_pairs=max(x.dropped_pairs for x in res),
+                            obj_alive=[int(x.obj_model.num_alive) for x in res],
+                            bg_alive=[int(x.bg_model.num_alive) for x in res])
     sp = cfg.static
-    iters = len(static_groups) * (sp.std_train_iter + sp.entropy_reg_iter + sp.label_train_iter)
-    _log_stage_time("static", t0, 0 if resumed else iters, resumed, obj_model.num_alive)
+    for r in runs:
+        # handed on as its file holds it, trained or resumed alike
+        r.obj_model = load_ply(r.path("static", "ply", "static_phase0_obj.ply"), device,
+                               is_object=True, spatial_lr_scale=r.extent, sh_degree=sh)
+        iters = len(r.static_groups) * (sp.std_train_iter + sp.entropy_reg_iter
+                                        + sp.label_train_iter)
+        with use_logger(r.logger):
+            _log_stage_time("static", t0, iters if r in todo else 0, r not in todo,
+                            r.obj_model.num_alive)
 
-    # ---- Stage 1.1: complete the object masks. Every static training
-    # frame must now carry a shipped or a predicted mask (reference
-    # train.py:90 asserts it): an all-zero mask on a static frame would
-    # make stage 2's next-static anchor train against gt * 0.
-    cameras = apply_predicted_masks(cameras, pred_masks)
-    missing = [
-        cameras[i].image_name
-        for g in static_groups
-        for i in g
-        if cameras[i].image_name not in pred_masks
-        and (cameras[i].obj_mask is None or float(cameras[i].obj_mask.sum()) == 0)
-    ]
-    if missing:
-        raise AssertionError(f"stage 1.1: {len(missing)} static frames have no object mask "
-                             f"(shipped or predicted): {missing[:5]}")
+        # ---- Stage 1.1: complete the object masks. Every static training
+        # frame must now carry a shipped or a predicted mask (reference
+        # train.py:90 asserts it): an all-zero mask on a static frame would
+        # make stage 2's next-static anchor train against gt * 0.
+        pred_masks = pred[id(r)]
+        r.cameras = apply_predicted_masks(r.cameras, pred_masks)
+        missing = [
+            r.cameras[i].image_name
+            for g in r.static_groups
+            for i in g
+            if r.cameras[i].image_name not in pred_masks
+            and (r.cameras[i].obj_mask is None or float(r.cameras[i].obj_mask.sum()) == 0)
+        ]
+        if missing:
+            raise AssertionError(f"stage 1.1: {len(missing)} static frames have no object "
+                                 f"mask (shipped or predicted): {missing[:5]}")
 
     # ---- Stage 1.2: background
     t0 = time.perf_counter()
-    bg_dir = os.path.join(save_dir, "background")
-    bg_ply = os.path.join(bg_dir, "static_bg.ply")
-    all_train_idx = sorted({i for g in static_groups + dynamic_groups for i in g})
-    resumed = resume and os.path.exists(bg_ply)
-    if resumed:
-        CONSOLE.log("[pipeline] resume: background artifacts found")
-    else:
-        train_background(cameras, scene.points, scene.colors, cfg, all_train_idx, extent,
-                         save_dir=bg_dir, mesh=mesh, **kw)
-    bg_model = load_ply(bg_ply, device, force_bg=True, spatial_lr_scale=extent, sh_degree=sh)
+    todo = []
+    for r in runs:
+        if resume and os.path.exists(r.path("background", "static_bg.ply")):
+            CONSOLE.log("[pipeline] resume: background artifacts found")
+        else:
+            todo.append(r)
+    if todo:
+        train_background_scenes(
+            [SceneInput(r.cameras, r.video.scene.points, r.video.scene.colors, [], r.extent,
+                        save_dir=r.path("background"), seed=r.video.seed, logger=r.logger,
+                        train_frame_idxs=sorted({i for g in r.static_groups + r.dynamic_groups
+                                                 for i in g}))
+             for r in todo], cfg, mesh=mesh, **kw)
     iters = cfg.static_bg.std_train_iter + cfg.static_bg.entropy_reg_iter
-    _log_stage_time("background", t0, 0 if resumed else iters, resumed, bg_model.num_alive)
+    for r in runs:
+        r.bg_model = load_ply(r.path("background", "static_bg.ply"), device, force_bg=True,
+                              spatial_lr_scale=r.extent, sh_degree=sh)
+        with use_logger(r.logger):
+            _log_stage_time("background", t0, iters if r in todo else 0, r not in todo,
+                            r.bg_model.num_alive)
     if stop_after == "background":
-        return None
+        return none
     if mesh is not None and not mesh.writes:
         mesh.barrier()  # stages 2-6 run on rank (s, 0)
-        return None
+        return none
 
     # ---- Stage 2: coarse object pose
     t0 = time.perf_counter()
-    coarse_dir = os.path.join(save_dir, "coarse")
-    coarse_pose_path = os.path.join(coarse_dir, "obj_pose_sequence.npz")
-    coarse_ply = os.path.join(coarse_dir, "ply", "gaussians_final.ply")
-    resumed = resume and os.path.exists(coarse_pose_path) and os.path.exists(coarse_ply)
-    if resumed:
-        CONSOLE.log("[pipeline] resume: coarse artifacts found")
-    else:
-        estimate_coarse_obj_pose(cameras, obj_model, cfg, static_groups, dynamic_groups,
-                                 extent, save_dir=coarse_dir, **kw)
-    pose_seq, _ = load_pose_sequence(coarse_pose_path, device)
-    coarse_model = load_ply(coarse_ply, device, is_object=True, spatial_lr_scale=extent,
-                            sh_degree=sh)
-    # every dynamic training frame and each phase's next-static anchor
-    iters = sum(len(g) + 1 for g in dynamic_groups) * cfg.coarse.total_num_iter
-    _log_stage_time("coarse", t0, 0 if resumed else iters, resumed, coarse_model.num_alive)
-    if stop_after == "coarse":
-        return _row_done(mesh, None)
-
-    # ---- Stage 3: fine-tune the object, both variants like the reference
-    fine_results = {}
-    for variant, base_model in (("from-static", obj_model), ("from-coarse", coarse_model)):
-        t0 = time.perf_counter()
-        fdir = os.path.join(save_dir, "fine_obj", variant)
-        fply = os.path.join(fdir, "gaussians_fine.ply")
-        fpose = os.path.join(fdir, "obj_pose_sequence.npz")
-        resumed = resume and os.path.exists(fply) and os.path.exists(fpose)
-        if resumed:
-            CONSOLE.log(f"[pipeline] resume: fine_obj {variant} found")
+    todo = []
+    for r in runs:
+        if (resume and os.path.exists(r.path("coarse", "obj_pose_sequence.npz"))
+                and os.path.exists(r.path("coarse", "ply", "gaussians_final.ply"))):
+            CONSOLE.log("[pipeline] resume: coarse artifacts found")
         else:
-            fine_tune_obj(cameras, base_model, pose_seq, cfg, static_groups, dynamic_groups,
-                          extent, save_dir=fdir, **kw)
-        seq_v, _ = load_pose_sequence(fpose, device)
-        model_v = load_ply(fply, device, is_object=True, spatial_lr_scale=extent,
-                           sh_degree=sh)
-        fine_results[variant] = (seq_v, model_v)
-        _log_stage_time(f"fine_obj/{variant}", t0, 0 if resumed else cfg.fine.total_num_iter,
-                        resumed, model_v.num_alive)
+            todo.append(r)
+    if todo:
+        train_coarse_scenes(
+            [CoarseSceneInput(r.cameras, r.obj_model, r.static_groups, r.dynamic_groups,
+                              r.extent, save_dir=r.path("coarse"), seed=r.video.seed,
+                              logger=r.logger) for r in todo], cfg, **kw)
+    for r in runs:
+        r.pose_seq, _ = load_pose_sequence(r.path("coarse", "obj_pose_sequence.npz"), device)
+        r.coarse_model = load_ply(r.path("coarse", "ply", "gaussians_final.ply"), device,
+                                  is_object=True, spatial_lr_scale=r.extent, sh_degree=sh)
+        # every dynamic training frame and each phase's next-static anchor
+        iters = sum(len(g) + 1 for g in r.dynamic_groups) * cfg.coarse.total_num_iter
+        with use_logger(r.logger):
+            _log_stage_time("coarse", t0, iters if r in todo else 0, r not in todo,
+                            r.coarse_model.num_alive)
+    if stop_after == "coarse":
+        return _row_done(mesh, none)
+
+    # ---- Stage 3: fine-tune the object, both variants like the reference,
+    # each variant one lockstep pass over the videos
+    fine_results = [{} for _ in runs]
+    for variant in ("from-static", "from-coarse"):
+        t0 = time.perf_counter()
+        todo = []
+        for r in runs:
+            fdir = r.path("fine_obj", variant)
+            if (resume and os.path.exists(os.path.join(fdir, "gaussians_fine.ply"))
+                    and os.path.exists(os.path.join(fdir, "obj_pose_sequence.npz"))):
+                CONSOLE.log(f"[pipeline] resume: fine_obj {variant} found")
+            else:
+                todo.append(r)
+        if todo:
+            train_fine_scenes(
+                [FineSceneInput(r.cameras,
+                                r.obj_model if variant == "from-static" else r.coarse_model,
+                                r.pose_seq, r.static_groups, r.dynamic_groups, r.extent,
+                                save_dir=r.path("fine_obj", variant), seed=r.video.seed,
+                                logger=r.logger) for r in todo], cfg, **kw)
+        for r, res in zip(runs, fine_results):
+            fdir = r.path("fine_obj", variant)
+            seq_v, _ = load_pose_sequence(os.path.join(fdir, "obj_pose_sequence.npz"), device)
+            model_v = load_ply(os.path.join(fdir, "gaussians_fine.ply"), device, is_object=True,
+                               spatial_lr_scale=r.extent, sh_degree=sh)
+            res[variant] = (seq_v, model_v)
+            with use_logger(r.logger):
+                _log_stage_time(f"fine_obj/{variant}", t0,
+                                cfg.fine.total_num_iter if r in todo else 0, r not in todo,
+                                model_v.num_alive)
 
     # ---- Stage 4: fill the unsolved frames of every dynamic phase range
     # (held-out frames and phase ends included, reference
     # interpolate_pose.py:92-99) and keep the solved next-static anchors
-    t0 = time.perf_counter()
-    interp: Dict[str, PoseSequence] = {}
-    for variant, (seq_v, _) in fine_results.items():
-        dyn_mask = phase_membership_mask(cameras, dynamic_phases)
-        dyn_mask |= seq_v.solved.cpu().numpy()
-        interp[variant] = interpolate_pose_sequence(seq_v, dyn_mask)
-        save_pose_sequence(
-            os.path.join(save_dir, f"interpolate_pose_{variant.replace('from-', '')}",
-                         "obj_pose_sequence.npz"),
-            interp[variant], [c.image_name for c in cameras])
-    _log_stage_time("interpolate", t0, 0, False)
+    interps = []
+    for r, res in zip(runs, fine_results):
+        t0 = time.perf_counter()
+        interp: Dict[str, PoseSequence] = {}
+        for variant, (seq_v, _) in res.items():
+            dyn_mask = phase_membership_mask(r.cameras, r.video.dynamic_phases)
+            dyn_mask |= seq_v.solved.cpu().numpy()
+            interp[variant] = interpolate_pose_sequence(seq_v, dyn_mask)
+            save_pose_sequence(
+                r.path(f"interpolate_pose_{variant.replace('from-', '')}",
+                       "obj_pose_sequence.npz"),
+                interp[variant], [c.image_name for c in r.cameras])
+        with use_logger(r.logger):
+            _log_stage_time("interpolate", t0, 0, False)
+        interps.append(interp)
 
     # ---- Stage 5: fine-tune everything
     t0 = time.perf_counter()
-    seq_final = interp[fine_variant]
-    obj_final = fine_results[fine_variant][1]
-    final_ply = os.path.join(save_dir, "fine_all", "gaussians_all.ply")
-    resumed = resume and os.path.exists(final_ply)
-    if resumed:
-        CONSOLE.log("[pipeline] resume: fine_all artifacts found")
-    else:
-        fine_tune_all(cameras, obj_final, bg_model, seq_final, cfg, static_groups,
-                      dynamic_groups, save_dir=os.path.join(save_dir, "fine_all"), **kw)
-    final_model = load_ply(final_ply, device, spatial_lr_scale=extent, sh_degree=sh)
-    _log_stage_time("fine_all", t0, 0 if resumed else cfg.fine_all.total_num_iter, resumed,
-                    final_model.num_alive)
+    todo = []
+    for r in runs:
+        if resume and os.path.exists(r.path("fine_all", "gaussians_all.ply")):
+            CONSOLE.log("[pipeline] resume: fine_all artifacts found")
+        else:
+            todo.append(r)
+    if todo:
+        train_fine_all_scenes(
+            [FineAllSceneInput(r.cameras, fine_results[runs.index(r)][fine_variant][1],
+                               r.bg_model, interps[runs.index(r)][fine_variant],
+                               r.static_groups, r.dynamic_groups,
+                               save_dir=r.path("fine_all"), seed=r.video.seed,
+                               logger=r.logger) for r in todo], cfg, **kw)
+    out = []
+    for r, interp in zip(runs, interps):
+        final_model = load_ply(r.path("fine_all", "gaussians_all.ply"), device,
+                               spatial_lr_scale=r.extent, sh_degree=sh)
+        with use_logger(r.logger):
+            _log_stage_time("fine_all", t0, cfg.fine_all.total_num_iter if r in todo else 0,
+                            r not in todo, final_model.num_alive)
 
-    # ---- Stage 6: evaluation
-    t0 = time.perf_counter()
-    eval_dir = os.path.join(save_dir, "evaluation")
-    buckets = render_results(
-        cameras, final_model, seq_final,
-        training_frames=training_frames,
-        dynamic_eval_frames=dynamic_eval_frames,
-        static_eval_frames=static_eval_frames,
-        save_dir=eval_dir, backend=backend,
-    )
-    metrics = calculate_metric(buckets, save_dir=eval_dir, lpips_fn=lpips_fn, device=device)
-    _log_stage_time("eval", t0, 0, False)
-    return _row_done(mesh, PipelineResult(final_model=final_model, pose_seq=seq_final,
-                                          metrics=metrics))
+            # ---- Stage 6: evaluation
+            t6 = time.perf_counter()
+            eval_dir = r.path("evaluation")
+            buckets = render_results(
+                r.cameras, final_model, interp[fine_variant],
+                training_frames=r.video.training_frames,
+                dynamic_eval_frames=r.video.dynamic_eval_frames,
+                static_eval_frames=r.video.static_eval_frames,
+                save_dir=eval_dir, backend=backend,
+            )
+            metrics = calculate_metric(buckets, save_dir=eval_dir, lpips_fn=r.video.lpips_fn,
+                                       device=device)
+            _log_stage_time("eval", t6, 0, False)
+        out.append(PipelineResult(final_model=final_model, pose_seq=interp[fine_variant],
+                                  metrics=metrics))
+    return _row_done(mesh, out)
 
 
 def _row_done(mesh, result):

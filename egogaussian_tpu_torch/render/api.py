@@ -184,3 +184,58 @@ def render_label(
         tile_config=tile_config,
     )
     return res.image
+
+
+def render_scenes(
+    cams,
+    means3d: torch.Tensor,
+    cov3d: torch.Tensor,
+    opacities: torch.Tensor,
+    bg: torch.Tensor,
+    colors: torch.Tensor,
+    caps,
+    valid_mask: Optional[torch.Tensor] = None,
+    means2d_probe: Optional[torch.Tensor] = None,
+    backend: str = "cuda",
+    crop: bool = False,
+    crop_rects: Optional[torch.Tensor] = None,
+) -> RenderResult:
+    """`render` for S scenes in one pass: every op runs once on [S, ...]
+    tensors and the compositor is one launch for all scenes (the port of
+    JAX's vmap over the render). `cams` (parallel/multi_scene.py
+    SceneCameras) holds one camera per scene; means3d [S, N, 3], cov3d
+    [S, N, 6], opacities [S, N], bg [S, D], colors [S, N, D], valid_mask
+    and means2d_probe [S, N(, 2)]. `caps` (render/tiled.py SceneCaps): each
+    scene's binning capacities and composite size. With `crop`, each
+    scene composites a window of its caps size placed over its splats and
+    crop_rects [S, 4] (render/crop.py), as `render` with crop_size does.
+    backend "cuda" (tile-grid pair) or "tiled" (chunked windowed pair)."""
+    from egogaussian_tpu_torch.render.tiled import composite_scenes
+
+    proj = project_gaussians(
+        means3d, cov3d, cams.viewmat, cams.fx, cams.fy, cams.cx, cams.cy,
+        cams.width, cams.height, valid_mask=valid_mask,
+    )
+    means2d = proj.means2d
+    if means2d_probe is not None:
+        means2d = means2d + means2d_probe
+        proj = proj._replace(means2d=means2d)
+    crop_offset, crop_outside = None, 0
+    if crop:
+        from egogaussian_tpu_torch.render.crop import crop_window
+
+        dev = means3d.device
+        cw = torch.tensor([w for w, _ in caps.sizes], dtype=torch.float32, device=dev)
+        ch = torch.tensor([h for _, h in caps.sizes], dtype=torch.float32, device=dev)
+        ox, oy, crop_outside = crop_window(
+            proj, opacities, valid_mask, crop_rects, cw, ch, cams.width, cams.height,
+            align=caps.config.tile_size,
+        )
+        shift = torch.stack([ox, oy], dim=-1).to(means2d.dtype)
+        proj = proj._replace(means2d=means2d - shift[:, None, :])
+        crop_offset = torch.stack([ox, oy], dim=-1)
+    out = composite_scenes(proj, colors, opacities, bg, caps, resolve_backend(backend, caps))
+    return RenderResult(
+        image=out.image, alpha=out.alpha, depth=out.depth, radii=out.radii, means2d=means2d,
+        dropped_pairs=out.dropped_pairs, crop_offset=crop_offset, crop_outside=crop_outside,
+    )

@@ -16,8 +16,15 @@ Interface (the TPU kernels' own):
     broadcast; slots >= meta[2, 0] belong to no tile)
   vals [n_slots, ch16, 128] float32: 128-pair chunks, transposed, rows
     mu_x | mu_y | a | b | c | op | col x D | z | zero padding
-  bg [1, D] float32
+  bg [S, D] float32
   -> img [T, ts*ts, D], alpha [T, ts*ts, 1], depth [T, ts*ts, 1]
+
+The scene axis (the batch axis JAX's vmap adds to the pallas_call): the T
+tiles are S scenes' tile grids of T / S tiles each, scene-major; tile t
+takes its pixel origin from t mod T / S and its background from bg[t //
+(T / S)]. One launch covers every scene, and per tile the work is that of
+a one-scene launch, so S scenes in one launch equal S one-scene launches
+bit for bit. The meta rows and slots index the whole layout.
 Backward -> dvals [n_slots, ch16, 128] (rows dmu_x, dmu_y, da, db, dc, dop,
 dcol x D, dz).
 
@@ -133,10 +140,10 @@ def kernel_library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.egogs_tilegrid_fwd, lib.egogs_tilegrid_fwd_nocull):
         fn.restype = i
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     for fn in (lib.egogs_tilegrid_bwd, lib.egogs_tilegrid_bwd_nocull):
         fn.restype = i
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     for fn in (lib.egogs_stream_fwd, lib.egogs_stream_fwd_nocull):
         fn.restype = i
         fn.argtypes = [p] * 7 + [i] * 5 + [p]
@@ -145,10 +152,10 @@ def kernel_library() -> ctypes.CDLL:
         fn.argtypes = [p] * 8 + [i] * 5 + [p]
     for fn in (lib.egogs_window_chunked_fwd, lib.egogs_window_chunked_fwd_nocull):
         fn.restype = i
-        fn.argtypes = [p] * 7 + [i] * 5 + [p]
+        fn.argtypes = [p] * 7 + [i] * 6 + [p]
     for fn in (lib.egogs_window_chunked_bwd, lib.egogs_window_chunked_bwd_nocull):
         fn.restype = i
-        fn.argtypes = [p] * 8 + [i] * 5 + [p]
+        fn.argtypes = [p] * 8 + [i] * 6 + [p]
     for fn in (lib.egogs_window_fwd, lib.egogs_window_fwd_nocull):
         fn.restype = i
         fn.argtypes = [p] * 9 + [i] * 5 + [p]
@@ -170,9 +177,11 @@ def _check(meta, vals, bg, ts, tensors=()):
         raise ValueError(f"tile size {ts} not in {SUPPORTED_TS}")
     if meta.dtype != torch.int32 or meta.dim() != 2 or meta.shape[0] != 3:
         raise ValueError(f"meta must be int32 [3, T], got {meta.dtype} {tuple(meta.shape)}")
-    if bg.dtype != torch.float32 or bg.dim() != 2 or bg.shape[0] != 1:
-        raise ValueError(f"bg must be float32 [1, D], got {bg.dtype} {tuple(bg.shape)}")
+    if bg.dtype != torch.float32 or bg.dim() != 2 or bg.shape[0] < 1:
+        raise ValueError(f"bg must be float32 [S, D], got {bg.dtype} {tuple(bg.shape)}")
     n_tiles, d = meta.shape[1], bg.shape[1]
+    if n_tiles % bg.shape[0]:
+        raise ValueError(f"{n_tiles} tiles do not split into {bg.shape[0]} scenes")
     if d not in SUPPORTED_D:
         raise ValueError(f"channel count {d} not in {SUPPORTED_D}")
     if (vals.dtype != torch.float32 or vals.dim() != 3
@@ -206,15 +215,22 @@ def _launch_check(rc: int, what: str):
 # Plain PyTorch twins (CPU path; on the card, reference and timing only)
 # ---------------------------------------------------------------------------
 
-def _pixel_coords(n_tiles: int, ts: int, n_tx: int, device):
-    """Pixel centers of every tile's pixels (row-major), [T, P, 1] each."""
-    t = torch.arange(n_tiles, device=device)
+def _pixel_coords(n_tiles: int, ts: int, n_tx: int, device, scenes: int = 1):
+    """Pixel centers of every tile's pixels (row-major), [T, P, 1] each;
+    the T tiles are `scenes` grids of T / scenes tiles, scene-major."""
+    t = torch.arange(n_tiles, device=device) % max(n_tiles // scenes, 1)
     i = torch.arange(ts * ts, device=device)
     tx = (t % n_tx).to(torch.float32)[:, None]
     ty = (t // n_tx).to(torch.float32)[:, None]
     px = tx * ts + (i % ts).to(torch.float32)[None] + 0.5
     py = ty * ts + (i // ts).to(torch.float32)[None] + 0.5
     return px[..., None], py[..., None]
+
+
+def tile_bg(bg, n_tiles: int):
+    """[T, 1, D] background of each tile: row t // (T / S) of bg [S, D]."""
+    t = torch.arange(n_tiles, device=bg.device) // max(n_tiles // bg.shape[0], 1)
+    return bg[t][:, None, :]
 
 
 def _chunk_alphas(blk, px, py, lane_ok):
@@ -253,7 +269,7 @@ def composite_tilegrid_plain_fwd(meta, vals, bg, ts: int, n_tx: int):
     n_tiles, d = meta.shape[1], bg.shape[1]
     dev = vals.device
     start, cnt, n_chunks, max_chunks = _chunk_schedule(meta)
-    px, py = _pixel_coords(n_tiles, ts, n_tx, dev)
+    px, py = _pixel_coords(n_tiles, ts, n_tx, dev, bg.shape[0])
     lane = torch.arange(CHUNK, device=dev)
     p = ts * ts
     t_carry = torch.ones((n_tiles, p, 1), device=dev)
@@ -272,7 +288,7 @@ def composite_tilegrid_plain_fwd(meta, vals, bg, ts: int, n_tx: int):
         acc_a = torch.where(m, acc_a + torch.sum(w, dim=2, keepdim=True), acc_a)
         acc_d = torch.where(m, acc_d + torch.sum(w * blk[:, None, 6 + d], dim=2, keepdim=True), acc_d)
         t_carry = torch.where(m, t_carry * incl[..., -1:], t_carry)
-    return acc_img + t_carry * bg[0], acc_a, acc_d
+    return acc_img + t_carry * tile_bg(bg, n_tiles), acc_a, acc_d
 
 
 def composite_tilegrid_plain_bwd(meta, vals, bg, img, alpha, depth,
@@ -289,9 +305,9 @@ def composite_tilegrid_plain_bwd(meta, vals, bg, img, alpha, depth,
     n_tiles, d = meta.shape[1], bg.shape[1]
     dev = vals.device
     start, cnt, n_chunks, max_chunks = _chunk_schedule(meta)
-    px, py = _pixel_coords(n_tiles, ts, n_tx, dev)
+    px, py = _pixel_coords(n_tiles, ts, n_tx, dev, bg.shape[0])
     lane = torch.arange(CHUNK, device=dev)
-    bgv = bg[0]
+    bgv = tile_bg(bg, n_tiles)
     g_dot_bg = torch.sum(gimg * bgv, dim=-1, keepdim=True)
 
     def chunk_values(c, t_carry, carry_wd):
@@ -373,7 +389,8 @@ def _launch_fwd(symbol, meta, vals, bg, ts, n_tx):
     stream = torch.cuda.current_stream(vals.device).cuda_stream
     rc = getattr(kernel_library(), symbol)(
         meta.data_ptr(), vals.data_ptr(), bg.data_ptr(), img.data_ptr(),
-        alpha.data_ptr(), depth.data_ptr(), n_tiles, n_tx, ts, d, stream)
+        alpha.data_ptr(), depth.data_ptr(), n_tiles, n_tx, n_tiles // bg.shape[0], ts, d,
+        stream)
     _launch_check(rc, "tilegrid forward")
     return img, alpha, depth
 
@@ -406,7 +423,8 @@ def _launch_bwd(symbol, meta, vals, bg, tensors, ts, n_tx, exact_total):
     stream = torch.cuda.current_stream(vals.device).cuda_stream
     rc = getattr(kernel_library(), symbol)(
         *(x.data_ptr() for x in (meta, vals, bg, *tensors, dvals)),
-        meta.shape[1], n_tx, ts, bg.shape[1], int(exact_total), stream)
+        meta.shape[1], n_tx, meta.shape[1] // bg.shape[0], ts, bg.shape[1], int(exact_total),
+        stream)
     _launch_check(rc, "tilegrid backward")
     return dvals
 
@@ -479,7 +497,12 @@ class TileGridCompositor(torch.autograd.Function):
             meta, vals, bg, img, alpha, depth,
             gimg.contiguous(), galpha.contiguous(), gdepth.contiguous(),
             ctx.ts, ctx.n_tx, ctx.exact_total)
-        # slots of no fitting tile were never written (torch.empty)
-        s = torch.arange(dvals.shape[0], device=dvals.device)[:, None, None]
-        dvals = torch.where(s < meta[2, 0], dvals, torch.zeros_like(dvals))
+        # slots of no fitting tile were never written (torch.empty): slot q
+        # of scene q // (slots per scene) is written below meta[2] of that
+        # scene's tiles
+        scenes = bg.shape[0]
+        q = torch.arange(dvals.shape[0], device=dvals.device)
+        first_tile = (q // (dvals.shape[0] // scenes)) * (meta.shape[1] // scenes)
+        fit_end = meta[2].to(torch.int64)[first_tile]
+        dvals = torch.where((q < fit_end)[:, None, None], dvals, torch.zeros_like(dvals))
         return None, dvals, torch.zeros_like(bg), None, None, None

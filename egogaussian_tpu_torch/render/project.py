@@ -15,6 +15,17 @@ from typing import NamedTuple, Optional
 import torch
 
 
+def rigid_apply(x: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """x @ R^T + t: x [N, 3] with R [3, 3], t [3]; or with a leading scene
+    axis, x [S, N, 3], R [S, 3, 3], t [S, 3]. One scene takes the unbatched
+    product, so it gives the bits of the call without a scene axis."""
+    if x.dim() == 2:
+        return x @ R.T + t
+    if x.shape[0] == 1:
+        return (x[0] @ R[0].T + t[0])[None]
+    return torch.matmul(x, R.transpose(-1, -2)) + t[:, None, :]
+
+
 class ProjectedGaussians(NamedTuple):
     means2d: torch.Tensor  # [N, 2] pixel coordinates
     conics: torch.Tensor  # [N, 3] inverse 2D covariance (a, b, c)
@@ -44,10 +55,14 @@ def project_gaussians(
       viewmat: [4, 4] world-to-camera
       valid_mask: optional [N] bool; False rows are force-culled (capacity
         padding of the model)
+    With a leading scene axis S: means3d [S, N, 3], cov3d [S, N, 6],
+    viewmat [S, 4, 4], fx, fy, cx, cy [S, 1], valid_mask [S, N]; every
+    output gains the axis. width and height are shared.
     """
-    R = viewmat[:3, :3]
-    t = viewmat[:3, 3]
-    t_cam = means3d @ R.T + t  # [N, 3]
+    R = viewmat[..., :3, :3]
+    t = viewmat[..., :3, 3]
+    t_cam = rigid_apply(means3d, R, t)  # [N, 3]
+    Rn = R[..., None, :, :]  # entries broadcast over the Gaussians
     z = t_cam[..., 2]
 
     # Frustum cull behind the near plane (the CUDA reference culls z <= 0.2)
@@ -69,12 +84,12 @@ def project_gaussians(
     k1 = -fx * tx * inv_z * inv_z
     k2 = fy * inv_z
     k3 = -fy * ty * inv_z * inv_z
-    w00 = k0 * R[0, 0] + k1 * R[2, 0]
-    w01 = k0 * R[0, 1] + k1 * R[2, 1]
-    w02 = k0 * R[0, 2] + k1 * R[2, 2]
-    w10 = k2 * R[1, 0] + k3 * R[2, 0]
-    w11 = k2 * R[1, 1] + k3 * R[2, 1]
-    w12 = k2 * R[1, 2] + k3 * R[2, 2]
+    w00 = k0 * Rn[..., 0, 0] + k1 * Rn[..., 2, 0]
+    w01 = k0 * Rn[..., 0, 1] + k1 * Rn[..., 2, 1]
+    w02 = k0 * Rn[..., 0, 2] + k1 * Rn[..., 2, 2]
+    w10 = k2 * Rn[..., 1, 0] + k3 * Rn[..., 2, 0]
+    w11 = k2 * Rn[..., 1, 1] + k3 * Rn[..., 2, 1]
+    w12 = k2 * Rn[..., 1, 2] + k3 * Rn[..., 2, 2]
 
     xx, xy, xz, yy, yz, zz = (cov3d[..., i] for i in range(6))
     v0 = xx * w00 + xy * w01 + xz * w02

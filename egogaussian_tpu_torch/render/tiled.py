@@ -170,15 +170,81 @@ def pair_owner(offsets: torch.Tensor, counts: torch.Tensor, n_slots: int) -> tor
     right=True picks the last index at an offset, the one that owns it.
     Slots at or past the total get the last Gaussian with count > 0 (0 if
     there is none), which is what the JAX package's scatter-max and
-    running max give them; they still enter bin_pairs' sort key."""
-    n = offsets.shape[0]
+    running max give them; they still enter bin_pairs' sort key. Leading
+    axes of offsets / counts ([S, N]) are scenes, each searched on its own."""
+    n = offsets.shape[-1]
+    lead = offsets.shape[:-1]
     p = torch.arange(n_slots, dtype=offsets.dtype, device=offsets.device)
+    p = p.expand(lead + (n_slots,)).contiguous()
     if n == 0:
         return torch.zeros_like(p)
     idx = torch.arange(n, dtype=offsets.dtype, device=offsets.device)
-    last = torch.amax(torch.where(counts > 0, idx, torch.zeros_like(idx)))
+    last = torch.amax(torch.where(counts > 0, idx, torch.zeros_like(idx)), dim=-1, keepdim=True)
     g = torch.searchsorted(offsets.contiguous(), p, right=True) - 1
     return torch.clamp(torch.minimum(g, last), min=0)
+
+
+class SceneCaps(NamedTuple):
+    """The binning of S scenes in one layout: a shared TileConfig whose
+    capacities size the buffers (each field's max over the scenes) and
+    each scene's own capacities, which decide what the scene drops, so a
+    scene drops exactly the pairs it drops when binned alone. `sizes` are
+    the scenes' composite sizes (crop windows may differ): the tile grid is
+    the largest one, and each scene's pairs are clamped to its own grid."""
+
+    config: TileConfig  # shared: tile size, kernel flavor, buffer sizes
+    max_pairs: torch.Tensor  # [S] int64 per-scene max_pairs
+    max_per_tile: torch.Tensor  # [S] int64 per-scene max_per_tile
+    max_slots: torch.Tensor  # [S] int64 per-scene slot capacity (CHUNK multiple)
+    sizes: tuple  # ((width, height), ...) per scene
+
+
+def _slot_capacity(config: TileConfig) -> int:
+    sc = config.max_slots or config.max_pairs
+    return -(-sc // CHUNK) * CHUNK
+
+
+def scene_caps(configs, sizes, device, n: int, default: bool = True) -> SceneCaps:
+    """SceneCaps of S scenes binned together: `configs` one TileConfig (or
+    None, the default for n Gaussians) per scene, `sizes` one (width,
+    height) per scene. The scenes must share the tile size and the kernel
+    flavor; the buffers take each capacity field's max over the scenes
+    (not the config of the scene with the most pairs). default=False takes
+    the configs' capacities as given (bin_pairs' contract)."""
+    ts = (configs[0] or TileConfig()).tile_size
+    full = []
+    for cfg, (w, h) in zip(configs, sizes):
+        full.append(_default_config(n, cfg, (-(-w // ts)) * (-(-h // ts))) if default
+                    else cfg)
+    kinds = {(c.tile_size, c.compositor, c.bwd_exact_total, c.mxu_accum, c.map_batch)
+             for c in full}
+    if len(kinds) != 1:
+        raise ValueError(f"scenes binned together must share the tile size and the "
+                         f"kernel flavor, got {sorted(kinds)}")
+    shared = dataclasses.replace(
+        full[0], max_pairs=max(c.max_pairs for c in full),
+        max_per_tile=max(c.max_per_tile for c in full),
+        max_slots=max(_slot_capacity(c) for c in full))
+
+    def col(values):
+        return torch.tensor(values, dtype=torch.int64, device=device)
+
+    return SceneCaps(shared, col([c.max_pairs for c in full]),
+                     col([c.max_per_tile for c in full]),
+                     col([_slot_capacity(c) for c in full]),
+                     tuple((int(w), int(h)) for w, h in sizes))
+
+
+def _grid(caps: SceneCaps):
+    """(n_tx, n_ty) of the shared grid and [S, 1] per-scene last tile
+    column / row."""
+    ts = caps.config.tile_size
+    dev = caps.max_pairs.device
+    ntx = [-(-w // ts) for w, _ in caps.sizes]
+    nty = [-(-h // ts) for _, h in caps.sizes]
+    hi_x = torch.tensor(ntx, dtype=torch.float32, device=dev)[:, None] - 1
+    hi_y = torch.tensor(nty, dtype=torch.float32, device=dev)[:, None] - 1
+    return max(ntx), max(nty), hi_x, hi_y
 
 
 def bin_pairs(
@@ -199,13 +265,32 @@ def bin_pairs(
       tile_cnt: [n_tiles] pairs per tile (clamped to max_per_tile)
       dropped: scalar, pairs lost to static capacities
       (n_tx, n_ty)
-    All integer outputs are int64 on the projection's device.
-    """
+    All integer outputs are int64 on the projection's device. The binning
+    of one scene of bin_scenes."""
+    caps = scene_caps([config], [(width, height)], proj.means2d.device, proj.depths.shape[0],
+                      default=False)
+    out = bin_scenes(_lead(proj), caps, None if opacities is None else opacities[None])
+    return tuple(x[0] for x in out[:6]) + (out[6],)
+
+
+def _lead(proj: ProjectedGaussians) -> ProjectedGaussians:
+    """The projection of one scene with a leading scene axis of 1."""
+    return ProjectedGaussians(*(x[None] for x in proj))
+
+
+def bin_scenes(proj: ProjectedGaussians, caps: SceneCaps,
+               opacities: Optional[torch.Tensor] = None):
+    """bin_pairs for S scenes at once: proj fields [S, N, ...], opacities
+    [S, N]. Each scene is binned against its own grid and capacities
+    (caps) inside buffers of the shared sizes; the ops run once on [S, ...]
+    tensors. Returns order [S, N], g_sorted [S, MP], tile_sorted [S, MP],
+    starts [S, T], tile_cnt [S, T], dropped [S], (n_tx, n_ty), with T
+    the shared grid's tiles (tile ids within the scene)."""
+    config = caps.config
     ts = config.tile_size
-    n_tx = -(-width // ts)
-    n_ty = -(-height // ts)
+    n_tx, n_ty, hi_x, hi_y = _grid(caps)
     n_tiles = n_tx * n_ty
-    n = proj.depths.shape[0]
+    s_n, n = proj.depths.shape
     dev = proj.means2d.device
     dt = proj.means2d.dtype
     mp = config.max_pairs
@@ -217,72 +302,78 @@ def bin_pairs(
     if mp >= (1 << 24):
         raise ValueError(f"max_pairs {mp} too large for int-in-f32 pair fields")
 
+    def take(x, idx):
+        """x [S, N, k] rows idx [S, M] -> [S, M, k]."""
+        return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
     with torch.no_grad():
         valid = proj.radii > 0
         key = torch.where(valid, proj.depths, torch.full_like(proj.depths, float("inf")))
-        order = torch.argsort(key, stable=True)
-        per_g = [proj.means2d, proj.radii.to(dt)[:, None]]
+        order = torch.argsort(key, dim=-1, stable=True)
+        per_g = [proj.means2d, proj.radii.to(dt)[..., None]]
         if opacities is not None:
-            per_g += [proj.conics, opacities.to(dt)[:, None]]
-        mu_r = torch.cat(per_g, dim=1)[order]
-        means2d = mu_r[:, 0:2]
-        radii = mu_r[:, 2]
+            per_g += [proj.conics, opacities.to(dt)[..., None]]
+        mu_r = take(torch.cat(per_g, dim=-1), order)
+        means2d = mu_r[..., 0:2]
+        radii = mu_r[..., 2]
         valid_s = radii > 0
 
         if opacities is not None:
-            op_s = mu_r[:, 6]
+            op_s = mu_r[..., 6]
             r_aabb, thr = opacity_aabb_radius(radii, op_s, q_margin=q_margin)
             valid_s = valid_s & (op_s >= ALPHA_EPS)
         else:
             r_aabb = radii
 
         def tile_coord(v, hi):
-            return torch.clamp(torch.floor(v / ts), 0, hi).to(torch.int64)
+            return torch.clamp(torch.floor(v / ts), torch.zeros_like(hi), hi).to(torch.int64)
 
-        x0 = tile_coord(means2d[:, 0] - r_aabb, n_tx - 1)
-        x1 = tile_coord(means2d[:, 0] + r_aabb, n_tx - 1)
-        y0 = tile_coord(means2d[:, 1] - r_aabb, n_ty - 1)
-        y1 = tile_coord(means2d[:, 1] + r_aabb, n_ty - 1)
+        x0 = tile_coord(means2d[..., 0] - r_aabb, hi_x)
+        x1 = tile_coord(means2d[..., 0] + r_aabb, hi_x)
+        y0 = tile_coord(means2d[..., 1] - r_aabb, hi_y)
+        y1 = tile_coord(means2d[..., 1] + r_aabb, hi_y)
         zero = torch.zeros_like(x0)
         tw = torch.where(valid_s, x1 - x0 + 1, zero)
         th = torch.where(valid_s, y1 - y0 + 1, zero)
         counts = tw * th  # pairs emitted per Gaussian
 
-        offsets = torch.cumsum(counts, 0) - counts  # exclusive
-        total = (offsets[-1] + counts[-1]) if n > 0 else torch.zeros((), dtype=torch.int64, device=dev)
+        offsets = torch.cumsum(counts, -1) - counts  # exclusive
+        total = (offsets[:, -1] + counts[:, -1] if n > 0
+                 else torch.zeros((s_n,), dtype=torch.int64, device=dev))
 
         # pair slot p -> owning Gaussian g
         p_idx = torch.arange(mp, dtype=torch.int64, device=dev)
-        g = pair_owner(offsets, counts, mp)
+        g = pair_owner(offsets, counts, mp)  # [S, MP]
 
         if opacities is not None:
             gf = torch.stack(
                 [
                     offsets.to(dt), x0.to(dt), y0.to(dt), tw.to(dt),
-                    means2d[:, 0], means2d[:, 1],
-                    mu_r[:, 3], mu_r[:, 4], mu_r[:, 5],  # conic A, B, C
+                    means2d[..., 0], means2d[..., 1],
+                    mu_r[..., 3], mu_r[..., 4], mu_r[..., 5],  # conic A, B, C
                     thr,
                 ],
-                dim=1,
+                dim=-1,
             )
-            pf = gf[g]  # [MP, 10]
-            pair_fields = pf[:, 0:4].to(torch.int64)
+            pf = take(gf, g)  # [S, MP, 10]
+            pair_fields = pf[..., 0:4].to(torch.int64)
         else:
-            pair_fields = torch.stack([offsets, x0, y0, tw], dim=1)[g]
-        local = p_idx - pair_fields[:, 0]
-        pair_ok = p_idx < total
-        tw_g = torch.clamp(pair_fields[:, 3], min=1)
-        tx = pair_fields[:, 1] + local % tw_g
-        ty = pair_fields[:, 2] + local // tw_g
+            pair_fields = take(torch.stack([offsets, x0, y0, tw], dim=-1), g)
+        local = p_idx - pair_fields[..., 0]
+        # a scene keeps the pairs its own max_pairs holds
+        pair_ok = p_idx < torch.minimum(total, caps.max_pairs)[:, None]
+        tw_g = torch.clamp(pair_fields[..., 3], min=1)
+        tx = pair_fields[..., 1] + local % tw_g
+        ty = pair_fields[..., 2] + local // tw_g
         tile_id = torch.where(pair_ok, ty * n_tx + tx, torch.full_like(tx, n_tiles))
 
         if opacities is not None:
             # exact min of Q(d) = 0.5*A*dx^2 + B*dx*dy + 0.5*C*dy^2 over the
             # tile's pixel-center rectangle (0 if the mean is inside, else on
             # one of the 4 edges, each a clamped 1D quadratic)
-            mx, my = pf[:, 4], pf[:, 5]
-            A, B, C = pf[:, 6], pf[:, 7], pf[:, 8]
-            thr_p = pf[:, 9]
+            mx, my = pf[..., 4], pf[..., 5]
+            A, B, C = pf[..., 6], pf[..., 7], pf[..., 8]
+            thr_p = pf[..., 9]
             txf = tx.to(dt) * ts
             tyf = ty.to(dt) * ts
             lox, hix = txf + 0.5 - mx, txf + (ts - 0.5) - mx
@@ -306,19 +397,18 @@ def bin_pairs(
             tile_id = torch.where(keep, tile_id, torch.full_like(tile_id, n_tiles))
 
         # sort by (tile id, depth rank) with one packed int64 key (unique)
-        packed_sorted = torch.sort((tile_id << 32) | g).values
+        packed_sorted = torch.sort((tile_id << 32) | g, dim=-1).values
         tile_sorted = packed_sorted >> 32
         g_sorted = packed_sorted & 0xFFFFFFFF
 
-        bounds = torch.searchsorted(
-            tile_sorted, torch.arange(n_tiles + 1, dtype=torch.int64, device=dev)
-        )
-        starts = bounds[:n_tiles]
-        raw_cnt = bounds[1:] - starts
-        tile_cnt = torch.clamp(raw_cnt, max=config.max_per_tile)
-        dropped = torch.clamp(total - mp, min=0) + torch.sum(
-            torch.clamp(raw_cnt - config.max_per_tile, min=0)
-        )
+        tiles = torch.arange(n_tiles + 1, dtype=torch.int64, device=dev)
+        bounds = torch.searchsorted(tile_sorted, tiles.expand(s_n, -1).contiguous())
+        starts = bounds[:, :n_tiles]
+        raw_cnt = bounds[:, 1:] - starts
+        mpt = caps.max_per_tile[:, None]
+        tile_cnt = torch.minimum(raw_cnt, mpt)
+        dropped = torch.clamp(total - caps.max_pairs, min=0) + torch.sum(
+            torch.clamp(raw_cnt - mpt, min=0), dim=-1)
     return order, g_sorted, tile_sorted, starts, tile_cnt, dropped, (n_tx, n_ty)
 
 
@@ -327,6 +417,24 @@ def _tile_gather(starts, g_sorted, rows: int, max_pairs: int) -> torch.Tensor:
     pair starts[t] + r, clipped at the last pair slot."""
     r = torch.arange(rows, dtype=torch.int64, device=starts.device)
     return g_sorted[torch.clamp(starts[:, None] + r[None, :], 0, max_pairs - 1)]
+
+
+def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [S, M] at idx [S, ...] per scene -> [S, ...]."""
+    return torch.gather(x, 1, idx.reshape(idx.shape[0], -1)).reshape(idx.shape)
+
+
+def _window_sources(order, g_sorted, starts, rows: int, caps: SceneCaps) -> torch.Tensor:
+    """[S * T * rows] row of the scenes' flattened Gaussian arrays ([S * N])
+    in each tile's window: pair starts[s, t] + r of scene s, clipped at the
+    scene's own last pair slot (as its single binning clips)."""
+    s_n, n = order.shape
+    r = torch.arange(rows, dtype=torch.int64, device=starts.device)
+    hi = (caps.max_pairs - 1)[:, None, None]
+    win = torch.minimum(torch.clamp(starts[..., None] + r, min=0), hi)  # [S, T, rows]
+    src = _take_rows(order, _take_rows(g_sorted, win))
+    base = torch.arange(s_n, dtype=torch.int64, device=order.device)[:, None, None] * n
+    return (src + base).reshape(-1)
 
 
 def bin_gaussians(
@@ -353,15 +461,42 @@ def bin_gaussians(
 
 
 class WindowLayout(NamedTuple):
-    """Inputs of the chunked windowed compositor for one render."""
+    """Inputs of the chunked windowed compositor for one render (or, with
+    a scene axis, S renders: T = S x the grid's tiles, scene-major)."""
 
     counts: torch.Tensor  # [T] int32 pairs per tile (clamped to max_per_tile)
     data: torch.Tensor  # [T, M', 7+D] float32 (differentiable), M' % 128 == 0
-    dropped: torch.Tensor
+    dropped: torch.Tensor  # pairs lost: a scalar, or [S] with a scene axis
     n_tx: int
     n_ty: int
     tile_size: int
     map_batch: int
+
+
+def _flat_rows(proj, colors, opacities, ch: int) -> torch.Tensor:
+    """The scenes' packed pair rows, zero-padded to ch fields, [S * N, ch]."""
+    rows = _packed_rows(proj, colors, opacities)
+    if ch > rows.shape[-1]:
+        rows = torch.nn.functional.pad(rows, (0, ch - rows.shape[-1]))
+    return rows.reshape(-1, ch)
+
+
+def window_layout_scenes(proj: ProjectedGaussians, colors: torch.Tensor,
+                         opacities: torch.Tensor, caps: SceneCaps) -> WindowLayout:
+    """window_layout for S scenes in one layout: proj fields [S, N, ...],
+    colors [S, N, D], opacities [S, N]. Tiles scene-major, each scene's
+    window rows and counts those of its own binning; the window is
+    widened to the largest scene's (rows past a count are masked in the
+    kernel). `dropped` is per scene."""
+    order, g_sorted, _, starts, tile_cnt, dropped, (n_tx, n_ty) = bin_scenes(
+        proj, caps, opacities)
+    m_pad = -(-caps.config.max_per_tile // CHUNK) * CHUNK
+    with torch.no_grad():
+        src = _window_sources(order, g_sorted, starts, m_pad, caps)
+    ch = 7 + colors.shape[-1]
+    data = _flat_rows(proj, colors, opacities, ch)[src].reshape(-1, m_pad, ch)
+    return WindowLayout(tile_cnt.reshape(-1).to(torch.int32), data, dropped, n_tx, n_ty,
+                        caps.config.tile_size, caps.config.map_batch)
 
 
 def window_layout(
@@ -377,20 +512,11 @@ def window_layout(
     max_per_tile to M', the next multiple of 128 (the chunked kernel's
     unit). Rows at or past a tile's count are masked inside the kernel, so
     the widening changes nothing. The gather runs in torch, so its
-    backward (index_add back to the Gaussians) is autograd's."""
-    n = proj.depths.shape[0]
-    ts = (config or TileConfig()).tile_size
-    n_tiles0 = (-(-width // ts)) * (-(-height // ts))
-    config = _default_config(n, config, n_tiles0)
-    order, g_sorted, _, starts, tile_cnt, dropped, (n_tx, n_ty) = bin_pairs(
-        proj, width, height, config, opacities=opacities
-    )
-    m_pad = -(-config.max_per_tile // CHUNK) * CHUNK
-    with torch.no_grad():
-        src = order[_tile_gather(starts, g_sorted, m_pad, config.max_pairs)]
-    data = _packed_rows(proj, colors, opacities)[src]
-    return WindowLayout(tile_cnt.to(torch.int32), data, dropped, n_tx, n_ty, ts,
-                        config.map_batch)
+    backward (index_add back to the Gaussians) is autograd's. The one-scene
+    case of window_layout_scenes."""
+    caps = scene_caps([config], [(width, height)], proj.means2d.device, proj.depths.shape[0])
+    lay = window_layout_scenes(_lead(proj), colors[None], opacities[None], caps)
+    return lay._replace(dropped=lay.dropped[0])
 
 
 def composite_tiled(
@@ -405,36 +531,30 @@ def composite_tiled(
     """Tiled front-to-back compositing (the JAX composite_tiled's semantics):
     the gather window of every tile composited by the chunked windowed
     kernel pair. Every tile is written (an empty one is bg)."""
-    from egogaussian_tpu_torch.render.window_raster import WindowChunkedCompositor
-
-    lay = window_layout(proj, colors, opacities, width, height, config)
-    img_t, alpha_t, depth_t = WindowChunkedCompositor.apply(
-        lay.counts, lay.data, bg[None, :].contiguous(), lay.tile_size, lay.n_tx, lay.map_batch)
-    ts, n_tx, n_ty = lay.tile_size, lay.n_tx, lay.n_ty
-    return RenderOutput(
-        image=_untile(img_t, n_tx, n_ty, ts, width, height),
-        alpha=_untile(alpha_t, n_tx, n_ty, ts, width, height),
-        depth=_untile(depth_t, n_tx, n_ty, ts, width, height),
-        radii=proj.radii,
-        dropped_pairs=lay.dropped,
-    )
+    caps = scene_caps([config], [(width, height)], proj.means2d.device, proj.depths.shape[0])
+    out = composite_scenes(_lead(proj), colors[None], opacities[None], bg[None], caps, "tiled")
+    return _first_scene(out)
 
 
 def _untile(x: torch.Tensor, n_tx: int, n_ty: int, ts: int, width: int, height: int):
-    """[n_tiles, P, C] -> [C, H, W], cropping tile padding."""
+    """[n_tiles, P, C] -> [C, H, W], cropping tile padding; with a leading
+    scene axis ([S * n_tiles, P, C]) -> [S, C, H, W]."""
     c = x.shape[-1]
-    x = x.reshape(n_ty, n_tx, ts, ts, c)
-    x = x.permute(0, 2, 1, 3, 4).reshape(n_ty * ts, n_tx * ts, c)
-    return x[:height, :width].permute(2, 0, 1)
+    s_n = x.shape[0] // (n_tx * n_ty)
+    x = x.reshape(s_n, n_ty, n_tx, ts, ts, c)
+    x = x.permute(0, 1, 3, 2, 4, 5).reshape(s_n, n_ty * ts, n_tx * ts, c)
+    x = x[:, :height, :width].permute(0, 3, 1, 2)
+    return x[0] if s_n == 1 else x
 
 
 class TilegridLayout(NamedTuple):
-    """Inputs of the tile-grid compositor for one render."""
+    """Inputs of the tile-grid compositor for one render (or S renders:
+    tiles and slots scene-major)."""
 
     meta: torch.Tensor  # [3, T] int32
     vals: torch.Tensor  # [n_slots, ch16, 128] float32 (differentiable)
     empty: torch.Tensor  # [T] bool: tile owns no chunk (empty or overflowed)
-    dropped: torch.Tensor  # pairs lost to binning / slot capacity
+    dropped: torch.Tensor  # pairs lost to binning / slot capacity (a scalar, or [S])
     n_tx: int
     n_ty: int
     tile_size: int
@@ -453,41 +573,36 @@ class StreamLayout(NamedTuple):
 
 
 class _PaddedRuns(NamedTuple):
-    """Per-tile runs padded to whole chunks, shared by both layouts."""
+    """Per-tile runs padded to whole chunks, shared by both layouts; every
+    field has a leading scene axis."""
 
-    config: TileConfig
-    order: torch.Tensor
-    g_sorted: torch.Tensor
-    starts: torch.Tensor  # first pair of each tile in the sorted pair array
+    caps: SceneCaps
+    order: torch.Tensor  # [S, N]
+    g_sorted: torch.Tensor  # [S, MP]
+    starts: torch.Tensor  # [S, T] first pair of each tile in the sorted pair array
     tile_cnt: torch.Tensor
     padded_cnt: torch.Tensor
-    starts2: torch.Tensor  # first slot of each tile in the padded layout
-    overflowed: torch.Tensor  # the tile's padded run does not fit sc
-    dropped: torch.Tensor
-    sc: int  # slot capacity (a multiple of CHUNK)
+    starts2: torch.Tensor  # first slot of each tile in its scene's padded layout
+    overflowed: torch.Tensor  # the tile's padded run does not fit the scene's slots
+    dropped: torch.Tensor  # [S]
+    sc: int  # slot capacity of each scene's part of the layout (a multiple of CHUNK)
     n_tx: int
     n_ty: int
 
 
-def _padded_runs(proj, opacities, width, height, config) -> _PaddedRuns:
-    n = proj.depths.shape[0]
-    ts = (config or TileConfig()).tile_size
-    n_tiles0 = (-(-width // ts)) * (-(-height // ts))
-    config = _default_config(n, config, n_tiles0)
-    order, g_sorted, _, starts, tile_cnt, dropped, (n_tx, n_ty) = bin_pairs(
-        proj, width, height, config, opacities=opacities
-    )
-    sc = config.max_slots or config.max_pairs
-    sc = -(-sc // CHUNK) * CHUNK
+def _padded_runs(proj, opacities, caps: SceneCaps) -> _PaddedRuns:
+    order, g_sorted, _, starts, tile_cnt, dropped, (n_tx, n_ty) = bin_scenes(
+        proj, caps, opacities)
+    sc = caps.config.max_slots
     with torch.no_grad():
         padded_cnt = ((tile_cnt + CHUNK - 1) // CHUNK) * CHUNK
-        starts2 = torch.cumsum(padded_cnt, 0) - padded_cnt  # padded starts
-        # a tile whose padded run does not fit the slot capacity is never
-        # laid out: it renders as empty and its pairs count as dropped
-        overflowed = starts2 + padded_cnt > sc
+        starts2 = torch.cumsum(padded_cnt, -1) - padded_cnt  # padded starts
+        # a tile whose padded run does not fit the scene's slot capacity is
+        # never laid out: it renders as empty and its pairs count as dropped
+        overflowed = starts2 + padded_cnt > caps.max_slots[:, None]
         dropped = dropped + torch.sum(
-            torch.where(overflowed, tile_cnt, torch.zeros_like(tile_cnt)))
-    return _PaddedRuns(config, order, g_sorted, starts, tile_cnt, padded_cnt, starts2,
+            torch.where(overflowed, tile_cnt, torch.zeros_like(tile_cnt)), dim=-1)
+    return _PaddedRuns(caps, order, g_sorted, starts, tile_cnt, padded_cnt, starts2,
                        overflowed, dropped, sc, n_tx, n_ty)
 
 
@@ -498,24 +613,63 @@ def slot_owner(starts2: torch.Tensor, n_slots: int) -> torch.Tensor:
     tile and so own nothing inside a run; slots past the last run belong to
     the last tile id; a tile whose run overflows the capacity still owns
     the slots up to it. The JAX package's scatter at the padded starts and
-    running max give the same owner."""
+    running max give the same owner. Leading axes ([S, T]) are scenes."""
     q = torch.arange(n_slots, dtype=starts2.dtype, device=starts2.device)
+    q = q.expand(starts2.shape[:-1] + (n_slots,)).contiguous()
     return torch.searchsorted(starts2.contiguous(), q, right=True) - 1
 
 
 def _slot_sources(runs: _PaddedRuns, owner: torch.Tensor) -> torch.Tensor:
-    """[sc] index (into the unsorted Gaussian arrays) of the pair in each
-    slot: slot q of tile t = owner[q] holds pair starts[t] + (q - starts2[t])."""
+    """[S * sc] row of the scenes' flattened Gaussian arrays of the pair in
+    each slot: slot q of tile t = owner[s, q] holds pair starts[s, t] + (q -
+    starts2[s, t]) of scene s, clipped at the scene's last pair slot."""
     q = torch.arange(runs.sc, dtype=torch.int64, device=owner.device)
-    p_q = torch.clamp(runs.starts[owner] + (q - runs.starts2[owner]), 0,
-                      runs.config.max_pairs - 1)
-    return runs.order[runs.g_sorted[p_q]]
+    p_q = _take_rows(runs.starts, owner) + (q - _take_rows(runs.starts2, owner))
+    p_q = torch.minimum(torch.clamp(p_q, min=0), (runs.caps.max_pairs - 1)[:, None])
+    src = _take_rows(runs.order, _take_rows(runs.g_sorted, p_q))
+    s_n, n = runs.order.shape
+    return (src + torch.arange(s_n, device=src.device)[:, None] * n).reshape(-1)
 
 
 def _packed_rows(proj, colors, opacities) -> torch.Tensor:
-    """[N, 7+D] pair fields mu_x | mu_y | a | b | c | op | col x D | z."""
+    """[..., N, 7+D] pair fields mu_x | mu_y | a | b | c | op | col x D | z."""
     return torch.cat(
-        [proj.means2d, proj.conics, opacities[:, None], colors, proj.depths[:, None]], dim=1)
+        [proj.means2d, proj.conics, opacities[..., None], colors, proj.depths[..., None]],
+        dim=-1)
+
+
+def tilegrid_layout_scenes(proj: ProjectedGaussians, colors: torch.Tensor,
+                           opacities: torch.Tensor, caps: SceneCaps) -> TilegridLayout:
+    """tilegrid_layout for S scenes in one layout (proj fields [S, N, ...],
+    colors [S, N, D], opacities [S, N]): scene s's tiles are tiles [s T,
+    (s + 1) T) and its chunk slots [s sc, (s + 1) sc) of the shared slot
+    capacity sc; each scene's runs, overflows and drops are those of its
+    own binning. meta row 2 holds, per tile, the end of its scene's
+    fitting slots (slots past it belong to no tile)."""
+    from egogaussian_tpu_torch.render.cuda_raster import ch16_of
+
+    runs = _padded_runs(proj, opacities, caps)
+    s_n = runs.tile_cnt.shape[0]
+    n_tiles = runs.n_tx * runs.n_ty
+    with torch.no_grad():
+        zero = torch.zeros_like(runs.tile_cnt)
+        fit_slots = torch.sum(torch.where(runs.overflowed, zero, runs.padded_cnt), dim=-1,
+                              keepdim=True) // CHUNK
+        base = torch.arange(s_n, dtype=torch.int64, device=zero.device)[:, None] * (
+            runs.sc // CHUNK)
+        meta = torch.stack([
+            torch.where(runs.overflowed, base, base + runs.starts2 // CHUNK),
+            torch.where(runs.overflowed, zero, runs.tile_cnt),
+            (base + fit_slots).expand(s_n, n_tiles),
+        ]).reshape(3, -1).to(torch.int32).contiguous()
+        src = _slot_sources(runs, slot_owner(runs.starts2, runs.sc))
+
+    ch16 = ch16_of(colors.shape[-1])
+    rows = _flat_rows(proj, colors, opacities, ch16)[src]
+    vals = rows.reshape(-1, CHUNK, ch16).transpose(1, 2).contiguous()
+    empty = ((runs.tile_cnt == 0) | runs.overflowed).reshape(-1)
+    return TilegridLayout(meta, vals, empty, runs.dropped, runs.n_tx, runs.n_ty,
+                          caps.config.tile_size)
 
 
 def tilegrid_layout(
@@ -532,27 +686,10 @@ def tilegrid_layout(
     starts[t] + (q - starts2[t])). Tiles whose padded run does not fit the
     slot capacity own no chunk and their pairs count as dropped. The pair
     gather runs in torch, so its backward (index_add back to the Gaussians)
-    is autograd's."""
-    from egogaussian_tpu_torch.render.cuda_raster import ch16_of
-
-    runs = _padded_runs(proj, opacities, width, height, config)
-    n_tiles = runs.n_tx * runs.n_ty
-    with torch.no_grad():
-        zero = torch.zeros_like(runs.tile_cnt)
-        fit_slots = torch.sum(torch.where(runs.overflowed, zero, runs.padded_cnt)) // CHUNK
-        meta = torch.stack([
-            torch.where(runs.overflowed, zero, runs.starts2 // CHUNK),
-            torch.where(runs.overflowed, zero, runs.tile_cnt),
-            fit_slots.expand(n_tiles),
-        ]).to(torch.int32).contiguous()
-        src = _slot_sources(runs, slot_owner(runs.starts2, runs.sc))
-
-    packed = _packed_rows(proj, colors, opacities)
-    ch16 = ch16_of(colors.shape[-1])
-    rows = torch.nn.functional.pad(packed, (0, ch16 - packed.shape[1]))[src]
-    vals = rows.reshape(runs.sc // CHUNK, CHUNK, ch16).transpose(1, 2).contiguous()
-    return TilegridLayout(meta, vals, (runs.tile_cnt == 0) | runs.overflowed, runs.dropped,
-                          runs.n_tx, runs.n_ty, runs.config.tile_size)
+    is autograd's. The one-scene case of tilegrid_layout_scenes."""
+    caps = scene_caps([config], [(width, height)], proj.means2d.device, proj.depths.shape[0])
+    lay = tilegrid_layout_scenes(_lead(proj), colors[None], opacities[None], caps)
+    return lay._replace(dropped=lay.dropped[0])
 
 
 def stream_layout(
@@ -569,23 +706,135 @@ def stream_layout(
       0 owning tile, 1 rank of the chunk's first pair within its tile,
       2 the tile's pair count, 3 the last occupied slot (broadcast).
     Slots past the last tile's run belong to the last tile id with rank >=
-    count (pure padding)."""
-    runs = _padded_runs(proj, opacities, width, height, config)
+    count (pure padding). One scene only: the stream pair has no scene
+    axis."""
+    caps = scene_caps([config], [(width, height)], proj.means2d.device, proj.depths.shape[0])
+    runs = _padded_runs(_lead(proj), opacities[None], caps)
     n_slots = runs.sc // CHUNK
     dev = runs.tile_cnt.device
     with torch.no_grad():
         owner = slot_owner(runs.starts2, runs.sc)
         src = _slot_sources(runs, owner)
+        owner, starts2, tile_cnt = owner[0], runs.starts2[0], runs.tile_cnt[0]
         q0 = torch.arange(0, runs.sc, CHUNK, dtype=torch.int64, device=dev)
         t_chunk = owner[::CHUNK]
-        rank_off = q0 - runs.starts2[t_chunk]
-        last_used = torch.clamp(torch.sum(runs.padded_cnt) // CHUNK - 1, 0, n_slots - 1)
+        rank_off = q0 - starts2[t_chunk]
+        last_used = torch.clamp(torch.sum(runs.padded_cnt[0]) // CHUNK - 1, 0, n_slots - 1)
         meta = torch.stack([
-            t_chunk, rank_off, runs.tile_cnt[t_chunk], last_used.expand(n_slots),
+            t_chunk, rank_off, tile_cnt[t_chunk], last_used.expand(n_slots),
         ]).to(torch.int32).contiguous()
-    vals = _packed_rows(proj, colors, opacities)[src]
-    return StreamLayout(meta, vals, (runs.tile_cnt == 0) | runs.overflowed, runs.dropped,
-                        runs.n_tx, runs.n_ty, runs.config.tile_size)
+    vals = _flat_rows(_lead(proj), colors[None], opacities[None], 7 + colors.shape[-1])[src]
+    return StreamLayout(meta, vals, (tile_cnt == 0) | runs.overflowed[0], runs.dropped[0],
+                        runs.n_tx, runs.n_ty, caps.config.tile_size)
+
+
+def _pixel_mask(caps: SceneCaps, n_tx: int, n_ty: int, device) -> Optional[torch.Tensor]:
+    """[S, 1, H, W] True on each scene's own pixels of the shared grid, or
+    None when every scene fills it."""
+    ts = caps.config.tile_size
+    w_max = max(w for w, _ in caps.sizes)
+    h_max = max(h for _, h in caps.sizes)
+    if all((w, h) == (w_max, h_max) for w, h in caps.sizes):
+        return None
+    w = torch.tensor([w for w, _ in caps.sizes], device=device)[:, None, None, None]
+    h = torch.tensor([h for _, h in caps.sizes], device=device)[:, None, None, None]
+    xs = torch.arange(w_max, device=device)[None, None, None, :]
+    ys = torch.arange(h_max, device=device)[None, None, :, None]
+    return (xs < w) & (ys < h)
+
+
+def composite_scenes(
+    proj: ProjectedGaussians,
+    colors: torch.Tensor,
+    opacities: torch.Tensor,
+    bg: torch.Tensor,
+    caps: SceneCaps,
+    backend: str = "cuda",
+) -> RenderOutput:
+    """S renders in one compositor launch pair: proj fields [S, N, ...],
+    colors [S, N, D], opacities [S, N], bg [S, D]. backend "cuda" takes the
+    tile-grid pair over tilegrid_layout_scenes, "tiled" the chunked
+    windowed pair over window_layout_scenes. Returns image [S, D, H, W],
+    alpha and depth [S, 1, H, W] at the largest scene size (a smaller
+    scene's pixels past its own size are bg / 0) and dropped_pairs [S]."""
+    config = caps.config
+    if backend == "tiled":
+        from egogaussian_tpu_torch.render.window_raster import WindowChunkedCompositor
+
+        lay = window_layout_scenes(proj, colors, opacities, caps)
+        img_t, alpha_t, depth_t = WindowChunkedCompositor.apply(
+            lay.counts, lay.data, bg.contiguous(), lay.tile_size, lay.n_tx, lay.map_batch)
+    elif backend == "cuda" and config.compositor == "stream":
+        if bg.shape[0] != 1:
+            raise ValueError(
+                "the stream compositor pair has no scene axis (ROADMAP §A item 14: the scene "
+                "axis for rows 4-5 is queued); bin several scenes with compositor='tilegrid'")
+        (w, h), = caps.sizes
+        one = _composite_stream(ProjectedGaussians(*(x[0] for x in proj)), colors[0],
+                                opacities[0], bg[0], w, h, config)
+        return RenderOutput(image=one.image[None], alpha=one.alpha[None],
+                            depth=one.depth[None], radii=one.radii[None],
+                            dropped_pairs=one.dropped_pairs[None])
+    elif backend == "cuda":
+        from egogaussian_tpu_torch.render.cuda_raster import TileGridCompositor, tile_bg
+
+        lay = tilegrid_layout_scenes(proj, colors, opacities, caps)
+        img_t, alpha_t, depth_t = TileGridCompositor.apply(
+            lay.meta, lay.vals, bg.contiguous(), lay.tile_size, lay.n_tx,
+            config.bwd_exact_total)
+        # tiles owning no chunk (empty or overflowed) are background / zero:
+        # the kernel writes them as such; the mask also cuts the gradient of
+        # the overflowed tiles' chunks
+        empty = lay.empty[:, None, None]
+        img_t = torch.where(empty, tile_bg(bg, empty.shape[0]).to(img_t.dtype), img_t)
+        alpha_t = torch.where(empty, torch.zeros_like(alpha_t), alpha_t)
+        depth_t = torch.where(empty, torch.zeros_like(depth_t), depth_t)
+    else:
+        raise ValueError(f"no scene-axis compositor for backend {backend!r}")
+    ts, n_tx, n_ty = lay.tile_size, lay.n_tx, lay.n_ty
+    w_max = max(w for w, _ in caps.sizes)
+    h_max = max(h for _, h in caps.sizes)
+    s_n = bg.shape[0]
+
+    def untile(x):
+        return _untile(x, n_tx, n_ty, ts, w_max, h_max).reshape(s_n, x.shape[-1], h_max, w_max)
+
+    image, alpha, depth = untile(img_t), untile(alpha_t), untile(depth_t)
+    own = _pixel_mask(caps, n_tx, n_ty, bg.device)
+    if own is not None:
+        image = torch.where(own, image, bg[:, :, None, None].to(image.dtype))
+        alpha = torch.where(own, alpha, torch.zeros_like(alpha))
+        depth = torch.where(own, depth, torch.zeros_like(depth))
+    return RenderOutput(image=image, alpha=alpha, depth=depth, radii=proj.radii,
+                        dropped_pairs=lay.dropped)
+
+
+def _first_scene(out: RenderOutput) -> RenderOutput:
+    return RenderOutput(image=out.image[0], alpha=out.alpha[0], depth=out.depth[0],
+                        radii=out.radii[0], dropped_pairs=out.dropped_pairs[0])
+
+
+def _composite_stream(proj, colors, opacities, bg, width, height, config) -> RenderOutput:
+    """One scene through the stream pair (no scene axis)."""
+    from egogaussian_tpu_torch.render.stream_raster import StreamCompositor
+
+    lay = stream_layout(proj, colors, opacities, width, height, config)
+    img_t, alpha_t, depth_t = StreamCompositor.apply(
+        lay.meta, lay.vals, bg[None, :], lay.tile_size, lay.n_tx, lay.n_tx * lay.n_ty)
+    ts, n_tx, n_ty = lay.tile_size, lay.n_tx, lay.n_ty
+    # tiles owning no chunk (empty or overflowed) are background / zero:
+    # the stream kernel never writes them
+    empty = lay.empty[:, None, None]
+    img_t = torch.where(empty, bg[None, None, :].to(img_t.dtype), img_t)
+    alpha_t = torch.where(empty, torch.zeros_like(alpha_t), alpha_t)
+    depth_t = torch.where(empty, torch.zeros_like(depth_t), depth_t)
+    return RenderOutput(
+        image=_untile(img_t, n_tx, n_ty, ts, width, height),
+        alpha=_untile(alpha_t, n_tx, n_ty, ts, width, height),
+        depth=_untile(depth_t, n_tx, n_ty, ts, width, height),
+        radii=proj.radii,
+        dropped_pairs=lay.dropped,
+    )
 
 
 def composite_cuda(
@@ -602,29 +851,7 @@ def composite_cuda(
     composite_pallas)."""
     config = config or TileConfig()
     if config.compositor == "stream":
-        from egogaussian_tpu_torch.render.stream_raster import StreamCompositor
-
-        lay = stream_layout(proj, colors, opacities, width, height, config)
-        img_t, alpha_t, depth_t = StreamCompositor.apply(
-            lay.meta, lay.vals, bg[None, :], lay.tile_size, lay.n_tx, lay.n_tx * lay.n_ty)
-    else:
-        from egogaussian_tpu_torch.render.cuda_raster import TileGridCompositor
-
-        lay = tilegrid_layout(proj, colors, opacities, width, height, config)
-        img_t, alpha_t, depth_t = TileGridCompositor.apply(
-            lay.meta, lay.vals, bg[None, :], lay.tile_size, lay.n_tx, config.bwd_exact_total)
-    ts, n_tx, n_ty = lay.tile_size, lay.n_tx, lay.n_ty
-    # tiles owning no chunk (empty or overflowed) are background / zero: the
-    # stream kernel never writes them, the tile-grid kernel writes them as
-    # such; the mask also cuts the gradient of the overflowed tiles' chunks
-    empty = lay.empty[:, None, None]
-    img_t = torch.where(empty, bg[None, None, :].to(img_t.dtype), img_t)
-    alpha_t = torch.where(empty, torch.zeros_like(alpha_t), alpha_t)
-    depth_t = torch.where(empty, torch.zeros_like(depth_t), depth_t)
-    return RenderOutput(
-        image=_untile(img_t, n_tx, n_ty, ts, width, height),
-        alpha=_untile(alpha_t, n_tx, n_ty, ts, width, height),
-        depth=_untile(depth_t, n_tx, n_ty, ts, width, height),
-        radii=proj.radii,
-        dropped_pairs=lay.dropped,
-    )
+        return _composite_stream(proj, colors, opacities, bg, width, height, config)
+    caps = scene_caps([config], [(width, height)], proj.means2d.device, proj.depths.shape[0])
+    out = composite_scenes(_lead(proj), colors[None], opacities[None], bg[None], caps, "cuda")
+    return _first_scene(out)

@@ -9,9 +9,12 @@ with log-space transmittance and no saturation skip:
   `_bwd_kernel_chunked`): the tiled backend's compositor
   (`render/tiled.py:composite_tiled`).
     counts [T] int32, data [T, M, 7+D] float32 (M % 128 == 0; rows
-    mu_x | mu_y | a | b | c | op | col x D | z), bg [1, D]
+    mu_x | mu_y | a | b | c | op | col x D | z), bg [S, D]
     -> img [T, P, D], alpha [T, P, 1], depth [T, P, 1] and the final
        log-transmittance logT [T, 1, P] saved for the backward.
+    The T tiles are S scenes' grids, scene-major, as in the tile-grid
+    pair (render/cuda_raster.py): one launch for every scene, each tile
+    computed as in a one-scene launch.
     Only the first ceil(count/128) chunks of a tile's window are read;
     rows at or past the count are masked (op = 0). Every tile is written
     (an empty one is bg). The backward is one reverse sweep from logT and
@@ -55,18 +58,23 @@ from egogaussian_tpu_torch.render.cuda_raster import (
     _launch_check,
     _pixel_coords,
     kernel_library,
+    tile_bg,
 )
 
 MAP_BATCH = 64  # tiles per batch of the CPU twins (TileConfig.map_batch)
 
 
-def _check_common(bg, ts, tensors):
+def _check_common(bg, ts, tensors, n_tiles=None):
     """Shared checks: tile size, bg, and each (tensor, shape) pair; all on
-    one device and contiguous. Returns d."""
+    one device and contiguous. bg is [1, D], or [S, D] with S dividing
+    `n_tiles` where the pair has a scene axis. Returns d."""
     if ts not in SUPPORTED_TS:
         raise ValueError(f"tile size {ts} not in {SUPPORTED_TS}")
-    if bg.dtype != torch.float32 or bg.dim() != 2 or bg.shape[0] != 1:
-        raise ValueError(f"bg must be float32 [1, D], got {bg.dtype} {tuple(bg.shape)}")
+    scenes_ok = bg.dim() == 2 and (bg.shape[0] == 1 or (
+        n_tiles is not None and bg.shape[0] >= 1 and n_tiles % bg.shape[0] == 0))
+    if bg.dtype != torch.float32 or not scenes_ok:
+        want = "[1, D]" if n_tiles is None else f"[S, D], S dividing {n_tiles} tiles"
+        raise ValueError(f"bg must be float32 {want}, got {bg.dtype} {tuple(bg.shape)}")
     d = bg.shape[1]
     if d not in SUPPORTED_D:
         raise ValueError(f"channel count {d} not in {SUPPORTED_D}")
@@ -90,7 +98,7 @@ def _check_chunked(counts, data, bg, ts, tensors=()):
     n_tiles, m = counts.shape[0], data.shape[1]
     if m % CHUNK:
         raise ValueError(f"window rows {m} must be a multiple of {CHUNK}")
-    d = _check_common(bg, ts, [(data, (n_tiles, m, 7 + bg.shape[1])), *tensors])
+    d = _check_common(bg, ts, [(data, (n_tiles, m, 7 + bg.shape[1])), *tensors], n_tiles)
     if counts.device != data.device or not counts.is_contiguous():
         raise ValueError("counts must be contiguous and on the data's device")
     if data.device.type == "cuda" and data.data_ptr() % 16:
@@ -168,7 +176,8 @@ def composite_window_chunked_plain_fwd(counts, data, bg, ts: int, n_tx: int,
     past a tile's last one is all masked rows and changes nothing."""
     n_tiles, m, _ = data.shape
     d, p, dev = bg.shape[1], ts * ts, data.device
-    px_all, py_all = _pixel_coords(n_tiles, ts, n_tx, dev)
+    px_all, py_all = _pixel_coords(n_tiles, ts, n_tx, dev, bg.shape[0])
+    bg_all = tile_bg(bg, n_tiles)
     cnt_all = torch.clamp(counts.to(torch.int64), 0, m)
     lane = torch.arange(CHUNK, device=dev)
     img = torch.empty((n_tiles, p, d), device=dev)
@@ -193,7 +202,7 @@ def composite_window_chunked_plain_fwd(counts, data, bg, ts: int, n_tx: int,
             acc_a = acc_a + torch.sum(w, dim=2, keepdim=True)
             acc_d = acc_d + torch.sum(w * blk[:, None, 6 + d], dim=2, keepdim=True)
             log_t = incl[..., -1:]
-        img[sl] = acc_img + torch.exp(log_t) * bg[0]
+        img[sl] = acc_img + torch.exp(log_t) * bg_all[sl]
         alpha_o[sl] = acc_a
         depth_o[sl] = acc_d
         logt_o[sl] = log_t.transpose(1, 2)
@@ -209,7 +218,8 @@ def composite_window_chunked_plain_bwd(counts, data, bg, logt, gimg, galpha, gde
     row past the tile's last chunk, are zeros."""
     n_tiles, m, ch = data.shape
     d, dev = bg.shape[1], data.device
-    px_all, py_all = _pixel_coords(n_tiles, ts, n_tx, dev)
+    px_all, py_all = _pixel_coords(n_tiles, ts, n_tx, dev, bg.shape[0])
+    bg_all = tile_bg(bg, n_tiles)
     cnt_all = torch.clamp(counts.to(torch.int64), 0, m)
     lane = torch.arange(CHUNK, device=dev)
     ddata = torch.zeros_like(data)
@@ -217,7 +227,7 @@ def composite_window_chunked_plain_bwd(counts, data, bg, logt, gimg, galpha, gde
         cnt, px, py = cnt_all[sl], px_all[sl], py_all[sl]
         log_total = logt[sl].transpose(1, 2)  # [B, P, 1]
         gi, ga, gz = gimg[sl], galpha[sl], gdepth[sl]
-        base_s = torch.exp(log_total) * torch.sum(gi * bg[0], dim=-1, keepdim=True)
+        base_s = torch.exp(log_total) * torch.sum(gi * bg_all[sl], dim=-1, keepdim=True)
         suf_log = torch.zeros_like(log_total)
         suf_s = torch.zeros_like(log_total)
         for k in reversed(range(-(-int(cnt.max()) // CHUNK))):
@@ -317,7 +327,7 @@ def _launch_chunked_fwd(symbol, counts, data, bg, ts, n_tx, n_tiles, m, d):
     stream = torch.cuda.current_stream(data.device).cuda_stream
     rc = getattr(kernel_library(), symbol)(
         counts.data_ptr(), data.data_ptr(), bg.data_ptr(), *(o.data_ptr() for o in outs),
-        n_tiles, m, n_tx, ts, d, stream)
+        n_tiles, m, n_tx, n_tiles // bg.shape[0], ts, d, stream)
     _launch_check(rc, "windowed chunked forward")
     return tuple(outs)
 
@@ -360,7 +370,7 @@ def _launch_chunked_bwd(symbol, counts, data, bg, logt, gimg, galpha, gdepth, ts
     stream = torch.cuda.current_stream(data.device).cuda_stream
     rc = getattr(kernel_library(), symbol)(
         *(x.data_ptr() for x in (counts, data, bg, logt, gimg, galpha, gdepth, ddata)),
-        n_tiles, m, n_tx, ts, d, stream)
+        n_tiles, m, n_tx, n_tiles // bg.shape[0], ts, d, stream)
     _launch_check(rc, "windowed chunked backward")
     return ddata
 

@@ -34,61 +34,20 @@ the loss, dropped-pair and crop-escape maxima stay device tensors.
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from egogaussian_tpu_torch.config import Config
-from egogaussian_tpu_torch.data.readers import FrameBatch, stack_cameras
-from egogaussian_tpu_torch.models.densify import (
-    add_densification_stats,
-    densify_and_prune,
-    reset_opacity,
-)
-from egogaussian_tpu_torch.models.gaussians import (
-    PARAM_FIELDS,
-    GaussianModel,
-    GaussianParams,
-    ensure_capacity,
-    save_ply,
-)
-from egogaussian_tpu_torch.models.optim import (
-    AdamState,
-    adam_advance,
-    adam_init,
-    adam_update,
-    expon_lr,
-)
-from egogaussian_tpu_torch.models.pose import (
-    ObjectPose,
-    PoseSequence,
-    empty_pose_sequence,
-    identity_pose,
-    pose_to_se3,
-    save_pose_sequence,
-)
+from egogaussian_tpu_torch.data.readers import FrameBatch
+from egogaussian_tpu_torch.models.densify import add_densification_stats
+from egogaussian_tpu_torch.models.gaussians import PARAM_FIELDS, GaussianModel, GaussianParams
+from egogaussian_tpu_torch.models.optim import AdamState, adam_update, expon_lr
+from egogaussian_tpu_torch.models.pose import ObjectPose, PoseSequence, pose_to_se3
 from egogaussian_tpu_torch.ops.losses import l1_loss, l2_loss
-from egogaussian_tpu_torch.train.ckpt_hook import (
-    StageCheckpointer,
-    grow_to_capacity,
-    restore_loop,
-)
-from egogaussian_tpu_torch.train.common import (
-    auto_tile_config,
-    crop_escape_count,
-    image_loss,
-    mask_grad,
-    maybe_grow_crop,
-    maybe_regrow_tile_config,
-    pick_backend,
-    pose_crop_size,
-    render_gaussians,
-)
-from egogaussian_tpu_torch.train.static import _log_dropped_pairs
-from egogaussian_tpu_torch.utils.console import CONSOLE
-from egogaussian_tpu_torch.utils.logging import log_metrics
+from egogaussian_tpu_torch.render.project import rigid_apply
+from egogaussian_tpu_torch.train.common import image_loss, mask_grad
 
 
 def _f32(x) -> float:
@@ -103,6 +62,175 @@ class PoseGrads(NamedTuple):
     radii: torch.Tensor
     dropped: torch.Tensor
     crop_outside: object
+
+
+def smm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b over the last two axes; with a leading scene axis of one, the
+    unbatched product (the bits of the call without a scene axis)."""
+    if a.dim() == 3 and a.shape[0] == 1:
+        return (a[0] @ b[0])[None]
+    return a @ b
+
+
+def _scene_flags(flags, s_n: int) -> List[bool]:
+    if isinstance(flags, (bool, np.bool_)):
+        return [bool(flags)] * s_n
+    if isinstance(flags, torch.Tensor):
+        return [bool(x) for x in flags.reshape(-1).tolist()]
+    return [bool(x) for x in flags]
+
+
+def pose_loss_grads_scenes(models, poses, batches, cam_idxs, fixed_T, fixed_R, train_pose,
+                           lambda_image=1.0, lambda_dssim=0.1, lambda_l1_alpha=0.0,
+                           lambda_l2_alpha=0.5, backend="cuda", caps=None,
+                           grad_params=True, crop=False, scenes=None) -> PoseGrads:
+    """The pose stages' loss and gradients for S scenes at once: scene s's
+    object Gaussians rendered at pose_s @ fixed_T[s] (fixed_T[s] alone
+    where train_pose[s] is off) in its frame cam_idxs[s], against gt *
+    obj_mask plus the L1 / L2 alpha terms, hand-mask gated. `caps` holds
+    each scene's binning capacities and composite size (its crop window's
+    with `crop`); crop sums are normalized by the full frame's pixel count.
+    grad_params (a Python bool) builds the parameter backward at all.
+    Returns per-scene loss [S], probe [S, C, 2], radii [S, C], dropped [S]
+    and crop_outside [S, 3] (or 0)."""
+    from egogaussian_tpu_torch.parallel.multi_scene import scene_frames
+    from egogaussian_tpu_torch.render.api import render_scenes
+    from egogaussian_tpu_torch.train.common import model_colors
+
+    s_n, cap = models.params.xyz.shape[:2]
+    dev = models.device
+    tp = _scene_flags(train_pose, s_n)
+    cams, gt, hand, obj_mask = scene_frames(batches, cam_idxs, scenes)
+    bg = torch.zeros((s_n, 3), device=dev)
+    w, h = batches.width, batches.height
+    if crop:
+        from egogaussian_tpu_torch.render.crop import crop_planes, mask_rects
+
+        rects = mask_rects(obj_mask)
+        scales = [(cw * ch) / float(w * h) for cw, ch in caps.sizes]
+        # sums over the crop / full-frame count == the full-frame means
+        # (every pixel outside is exactly 0 in prediction and target)
+        loss_scale = (scales[0] if len(set(scales)) == 1
+                      else torch.tensor(scales, dtype=torch.float32, device=dev))
+
+    leaves = {k: v.detach().requires_grad_(grad_params)
+              for k, v in models.params.as_dict().items()}
+    m = dataclasses.replace(models, params=GaussianParams(**leaves))
+    any_tp = any(tp)
+    pose_p = ObjectPose(translation=poses.translation.detach().requires_grad_(any_tp),
+                        rot6d=poses.rot6d.detach().requires_grad_(any_tp))
+    probe = torch.zeros((s_n, cap, 2), device=dev, requires_grad=True)
+    if any_tp:
+        T = smm(pose_to_se3(pose_p), fixed_T)
+        R_extra = smm(pose_p.rotation, fixed_R)
+        if not all(tp):
+            sel = torch.as_tensor(tp, device=dev)[:, None, None]
+            T = torch.where(sel, T, fixed_T)
+            R_extra = torch.where(sel, R_extra, fixed_R)
+    else:
+        T, R_extra = fixed_T, fixed_R
+    obj = (m.aux.is_object == 1)[..., None]
+    xyz = torch.where(obj, rigid_apply(m.params.xyz, T[..., :3, :3], T[..., :3, 3]),
+                      m.params.xyz)
+    res = render_scenes(cams, xyz, m.covariance_rotated(R_extra, 1), m.opacity, bg,
+                        model_colors(m), caps, valid_mask=m.aux.alive, means2d_probe=probe,
+                        backend=backend, crop=crop, crop_rects=rects if crop else None)
+    if crop:
+        ox, oy = res.crop_offset[:, 0], res.crop_offset[:, 1]
+        cw_max = max(cw for cw, _ in caps.sizes)
+        ch_max = max(ch for _, ch in caps.sizes)
+        gt_c, hand_c, mask_c = (crop_planes(x, ox, oy, caps.sizes, cw_max, ch_max)
+                                for x in (gt, hand, obj_mask))
+    else:
+        gt_c, hand_c, mask_c = gt, hand, obj_mask
+    img = mask_grad(res.image, hand_c)
+    alpha = mask_grad(res.alpha, hand_c)
+    loss = lambda_image * image_loss(img, gt_c * mask_c, lambda_dssim)
+    loss = loss + lambda_l1_alpha * l1_loss(mask_c, alpha)
+    loss = loss + lambda_l2_alpha * l2_loss(mask_c, alpha)
+    if crop:
+        loss = loss * loss_scale
+
+    inputs = [probe]
+    if any_tp:
+        inputs += [pose_p.translation, pose_p.rot6d]
+    if grad_params:
+        inputs += list(leaves.values())
+    grads = torch.autograd.grad(loss.sum(), inputs, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
+    if grad_params:
+        param_grads = GaussianParams(**dict(zip(leaves, grads[-len(leaves):])))
+    else:
+        param_grads = models.params.map(torch.zeros_like)
+    pose_grads = ObjectPose(translation=grads[1], rot6d=grads[2]) if any_tp else None
+    return PoseGrads(loss.detach(), param_grads, pose_grads, grads[0], res.radii,
+                     res.dropped_pairs, res.crop_outside)
+
+
+def pose_scenes_step(models, opt_states, poses, pose_opt_states, batches, cam_idxs, fixed_T,
+                     fixed_R, lr_tree, pose_lr_t, pose_lr_r, record_stats: bool, drop_max,
+                     train_pose, lambda_image=1.0, lambda_dssim=0.1, lambda_l1_alpha=0.0,
+                     lambda_l2_alpha=0.5, backend="cuda", caps=None, grad_params=True,
+                     param_grad_gate=None, crop=False, crop_max=0, scenes=None):
+    """pose_step for S scenes at once (the shared core of stages 2 and 3 in
+    the lockstep): pose_loss_grads_scenes, then Adam on the parameters
+    (gated per scene by param_grad_gate [S] of 0 / 1 where given) and on
+    the pose of every scene whose train_pose is set; a scene whose
+    train_pose is off keeps its pose and pose Adam state bit for bit.
+    Returns (models, opt_states, poses, pose_opt_states, loss [S], radii,
+    drop_max [S], crop_max)."""
+    from egogaussian_tpu_torch.models.optim import per_scene
+    from egogaussian_tpu_torch.parallel.scene_trainer import _select
+
+    s_n = models.params.xyz.shape[0]
+    dev = models.device
+    tp = _scene_flags(train_pose, s_n)
+    g = pose_loss_grads_scenes(
+        models, poses, batches, cam_idxs, fixed_T, fixed_R, tp, lambda_image=lambda_image,
+        lambda_dssim=lambda_dssim, lambda_l1_alpha=lambda_l1_alpha,
+        lambda_l2_alpha=lambda_l2_alpha, backend=backend, caps=caps, grad_params=grad_params,
+        crop=crop, scenes=scenes)
+    with torch.no_grad():
+        param_grads = g.params
+        if param_grad_gate is not None:
+            gate = param_grad_gate
+            if isinstance(gate, (list, tuple)) or (isinstance(gate, torch.Tensor)
+                                                   and gate.dim() == 1):
+                gate = torch.as_tensor(gate, dtype=torch.float32, device=dev)
+                param_grads = param_grads.map(lambda x: x * per_scene(gate, x))
+            else:
+                param_grads = param_grads.map(lambda x: x * float(gate))
+        if record_stats:
+            # densification statistics after warm-up only
+            # (coarse_obj_pose.py:283-287), in NDC units like the reference
+            ndc_scale = torch.tensor([batches.width * 0.5, batches.height * 0.5], device=dev)
+            models = add_densification_stats(models, g.probe * ndc_scale, g.radii)
+        new_params, opt_states = adam_update(models.params, param_grads, opt_states, lr_tree)
+        models = dataclasses.replace(models, params=new_params)
+        if any(tp):
+            new_pose, new_popt = adam_update(
+                poses, g.pose, pose_opt_states, {"translation": pose_lr_t, "rot6d": pose_lr_r})
+            if not all(tp):
+                sel = torch.as_tensor(tp, device=dev)
+                new_pose = _select(sel, new_pose, poses)
+                new_popt = _select(sel, new_popt, pose_opt_states)
+            poses, pose_opt_states = new_pose, new_popt
+        drop_max = torch.maximum(drop_max, g.dropped.to(drop_max.dtype))
+        crop_max = torch.maximum(
+            torch.as_tensor(crop_max, dtype=torch.int32, device=dev),
+            torch.as_tensor(g.crop_outside, dtype=torch.int32, device=dev))
+    return (models, opt_states, poses, pose_opt_states, g.loss, g.radii, drop_max, crop_max)
+
+
+def _one_caps(model, batch, tile_config, crop_size):
+    from egogaussian_tpu_torch.render.tiled import scene_caps
+
+    size = tuple(crop_size) if crop_size is not None else (batch.width, batch.height)
+    return scene_caps([tile_config], [size], model.device, model.capacity)
+
+
+def _lead_T(x):
+    return torch.as_tensor(x)[None]
 
 
 def pose_loss_grads(
@@ -126,64 +254,22 @@ def pose_loss_grads(
     Gaussians rendered at pose @ fixed_T (fixed_T alone when train_pose is
     False) against gt * obj_mask, plus the L1 / L2 alpha terms, hand-mask
     gated. With crop_size, crop sums are normalized by the full frame's
-    pixel count. grad_params=False builds no parameter backward."""
-    dev = model.device
-    cam, gt, hand, obj_mask = batch.frame(cam_idx)
-    bg = torch.zeros(3, device=dev)
-    if crop_size is not None:
-        from egogaussian_tpu_torch.render.crop import crop_plane, mask_rect
+    pixel count. grad_params=False builds no parameter backward. The
+    one-scene case of pose_loss_grads_scenes."""
+    from egogaussian_tpu_torch.parallel.multi_scene import stack_scenes
 
-        cw, ch = int(crop_size[0]), int(crop_size[1])
-        rect = mask_rect(obj_mask)
-        # sums over the crop / full-frame count == the full-frame means
-        # (every pixel outside is exactly 0 in prediction and target)
-        loss_scale = (cw * ch) / float(batch.width * batch.height)
-
-    leaves = {k: v.detach().requires_grad_(grad_params)
-              for k, v in model.params.as_dict().items()}
-    m = dataclasses.replace(model, params=GaussianParams(**leaves))
-    pose_p = ObjectPose(translation=pose.translation.detach().requires_grad_(train_pose),
-                        rot6d=pose.rot6d.detach().requires_grad_(train_pose))
-    probe = torch.zeros((model.capacity, 2), device=dev, requires_grad=True)
-    if train_pose:
-        T = pose_to_se3(pose_p) @ fixed_T
-        R_extra = pose_p.rotation @ fixed_R
-    else:
-        T, R_extra = fixed_T, fixed_R
-    res = render_gaussians(
-        m, cam, bg, pose_T=T, extra_rot=R_extra, means2d_probe=probe,
-        backend=backend, tile_config=tile_config, crop_size=crop_size,
-        crop_rect=rect if crop_size is not None else None,
-    )
-    if crop_size is not None:
-        ox, oy = res.crop_offset[0], res.crop_offset[1]
-        gt_c = crop_plane(gt, ox, oy, cw, ch)
-        hand_c = crop_plane(hand, ox, oy, cw, ch)
-        mask_c = crop_plane(obj_mask, ox, oy, cw, ch)
-    else:
-        gt_c, hand_c, mask_c = gt, hand, obj_mask
-    img = mask_grad(res.image, hand_c)
-    alpha = mask_grad(res.alpha, hand_c)
-    loss = lambda_image * image_loss(img, gt_c * mask_c, lambda_dssim)
-    loss = loss + lambda_l1_alpha * l1_loss(mask_c, alpha)
-    loss = loss + lambda_l2_alpha * l2_loss(mask_c, alpha)
-    if crop_size is not None:
-        loss = loss * loss_scale
-
-    inputs = [probe]
-    if train_pose:
-        inputs += [pose_p.translation, pose_p.rot6d]
-    if grad_params:
-        inputs += list(leaves.values())
-    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
-    if grad_params:
-        param_grads = GaussianParams(**dict(zip(leaves, grads[-len(leaves):])))
-    else:
-        param_grads = model.params.map(torch.zeros_like)
-    pose_grads = ObjectPose(translation=grads[1], rot6d=grads[2]) if train_pose else None
-    return PoseGrads(loss.detach(), param_grads, pose_grads, grads[0], res.radii,
-                     res.dropped_pairs, res.crop_outside)
+    g = pose_loss_grads_scenes(
+        stack_scenes([model]), stack_scenes([pose]), stack_scenes([batch]),
+        torch.tensor([int(cam_idx)], device=model.device), _lead_T(fixed_T), _lead_T(fixed_R),
+        [bool(train_pose)], lambda_image=lambda_image, lambda_dssim=lambda_dssim,
+        lambda_l1_alpha=lambda_l1_alpha, lambda_l2_alpha=lambda_l2_alpha, backend=backend,
+        caps=_one_caps(model, batch, tile_config, crop_size), grad_params=grad_params,
+        crop=crop_size is not None)
+    pose_g = None if g.pose is None else ObjectPose(translation=g.pose.translation[0],
+                                                    rot6d=g.pose.rot6d[0])
+    crop_out = g.crop_outside[0] if crop_size is not None else g.crop_outside
+    return PoseGrads(g.loss[0], g.params.map(lambda x: x[0]), pose_g, g.probe[0], g.radii[0],
+                     g.dropped[0], crop_out)
 
 
 def pose_step(
@@ -227,33 +313,26 @@ def pose_step(
     `record_stats` adds the screen-space gradient statistics.
 
     Returns (model, opt_state, pose, pose_opt_state, loss, radii, drop_max,
-    crop_max), all device tensors."""
-    g = pose_loss_grads(
-        model, pose, batch, cam_idx, fixed_T, fixed_R, train_pose,
-        lambda_image=lambda_image, lambda_dssim=lambda_dssim,
-        lambda_l1_alpha=lambda_l1_alpha, lambda_l2_alpha=lambda_l2_alpha,
-        backend=backend, tile_config=tile_config, grad_params=grad_params,
-        crop_size=crop_size)
+    crop_max), all device tensors. The one-scene case of pose_scenes_step."""
+    from egogaussian_tpu_torch.parallel.multi_scene import stack_scenes, unstack_scenes
+
     dev = model.device
-    with torch.no_grad():
-        param_grads = g.params
-        if param_grad_gate is not None:
-            param_grads = param_grads.map(lambda x: x * float(param_grad_gate))
-        if record_stats:
-            # densification statistics after warm-up only
-            # (coarse_obj_pose.py:283-287), in NDC units like the reference
-            ndc_scale = torch.tensor([batch.width * 0.5, batch.height * 0.5], device=dev)
-            model = add_densification_stats(model, g.probe * ndc_scale, g.radii)
-        new_params, opt_state = adam_update(model.params, param_grads, opt_state, lr_tree)
-        model = dataclasses.replace(model, params=new_params)
-        if train_pose:
-            pose, pose_opt_state = adam_update(
-                pose, g.pose, pose_opt_state, {"translation": pose_lr_t, "rot6d": pose_lr_r})
-        drop_max = torch.maximum(drop_max, g.dropped.to(drop_max.dtype))
-        crop_max = torch.maximum(
-            torch.as_tensor(crop_max, dtype=torch.int32, device=dev),
-            torch.as_tensor(g.crop_outside, dtype=torch.int32, device=dev))
-    return (model, opt_state, pose, pose_opt_state, g.loss, g.radii, drop_max, crop_max)
+    crop = crop_size is not None
+    out = pose_scenes_step(
+        stack_scenes([model]), stack_scenes([opt_state]), stack_scenes([pose]),
+        stack_scenes([pose_opt_state]), stack_scenes([batch]),
+        torch.tensor([int(cam_idx)], device=dev), _lead_T(fixed_T), _lead_T(fixed_R), lr_tree,
+        pose_lr_t, pose_lr_r, record_stats, drop_max.reshape(1), [bool(train_pose)],
+        lambda_image=lambda_image, lambda_dssim=lambda_dssim, lambda_l1_alpha=lambda_l1_alpha,
+        lambda_l2_alpha=lambda_l2_alpha, backend=backend,
+        caps=_one_caps(model, batch, tile_config, crop_size), grad_params=grad_params,
+        param_grad_gate=param_grad_gate, crop=crop,
+        crop_max=torch.as_tensor(crop_max, dtype=torch.int32, device=dev)[None] if crop
+        else crop_max)
+    m, o, p, po, loss, radii, drop, cmax = out
+    (m,), (o,), (p,), (po,) = (unstack_scenes(x, 1) for x in (m, o, p, po))
+    return (m, o, p, po, loss[0], radii[0], drop[0].reshape(drop_max.shape),
+            cmax[0] if crop else cmax)
 
 
 def _coarse_lr_tree(model, it: int, opt, cp, first_frame: bool) -> Dict[str, float]:
@@ -293,6 +372,105 @@ def _coarse_pose_lrs(it: int, opt, cp) -> Tuple[float, float]:
     return _f32(opt.obj_translation_lr), _f32(opt.obj_rotation_lr)
 
 
+def coarse_scenes_step(models, opt_states, poses, pose_opt_states, batches, cam_idxs,
+                       table_Ts, table_Rs, fixed_idxs, it: int, drop_maxes, train_poses,
+                       first_frames, grad_params: bool = True, param_grad_gate=None,
+                       xyz_lr_mult=None, opt_cfg=None, coarse_cfg=None, backend: str = "cuda",
+                       tile_config=None, crop: bool = False, crop_maxes=None,
+                       count_advance=None, live=None, scenes=None):
+    """The stage-2 iteration for S scenes at once (the body of JAX's
+    `_coarse_body` vmapped): each scene's learning rates from its own
+    flags and spatial_lr_scale (times xyz_lr_mult), the shared pose-rate
+    choreography and densify-statistics gate (it > warm_up), the fixed
+    accumulated transform gathered from each scene's identity-prefixed
+    tables at fixed_idxs + 1. `grad_params` (a Python bool) is the OR over
+    the scenes of `first_frame or it >= warm_up`; the scenes whose own
+    value is off get their parameter gradients zeroed in the Adam update
+    (`param_grad_gate`, computed here when None and grad_params is set).
+    `count_advance` [S] advances each scene's Adam count first (its elided
+    warm-up no-ops); `live` [S] bool keeps every scene that is off
+    (elided this iteration) bit for bit. `scenes` picks the rows of a
+    stacked FrameBatch holding more scenes than the step. Returns
+    (models, opt_states, poses, pose_opt_states, loss [S], radii,
+    drop_maxes [S], crop_maxes)."""
+    from egogaussian_tpu_torch.parallel.multi_scene import place_lrs, scene_lrs
+    from egogaussian_tpu_torch.parallel.scene_trainer import _select
+
+    cp = coarse_cfg
+    s_n = models.params.xyz.shape[0]
+    dev = models.device
+    tp = _scene_flags(train_poses, s_n)
+    ff = _scene_flags(first_frames, s_n)
+    old = (models, opt_states, poses, pose_opt_states, drop_maxes, crop_maxes)
+    if count_advance is not None and any(count_advance):
+        adv = torch.as_tensor([int(c) for c in count_advance], dtype=opt_states.count.dtype,
+                              device=dev).reshape(opt_states.count.shape)
+        opt_states = dataclasses.replace(opt_states, count=opt_states.count + adv)
+    scales = models.spatial_lr_scale
+    scales = scales if isinstance(scales, tuple) else (scales,) * s_n
+    lr_tree = place_lrs(scene_lrs([
+        _coarse_lr_tree(dataclasses.replace(models, spatial_lr_scale=sc), it, opt_cfg, cp, f)
+        for sc, f in zip(scales, ff)]), dev)
+    if xyz_lr_mult is not None:
+        lr_tree["xyz"] = lr_tree["xyz"] * torch.as_tensor(xyz_lr_mult, dtype=torch.float32,
+                                                          device=dev)
+    plr_t, plr_r = _coarse_pose_lrs(it, opt_cfg, cp)
+    if param_grad_gate is None and grad_params:
+        own = [f or it >= cp.warm_up_iter for f in ff]
+        param_grad_gate = None if all(own) else [1.0 if o else 0.0 for o in own]
+    rows = torch.as_tensor(fixed_idxs, dtype=torch.int64, device=dev).reshape(-1) + 1
+    s_idx = torch.arange(s_n, device=dev)
+    out = pose_scenes_step(
+        models, opt_states, poses, pose_opt_states, batches,
+        torch.as_tensor(cam_idxs, dtype=torch.int64, device=dev).reshape(-1),
+        table_Ts[s_idx, rows], table_Rs[s_idx, rows], lr_tree, plr_t, plr_r,
+        it > cp.warm_up_iter, drop_maxes, tp,
+        lambda_image=cp.lambda_image, lambda_dssim=cp.lambda_dssim,
+        lambda_l1_alpha=cp.lambda_Ll1_alpha, lambda_l2_alpha=cp.lambda_Ll2_alpha,
+        backend=backend, caps=tile_config, grad_params=grad_params,
+        param_grad_gate=param_grad_gate, crop=crop,
+        crop_max=crop_maxes if crop_maxes is not None else 0, scenes=scenes)
+    if live is not None and not all(live):
+        sel = torch.as_tensor(list(live), device=dev)
+        kept = [_select(sel, a, b) if b is not None else a for a, b in
+                zip((out[0], out[1], out[2], out[3], out[6], out[7]), old)]
+        out = (kept[0], kept[1], kept[2], kept[3], out[4], out[5], kept[4], kept[5])
+    return out
+
+
+def coarse_step_traced(model, opt_state, pose, pose_opt_state, batch, cam_idx, table_T,
+                       table_R, fixed_idx, it, drop_max, train_pose, first_frame,
+                       grad_params: bool = True, param_grad_gate=None, xyz_lr_mult=None,
+                       opt_cfg=None, coarse_cfg=None, backend: str = "tiled",
+                       tile_config=None):
+    """`coarse_step` with train_pose / first_frame as per-call values (bools
+    or 0-d bool tensors, the latter read on the host) rather than fixed
+    arguments, as JAX's traced form, which the lockstep needs: every
+    scene's flags differ per iteration. `grad_params` selects whether the
+    parameter backward exists at all; `param_grad_gate` (0 / 1) zeroes the
+    parameter gradients inside the same Adam update (moments and count then
+    match the grad_params=False path, where zero rates alone would not);
+    `xyz_lr_mult` scales the xyz rate. No crop window (JAX's has none).
+    Returns (model, opt_state, pose, pose_opt_state, loss, radii,
+    drop_max). The one-scene case of coarse_scenes_step."""
+    from egogaussian_tpu_torch.parallel.multi_scene import stack_scenes, unstack_scenes
+
+    dev = model.device
+    gate = None if param_grad_gate is None else [float(param_grad_gate)]
+    mult = None if xyz_lr_mult is None else torch.as_tensor(xyz_lr_mult,
+                                                            dtype=torch.float32).reshape(1)
+    m, o, p, po, loss, radii, drop, _ = coarse_scenes_step(
+        stack_scenes([model]), stack_scenes([opt_state]), stack_scenes([pose]),
+        stack_scenes([pose_opt_state]), stack_scenes([batch]), [int(cam_idx)],
+        table_T[None], table_R[None], [int(fixed_idx)], int(it),
+        torch.as_tensor(drop_max, device=dev).reshape(1), [bool(train_pose)],
+        [bool(first_frame)], grad_params, param_grad_gate=gate if grad_params else None,
+        xyz_lr_mult=mult, opt_cfg=opt_cfg, coarse_cfg=coarse_cfg, backend=backend,
+        tile_config=_one_caps(model, batch, tile_config, None))
+    (m,), (o,), (p,), (po,) = (unstack_scenes(x, 1) for x in (m, o, p, po))
+    return m, o, p, po, loss[0], radii[0], drop[0].reshape(torch.as_tensor(drop_max).shape)
+
+
 def coarse_step(
     model: GaussianModel,
     opt_state: AdamState,
@@ -320,27 +498,25 @@ def coarse_step(
     statistics gate (it > warm_up) and the fixed accumulated transform
     gathered from the identity-prefixed tables at fixed_idx + 1.
     `count_advance` advances the parameter Adam count first: the exact
-    residue of that many elided warm-up no-op iterations."""
-    cp = coarse_cfg
-    if count_advance:
-        opt_state = adam_advance(opt_state, count_advance)
-    lr_tree = _coarse_lr_tree(model, it, opt_cfg, cp, first_frame)
-    plr_t, plr_r = _coarse_pose_lrs(it, opt_cfg, cp)
-    return pose_step(
-        model, opt_state, pose, pose_opt_state, batch, cam_idx,
-        table_T[fixed_idx + 1], table_R[fixed_idx + 1], lr_tree,
-        plr_t, plr_r, it > cp.warm_up_iter, drop_max,
-        train_pose=train_pose,
-        lambda_image=cp.lambda_image,
-        lambda_dssim=cp.lambda_dssim,
-        lambda_l1_alpha=cp.lambda_Ll1_alpha,
-        lambda_l2_alpha=cp.lambda_Ll2_alpha,
-        backend=backend,
-        tile_config=tile_config,
-        grad_params=grad_params,
-        crop_size=crop_size,
-        crop_max=crop_max,
-    )
+    residue of that many elided warm-up no-op iterations. The one-scene
+    case of coarse_scenes_step (with grad_params as given: a scene of its
+    own is never gated)."""
+    from egogaussian_tpu_torch.parallel.multi_scene import stack_scenes, unstack_scenes
+
+    dev = model.device
+    crop = crop_size is not None
+    m, o, p, po, loss, radii, drop, cmax = coarse_scenes_step(
+        stack_scenes([model]), stack_scenes([opt_state]), stack_scenes([pose]),
+        stack_scenes([pose_opt_state]), stack_scenes([batch]), [int(cam_idx)],
+        table_T[None], table_R[None], [int(fixed_idx)], it, drop_max.reshape(1),
+        [bool(train_pose)], [bool(first_frame)], grad_params, param_grad_gate=None,
+        opt_cfg=opt_cfg, coarse_cfg=coarse_cfg, backend=backend,
+        tile_config=_one_caps(model, batch, tile_config, crop_size), crop=crop,
+        crop_maxes=torch.as_tensor(crop_max, dtype=torch.int32, device=dev)[None] if crop
+        else None, count_advance=[count_advance] if count_advance else None)
+    (m,), (o,), (p,), (po,) = (unstack_scenes(x, 1) for x in (m, o, p, po))
+    return (m, o, p, po, loss[0], radii[0], drop[0].reshape(drop_max.shape),
+            cmax[0] if crop else cmax)
 
 
 def _accum_tables(pose_seq: PoseSequence):
@@ -404,180 +580,12 @@ def estimate_coarse_obj_pose(
       solved frame (model, pose sequence, the solved frames and the loop's
       host state) to save_dir/ckpt_coarse.npz, and a run whose file exists
       skips the frames it solved: the resume is frame-granular."""
-    if device is None:
-        device = torch.device("cuda")
-    # float32 throughout: cuDNN would run the SSIM convolutions in TF32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from egogaussian_tpu_torch.parallel.scene_trainer import CoarseSceneInput, train_coarse_scenes
 
-    rng = np.random.RandomState(seed)
-    cp = cfg.coarse
-    model = obj_model
-    batch = stack_cameras(list(cameras), device)
-    tile_cfg = auto_tile_config(model, batch.camera(0), tile_size=cfg.render.tile_size)
-    backend = pick_backend(tile_cfg, backend)
-    crop_size = pose_crop_size(batch, cfg, "coarse")
-    crop0 = crop_size
-    pose_seq = empty_pose_sequence(batch.viewmats.shape[0], device=device)
-    solved_names: Dict[int, str] = {}
-
-    def zero_crop_stat():
-        return (torch.zeros((3,), dtype=torch.int32, device=device) if crop_size is not None
-                else torch.zeros((), dtype=torch.int32, device=device))
-
-    drop_max = torch.zeros((), dtype=torch.int64, device=device)
-    last_drop = 0
-    crop_max = zero_crop_stat()
-    last_crop = 0
-    n_steps = n_elided = 0
-
-    # any nonzero checkpoint_every saves after every solved frame; the
-    # per-frame split generators are seeded afresh, so none is saved
-    ckpt = StageCheckpointer(
-        os.path.join(save_dir, "ckpt_coarse.npz") if save_dir and checkpoint_every else None,
-        1 if checkpoint_every else 0)
-    no_gen = torch.Generator()
-    if ckpt.exists():
-        model, _ = grow_to_capacity(model, adam_init(model.params), ckpt.peek_capacity())
-        (model, pose_seq), _ = ckpt.try_restore((model, pose_seq), rng, no_gen, "coarse")
-        loop = restore_loop(ckpt.extra, device)
-        solved_names = dict(loop["solved"])
-        tile_cfg, drop_max, last_drop = loop["tile_cfg"], loop["drop_max"], loop["last_drop"]
-        crop_size, crop_max, last_crop = loop["crop_size"], loop["crop_max"], loop["last_crop"]
-        n_steps, n_elided = loop["steps"], loop["elided"]
-        backend = pick_backend(tile_cfg, backend)
-        CONSOLE.log(f"[coarse] resume: {len(solved_names)} frames solved")
-    for phase, dyn_frames in enumerate(dynamic_phase_frames):
-        # the first frame of the next static phase closes the phase
-        # (coarse_obj_pose.py:137)
-        frames = list(dyn_frames) + [static_phase_frames[phase + 1][0]]
-        CONSOLE.log(f"[coarse] phase {phase}: frames {frames[0]}..{frames[-1]} "
-                    f"({len(frames)} incl. next-static anchor)")
-        for i, f_cur in enumerate(frames):
-            if f_cur in solved_names:
-                continue  # frame-granular resume: solved before the restart
-            table_T, table_R = _accum_tables(pose_seq)
-            pool, weights = _sampling_pool(batch, static_phase_frames[phase], dyn_frames,
-                                           f_cur, solved_names)
-            pose = identity_pose(device)
-            pose_opt = adam_init(pose)
-            opt_state = adam_init(model.params)  # fresh Adam per frame
-            gen = torch.Generator().manual_seed(seed * 1000 + f_cur)  # split seeds
-            first_frame = i == 0
-            is_last = i == len(frames) - 1
-            next_static = static_phase_frames[phase + 1]
-            pending_noop = 0
-            loss = torch.full((), float("nan"), device=device)
-
-            for it in range(1, cp.total_num_iter + 1):
-                # frame selection (coarse_obj_pose.py:196-222)
-                if it == 1:
-                    cam_idx, train_p = static_phase_frames[0][0], False
-                elif rng.rand() <= cp.curr_vpt_prob:
-                    cam_idx = next_static[rng.randint(len(next_static))] if is_last else f_cur
-                    train_p = True
-                else:
-                    cam_idx = pool[rng.choice(len(pool), p=weights)]
-                    train_p = False
-
-                # warm-up previous-frame iterations of non-first frames are
-                # exact no-ops but for the Adam count (see the docstring)
-                if (skip_noop_warmup and not first_frame and not train_p
-                        and it < cp.warm_up_iter):
-                    pending_noop += 1
-                    n_elided += 1
-                    continue
-
-                fixed_idx = (f_cur - 1) if train_p else cam_idx
-                (model, opt_state, pose, pose_opt, loss, _, drop_max, crop_max) = coarse_step(
-                    model, opt_state, pose, pose_opt, batch, cam_idx, table_T, table_R,
-                    fixed_idx, it, drop_max,
-                    train_pose=train_p,
-                    first_frame=first_frame,
-                    grad_params=first_frame or it >= cp.warm_up_iter,
-                    count_advance=pending_noop,
-                    opt_cfg=cfg.opt,
-                    coarse_cfg=cp,
-                    backend=backend,
-                    tile_config=tile_cfg,
-                    crop_size=crop_size,
-                    crop_max=crop_max,
-                )
-                pending_noop = 0
-                n_steps += 1
-                if on_step is not None:
-                    on_step(f_cur, it, loss)
-
-                if it % cp.densification_interval == 0:
-                    tile_cfg, last_drop, changed = maybe_regrow_tile_config(
-                        model, batch.camera(0), tile_cfg, drop_max, last_drop, "coarse")
-                    if changed:
-                        drop_max, last_drop = torch.zeros_like(drop_max), 0
-                    crop_size, last_crop, cchanged = maybe_grow_crop(
-                        crop_size, crop_max, last_crop, batch, "coarse")
-                    if cchanged:
-                        crop_max = zero_crop_stat()
-                    log_metrics("coarse", it, frame=f_cur, loss=loss, alive=model.num_alive,
-                                capacity=model.capacity, dropped_pairs=drop_max,
-                                crop_escapes=crop_escape_count(crop_max))
-
-                # densification window (coarse_obj_pose.py:324-337)
-                if cp.densify_from_iter < it < cp.densify_until_iter:
-                    if it % cp.densification_interval == 0:
-                        size_threshold = 20.0 if it > cp.opacity_reset_interval else None
-                        noise = None if densify_noise is None else densify_noise(
-                            f_cur, model.capacity)
-                        sub_seed = int(torch.randint(0, 2**31 - 1, (), generator=gen))
-                        res = densify_and_prune(
-                            model, opt_state, sub_seed,
-                            max_grad=cp.densify_grad_threshold,
-                            min_opacity=cp.min_opacity,
-                            extent=cameras_extent,
-                            max_screen_size=size_threshold,
-                            percent_dense=cfg.opt.percent_dense,
-                            which_object=1,
-                            noise=noise,
-                        )
-                        model, opt_state = res.model, res.opt_state
-                        overflow = int(res.overflow)
-                        if overflow:
-                            CONSOLE.log(f"[coarse] it {it}: densify overflow — {overflow} "
-                                        "candidates dropped")
-                        model, opt_state, grew = ensure_capacity(model, opt_state)
-                        if grew:
-                            tile_cfg = auto_tile_config(model, batch.camera(0),
-                                                        tile_size=cfg.render.tile_size)
-                    if it % cp.opacity_reset_interval == 0:
-                        model, opt_state = reset_opacity(model, opt_state, which_object=1)
-
-            # write the solved delta back once per frame (a frame's trained
-            # pose never feeds its own fixed prefix)
-            pose_seq = pose_seq.update_frame(f_cur, pose)
-            solved_names[f_cur] = cameras[f_cur].image_name
-            # before the pose file: a kill in between redoes no frame
-            ckpt.maybe_save(len(solved_names), (model, pose_seq), rng, no_gen, extra=dict(
-                solved=dict(solved_names), tile_cfg=tile_cfg, drop_max=drop_max,
-                last_drop=last_drop, crop_size=crop_size, crop_max=crop_max,
-                last_crop=last_crop, steps=n_steps, elided=n_elided))
-            CONSOLE.log(f"[coarse] solved frame {cameras[f_cur].image_name} "
-                        f"({i + 1}/{len(frames)}), loss {float(loss):.4f}")
-            if save_dir:
-                save_pose_sequence(os.path.join(save_dir, "obj_pose_sequence.npz"), pose_seq,
-                                   [c.image_name for c in cameras])
-                if (i + 1) % cp.save_ply_every == 0:
-                    save_ply(model, os.path.join(save_dir, "ply", f"gaussians_frame{f_cur}.ply"))
-
-    _log_dropped_pairs("coarse", None, drop_max)
-    escapes = crop_escape_count(crop_max) if crop_size is not None else 0
-    if escapes:
-        CONSOLE.log(f"[coarse] WARNING — up to {escapes} splats/render escaped the crop "
-                    "window since the last growth (their out-of-window gradients were "
-                    "lost; the window grows at the next densify-interval check)")
-    if save_dir:
-        save_ply(model, os.path.join(save_dir, "ply", "gaussians_final.ply"))
-        save_pose_sequence(os.path.join(save_dir, "obj_pose_sequence.npz"), pose_seq,
-                           [c.image_name for c in cameras])
-    log_metrics("coarse", n_steps + n_elided, event="stage_end", steps=n_steps,
-                elided=n_elided, crop_size_initial=crop0, crop_size=crop_size,
-                crop_escapes=escapes, dropped_pairs=drop_max)
-    return pose_seq, model, solved_names
+    scene = CoarseSceneInput(cameras, obj_model, static_phase_frames, dynamic_phase_frames,
+                             cameras_extent, save_dir=save_dir, seed=seed,
+                             densify_noise=densify_noise)
+    hook = None if on_step is None else (lambda s, f, it, loss: on_step(f, it, loss))
+    return train_coarse_scenes([scene], cfg, backend=backend, checkpoint_every=checkpoint_every,
+                               skip_noop_warmup=skip_noop_warmup, device=device,
+                               on_step=hook)[0]

@@ -26,6 +26,7 @@ from egogaussian_tpu_torch.ops.losses import l1_loss, ssim
 from egogaussian_tpu_torch.ops.sh import sh_to_rgb
 from egogaussian_tpu_torch.render.api import RenderResult, render, resolve_backend
 from egogaussian_tpu_torch.render.camera import Camera
+from egogaussian_tpu_torch.render.project import rigid_apply
 from egogaussian_tpu_torch.utils.console import CONSOLE
 
 
@@ -57,12 +58,15 @@ def opacity_entropy(opacity_logit: torch.Tensor, visible: torch.Tensor) -> torch
     o = torch.sigmoid(opacity_logit)
     ent = -(o * F.logsigmoid(opacity_logit) + (1.0 - o) * F.logsigmoid(-opacity_logit))
     w = visible.to(ent.dtype)
-    return torch.sum(ent * w) / torch.clamp(torch.sum(w), min=1.0)
+    if ent.dim() == 1:
+        return torch.sum(ent * w) / torch.clamp(torch.sum(w), min=1.0)
+    # per scene ([S, N])
+    return torch.sum(ent * w, dim=-1) / torch.clamp(torch.sum(w, dim=-1), min=1.0)
 
 
 def model_colors(model: GaussianModel) -> torch.Tensor:
     """Degree-0 SH -> RGB with the rasterizer's non-negativity clamp."""
-    rgb = sh_to_rgb(model.params.features_dc[:, 0, :])
+    rgb = sh_to_rgb(model.params.features_dc[..., 0, :])
     return torch.maximum(rgb, rgb.new_zeros(()))
 
 
@@ -87,8 +91,8 @@ def render_gaussians(
     crop_rect: crop-window rendering (render.api.render)."""
     xyz = model.params.xyz
     if pose_T is not None:
-        moved = xyz @ pose_T[:3, :3].T + pose_T[:3, 3]
-        obj_mask = (model.aux.is_object == which_object)[:, None]
+        moved = rigid_apply(xyz, pose_T[..., :3, :3], pose_T[..., :3, 3])
+        obj_mask = (model.aux.is_object == which_object)[..., None]
         xyz = torch.where(obj_mask, moved, xyz)
     if extra_rot is not None:
         cov3d = model.covariance_rotated(extra_rot, which_object)

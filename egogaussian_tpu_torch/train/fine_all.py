@@ -16,63 +16,68 @@ checkpoint saves.
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import List, Optional, Sequence
 
-import numpy as np
 import torch
 
 from egogaussian_tpu_torch.config import Config
-from egogaussian_tpu_torch.data.readers import stack_cameras
 from egogaussian_tpu_torch.models.densify import reset_opacity
-from egogaussian_tpu_torch.models.gaussians import (
-    GaussianModel,
-    GaussianParams,
-    combine_models,
-    save_ply,
-)
-from egogaussian_tpu_torch.models.optim import adam_init, adam_update
+from egogaussian_tpu_torch.models.gaussians import GaussianModel, GaussianParams
+from egogaussian_tpu_torch.models.optim import adam_update
 from egogaussian_tpu_torch.models.pose import PoseSequence
-from egogaussian_tpu_torch.train.ckpt_hook import StageCheckpointer, restore_loop
-from egogaussian_tpu_torch.train.common import (
-    auto_tile_config,
-    image_loss,
-    mask_grad,
-    maybe_regrow_tile_config,
-    pick_backend,
-    render_gaussians,
-)
+from egogaussian_tpu_torch.train.common import image_loss, mask_grad
 from egogaussian_tpu_torch.train.fine_obj import _fine_lr_tree
-from egogaussian_tpu_torch.train.static import _log_dropped_pairs
-from egogaussian_tpu_torch.utils.console import CONSOLE
-from egogaussian_tpu_torch.utils.logging import log_metrics
 
 
-def _fine_all_step(model, opt_state, batch, cam_idx: int, accum_T, accum_R, it: int,
-                   clamp_opacity: bool, drop_max, lambda_dssim: float, backend: str,
-                   tile_config, opt_cfg):
-    """One stage-5 iteration at the frame's frozen accumulated pose, with
-    train_fine_all_setup's learning rates (stage 3's without the
-    dividers), then the opacity clamp when `clamp_opacity`. Returns
-    (model, opt_state, loss, drop_max), device tensors."""
-    cam, gt, hand, _ = batch.frame(cam_idx)
-    leaves = {k: v.detach().requires_grad_(True) for k, v in model.params.as_dict().items()}
-    m = dataclasses.replace(model, params=GaussianParams(**leaves))
-    res = render_gaussians(m, cam, torch.zeros(3, device=model.device),
-                           pose_T=accum_T[cam_idx], extra_rot=accum_R[cam_idx],
-                           backend=backend, tile_config=tile_config)
+def fine_all_scenes_step(models, opt_states, batches, cam_idxs, accum_Ts, accum_Rs, it: int,
+                         clamp_opacity: bool, drop_maxes, lambda_dssim: float = 0.2,
+                         backend: str = "cuda", tile_config=None, opt_cfg=None,
+                         xyz_lr_mult=None, scenes=None):
+    """One stage-5 iteration for S scenes at once: scene s renders frame
+    cam_idxs[s] at its frozen accumulated pose (accum_Ts [S, F, 4, 4],
+    accum_Rs [S, F, 3, 3]) with train_fine_all_setup's learning rates from
+    its own spatial_lr_scale (stage 3's without the dividers, times
+    xyz_lr_mult), then the opacity clamp when `clamp_opacity` (the shared
+    schedule's). `tile_config`: a render/tiled.py SceneCaps. Returns
+    (models, opt_states, loss [S], drop_maxes [S]), device tensors."""
+    from egogaussian_tpu_torch.parallel.multi_scene import place_lrs, scene_frames, scene_lrs
+    from egogaussian_tpu_torch.render.api import render_scenes
+    from egogaussian_tpu_torch.render.project import rigid_apply
+    from egogaussian_tpu_torch.train.common import model_colors
+
+    s_n = models.params.xyz.shape[0]
+    dev = models.device
+    cam = torch.as_tensor(cam_idxs, dtype=torch.int64, device=dev).reshape(-1)
+    cams, gt, hand, _ = scene_frames(batches, cam, scenes)
+    s_idx = torch.arange(s_n, device=dev)
+    T, R = accum_Ts[s_idx, cam], accum_Rs[s_idx, cam]
+    leaves = {k: v.detach().requires_grad_(True) for k, v in models.params.as_dict().items()}
+    m = dataclasses.replace(models, params=GaussianParams(**leaves))
+    obj = (m.aux.is_object == 1)[..., None]
+    xyz = torch.where(obj, rigid_apply(m.params.xyz, T[..., :3, :3], T[..., :3, 3]),
+                      m.params.xyz)
+    res = render_scenes(cams, xyz, m.covariance_rotated(R, 1), m.opacity,
+                        torch.zeros((s_n, 3), device=dev), model_colors(m), tile_config,
+                        valid_mask=m.aux.alive, backend=backend)
     loss = image_loss(mask_grad(res.image, hand), gt, lambda_dssim)
-    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    grads = torch.autograd.grad(loss.sum(), list(leaves.values()), allow_unused=True)
     grads = GaussianParams(**{k: torch.zeros_like(x) if g is None else g
                               for (k, x), g in zip(leaves.items(), grads)})
+    scales = models.spatial_lr_scale
+    scales = scales if isinstance(scales, tuple) else (scales,) * s_n
+    lr_tree = place_lrs(scene_lrs([
+        _fine_lr_tree(dataclasses.replace(models, spatial_lr_scale=sc), it, opt_cfg,
+                      divide_3dgs=1.0) for sc in scales]), dev)
+    if xyz_lr_mult is not None:
+        lr_tree["xyz"] = lr_tree["xyz"] * torch.as_tensor(xyz_lr_mult, dtype=torch.float32,
+                                                          device=dev)
     with torch.no_grad():
-        new_params, opt_state = adam_update(model.params, grads, opt_state,
-                                            _fine_lr_tree(model, it, opt_cfg, divide_3dgs=1.0))
-        model = dataclasses.replace(model, params=new_params)
+        new_params, opt_states = adam_update(models.params, grads, opt_states, lr_tree)
+        models = dataclasses.replace(models, params=new_params)
         if clamp_opacity:
-            model, opt_state = reset_opacity(model, opt_state)
-        drop_max = torch.maximum(drop_max, res.dropped_pairs.to(drop_max.dtype))
-    return model, opt_state, loss.detach(), drop_max
+            models, opt_states = reset_opacity(models, opt_states)
+        drop_maxes = torch.maximum(drop_maxes, res.dropped_pairs.to(drop_maxes.dtype))
+    return models, opt_states, loss.detach(), drop_maxes
 
 
 def fine_tune_all(
@@ -98,69 +103,12 @@ def fine_tune_all(
     file exists resumes from it. The stage does not densify, so the
     capacity is the one combine_models gives and the saved state restores
     into the freshly combined model's shapes."""
-    if device is None:
-        device = torch.device("cuda")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from egogaussian_tpu_torch.parallel.scene_trainer import (
+        FineAllSceneInput,
+        train_fine_all_scenes,
+    )
 
-    rng = np.random.RandomState(seed)
-    ap = cfg.fine_all
-    model = combine_models(obj_model, bg_model)
-    model = dataclasses.replace(model, spatial_lr_scale=obj_model.spatial_lr_scale)
-    batch = stack_cameras(list(cameras), device)
-
-    static_list = [f for ph in static_phase_frames for f in ph]
-    dynamic_list = [f for ph in dynamic_phase_frames for f in ph]
-    frames = static_list + dynamic_list
-    weights = np.array([1.0] * len(static_list) + [4.0] * len(dynamic_list))
-    weights = weights / weights.sum()
-
-    opt_state = adam_init(model.params)
-    tile_cfg = auto_tile_config(model, batch.camera(0), tile_size=cfg.render.tile_size)
-    backend = pick_backend(tile_cfg, backend)
-    # the poses are frozen: accumulate once
-    accum_T = pose_seq.accum_T().to(device)
-    accum_R = pose_seq.accum_R().to(device)
-    CONSOLE.log(f"[fine_all] {int(model.num_alive)} gaussians, {len(frames)} frames, "
-                f"{ap.total_num_iter} iters")
-
-    drop_max = torch.zeros((), dtype=torch.int64, device=device)
-    last_drop = 0
-
-    ckpt = StageCheckpointer(
-        os.path.join(save_dir, "ckpt_fine_all.npz") if save_dir and checkpoint_every else None,
-        checkpoint_every)
-    no_gen = torch.Generator()  # the stage draws no split noise
-    start_it = 0
-    if ckpt.exists():
-        (model, opt_state), start_it = ckpt.try_restore((model, opt_state), rng, no_gen,
-                                                        "fine_all")
-        loop = restore_loop(ckpt.extra, device)
-        tile_cfg, drop_max, last_drop = loop["tile_cfg"], loop["drop_max"], loop["last_drop"]
-        backend = pick_backend(tile_cfg, backend)
-    for it in range(start_it + 1, ap.total_num_iter + 1):
-        if it == 1:
-            cam_idx = static_phase_frames[0][0]
-        else:
-            cam_idx = int(frames[rng.choice(len(frames), p=weights)])
-        clamp = (ap.densify_from_iter < it < ap.densify_until_iter
-                 and bool(it % ap.opacity_reset_interval))
-        model, opt_state, loss, drop_max = _fine_all_step(
-            model, opt_state, batch, cam_idx, accum_T, accum_R, it, clamp, drop_max,
-            ap.lambda_dssim, backend, tile_cfg, cfg.opt)
-        if it % ap.opacity_reset_interval == 0:
-            tile_cfg, last_drop, changed = maybe_regrow_tile_config(
-                model, batch.camera(0), tile_cfg, drop_max, last_drop, "fine_all")
-            if changed:
-                drop_max, last_drop = torch.zeros_like(drop_max), 0
-            log_metrics("fine_all", it, loss=loss, alive=model.num_alive,
-                        capacity=model.capacity, dropped_pairs=drop_max)
-        ckpt.maybe_save(it, (model, opt_state), rng, no_gen,
-                        extra=dict(tile_cfg=tile_cfg, drop_max=drop_max, last_drop=last_drop))
-
-    _log_dropped_pairs("fine_all", None, drop_max)
-    log_metrics("fine_all", ap.total_num_iter, event="stage_end", steps=ap.total_num_iter,
-                dropped_pairs=drop_max)
-    if save_dir:
-        save_ply(model, os.path.join(save_dir, "gaussians_all.ply"))
-    return model
+    scene = FineAllSceneInput(cameras, obj_model, bg_model, pose_seq, static_phase_frames,
+                              dynamic_phase_frames, save_dir=save_dir, seed=seed)
+    return train_fine_all_scenes([scene], cfg, backend=backend,
+                                 checkpoint_every=checkpoint_every, device=device)[0]

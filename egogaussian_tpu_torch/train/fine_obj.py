@@ -25,45 +25,17 @@ device between densify intervals.
 """
 from __future__ import annotations
 
-import os
+import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from egogaussian_tpu_torch.config import Config
-from egogaussian_tpu_torch.data.readers import stack_cameras
-from egogaussian_tpu_torch.models.densify import densify_and_prune, reset_opacity
-from egogaussian_tpu_torch.models.gaussians import (
-    PARAM_FIELDS,
-    GaussianModel,
-    ensure_capacity,
-    save_ply,
-)
-from egogaussian_tpu_torch.models.optim import adam_init, expon_lr
-from egogaussian_tpu_torch.models.pose import (
-    PoseSequence,
-    identity_pose,
-    pose_from_rt,
-    save_pose_sequence,
-)
-from egogaussian_tpu_torch.train.ckpt_hook import (
-    StageCheckpointer,
-    grow_to_capacity,
-    restore_loop,
-)
-from egogaussian_tpu_torch.train.coarse_pose import _f32, pose_step
-from egogaussian_tpu_torch.train.common import (
-    auto_tile_config,
-    crop_escape_count,
-    maybe_grow_crop,
-    maybe_regrow_tile_config,
-    pick_backend,
-    pose_crop_size,
-)
-from egogaussian_tpu_torch.train.static import _log_dropped_pairs
-from egogaussian_tpu_torch.utils.console import CONSOLE
-from egogaussian_tpu_torch.utils.logging import log_metrics
+from egogaussian_tpu_torch.models.gaussians import PARAM_FIELDS, GaussianModel
+from egogaussian_tpu_torch.models.optim import expon_lr
+from egogaussian_tpu_torch.models.pose import ObjectPose, PoseSequence, identity_pose
+from egogaussian_tpu_torch.ops.rotation6d import rotmat_to_rot6d
+from egogaussian_tpu_torch.train.coarse_pose import _f32
 
 
 def _fine_lr_tree(model: GaussianModel, it: int, opt, divide_3dgs: float = 5.0
@@ -88,47 +60,115 @@ def _fine_lr_tree(model: GaussianModel, it: int, opt, divide_3dgs: float = 5.0
     return {k: lrs[k] for k in PARAM_FIELDS}
 
 
-def _fine_obj_step(model, opt_state, pose_seq: PoseSequence, accum, pose_opt, batch,
-                   cam_idx: int, it: int, drop_max, train_pose: bool, opt_cfg, fine_cfg,
-                   backend: str, tile_config, crop_size, crop_max):
-    """One stage-3 iteration. A trained frame renders at pose @
-    accum[cam_idx - 1] (the identity prefix at frame 0) with the frame's
-    stored delta as the pose; another frame at accum[cam_idx]. The delta is
-    written back once the pose learning rate is live. `accum`: the
-    sequence's (accum_T, accum_R). Returns (model, opt_state, pose_seq,
-    pose_opt, loss, drop_max, crop_max)."""
+def accum_tables(pose_seqs: PoseSequence):
+    """(accum_T [S, F, 4, 4], accum_R [S, F, 3, 3]) of a scene-stacked
+    PoseSequence (PoseSequence.accum_T / accum_R per scene, the running
+    products taken once on [S, ...]); one scene takes the unbatched
+    products."""
+    if pose_seqs.translations.shape[0] == 1:
+        one = PoseSequence(pose_seqs.translations[0], pose_seqs.rotations[0],
+                           pose_seqs.solved[0])
+        return one.accum_T()[None], one.accum_R()[None]
+    from egogaussian_tpu_torch.ops.se3 import make_se3
+
+    solved = pose_seqs.solved[..., None, None]
+    eye4 = torch.eye(4, dtype=pose_seqs.translations.dtype, device=solved.device)
+    eye3 = torch.eye(3, dtype=pose_seqs.rotations.dtype, device=solved.device)
+    T = torch.where(solved, make_se3(pose_seqs.rotations, pose_seqs.translations), eye4)
+    R = torch.where(solved, pose_seqs.rotations, eye3)
+
+    def running(seq):  # over the frame axis, newest on the left
+        out = [seq[:, 0]]
+        for k in range(1, seq.shape[1]):
+            out.append(seq[:, k] @ out[-1])
+        return torch.stack(out, dim=1)
+
+    return running(T), running(R)
+
+
+def fine_scenes_step(models, opt_states, pose_seqs, pose_opt_states, batches, cam_idxs,
+                     it: int, drop_maxes, train_poses, xyz_lr_mult=None, opt_cfg=None,
+                     fine_cfg=None, backend: str = "cuda", tile_config=None, crop: bool = False,
+                     crop_maxes=None, accums=None, scenes=None):
+    """One stage-3 iteration for S lanes at once (JAX's one_lane vmapped):
+    lane s renders frame cam_idxs[s]; where train_poses[s] is set it loads
+    the frame's stored delta as the pose, at accum[cam - 1] (the identity
+    prefix at frame 0), else the identity pose at accum[cam]; each lane's
+    learning rates from its own spatial_lr_scale (times xyz_lr_mult); the
+    trained delta is written back once the pose rate is live.
+    `accums` (accum_tables of pose_seqs) saves recomputing them. Returns
+    (models, opt_states, pose_seqs, pose_opt_states, loss [S], drop_maxes,
+    crop_maxes, wrote) with wrote True when a delta was written back."""
+    from egogaussian_tpu_torch.parallel.multi_scene import place_lrs, scene_lrs
+    from egogaussian_tpu_torch.train.coarse_pose import _scene_flags, pose_scenes_step
+
     fp = fine_cfg
-    accum_T, accum_R = accum
-    dev = model.device
-    if train_pose:
-        pose = pose_from_rt(pose_seq.rotations[cam_idx], pose_seq.translations[cam_idx])
-        if cam_idx > 0:
-            fixed_T, fixed_R = accum_T[cam_idx - 1], accum_R[cam_idx - 1]
-        else:
-            fixed_T = torch.eye(4, dtype=accum_T.dtype, device=dev)
-            fixed_R = torch.eye(3, dtype=accum_R.dtype, device=dev)
+    s_n = models.params.xyz.shape[0]
+    dev = models.device
+    tp = _scene_flags(train_poses, s_n)
+    cams = [int(c) for c in cam_idxs]
+    acc_T, acc_R = accum_tables(pose_seqs) if accums is None else accums
+    s_idx = torch.arange(s_n, device=dev)
+    cam = torch.as_tensor(cams, dtype=torch.int64, device=dev)
+    prev = torch.as_tensor([max(c - 1, 0) for c in cams], dtype=torch.int64, device=dev)
+    if all(tp):
+        poses = ObjectPose(translation=pose_seqs.translations[s_idx, cam],
+                           rot6d=rotmat_to_rot6d(pose_seqs.rotations[s_idx, cam]))
+    elif not any(tp):
+        poses = _identity_poses(s_n, dev)
     else:
-        pose = identity_pose(dev)
-        fixed_T, fixed_R = accum_T[cam_idx], accum_R[cam_idx]
+        sel = torch.as_tensor(tp, device=dev)
+        ident = _identity_poses(s_n, dev)
+        poses = ObjectPose(
+            translation=torch.where(sel[:, None], pose_seqs.translations[s_idx, cam],
+                                    ident.translation),
+            rot6d=torch.where(sel[:, None, None],
+                              rotmat_to_rot6d(pose_seqs.rotations[s_idx, cam]), ident.rot6d))
+    eye4 = torch.eye(4, dtype=acc_T.dtype, device=dev).expand(s_n, 4, 4)
+    eye3 = torch.eye(3, dtype=acc_R.dtype, device=dev).expand(s_n, 3, 3)
+    first = torch.as_tensor([c == 0 for c in cams], device=dev)[:, None, None]
+    pre_T = torch.where(first, eye4, acc_T[s_idx, prev])
+    pre_R = torch.where(first, eye3, acc_R[s_idx, prev])
+    sel = torch.as_tensor(tp, device=dev)[:, None, None]
+    fixed_T = torch.where(sel, pre_T, acc_T[s_idx, cam])
+    fixed_R = torch.where(sel, pre_R, acc_R[s_idx, cam])
     pose_live = it >= fp.densify_until_iter
     plr_t = _f32(opt_cfg.obj_translation_lr) if pose_live else 0.0
     plr_r = _f32(opt_cfg.obj_rotation_lr) if pose_live else 0.0
-    model, opt_state, pose, pose_opt, loss, _, drop_max, crop_max = pose_step(
-        model, opt_state, pose, pose_opt, batch, cam_idx, fixed_T, fixed_R,
-        _fine_lr_tree(model, it, opt_cfg), plr_t, plr_r, True, drop_max,
-        train_pose=train_pose,
-        lambda_image=fp.lambda_Ll1_image,
-        lambda_dssim=fp.lambda_dssim,
-        lambda_l1_alpha=fp.lambda_Ll1_alpha,
-        lambda_l2_alpha=fp.lambda_Ll2_alpha,
-        backend=backend,
-        tile_config=tile_config,
-        crop_size=crop_size,
-        crop_max=crop_max,
-    )
-    if train_pose and pose_live and opt_cfg.obj_translation_lr > 0:
-        pose_seq = pose_seq.update_frame(cam_idx, pose)
-    return model, opt_state, pose_seq, pose_opt, loss, drop_max, crop_max
+    scales = models.spatial_lr_scale
+    scales = scales if isinstance(scales, tuple) else (scales,) * s_n
+    lr_tree = place_lrs(scene_lrs([
+        _fine_lr_tree(dataclasses.replace(models, spatial_lr_scale=sc), it, opt_cfg)
+        for sc in scales]), dev)
+    if xyz_lr_mult is not None:
+        lr_tree["xyz"] = lr_tree["xyz"] * torch.as_tensor(xyz_lr_mult, dtype=torch.float32,
+                                                          device=dev)
+    models, opt_states, poses, pose_opt_states, loss, _, drop_maxes, crop_maxes = \
+        pose_scenes_step(models, opt_states, poses, pose_opt_states, batches, cam, fixed_T,
+                         fixed_R, lr_tree, plr_t, plr_r, True, drop_maxes, tp,
+                         lambda_image=fp.lambda_Ll1_image, lambda_dssim=fp.lambda_dssim,
+                         lambda_l1_alpha=fp.lambda_Ll1_alpha,
+                         lambda_l2_alpha=fp.lambda_Ll2_alpha, backend=backend,
+                         caps=tile_config, crop=crop,
+                         crop_max=crop_maxes if crop_maxes is not None else 0, scenes=scenes)
+    write = [t and pose_live and opt_cfg.obj_translation_lr > 0 for t in tp]
+    if any(write):
+        rows = torch.as_tensor([s for s in range(s_n) if write[s]], device=dev)
+        at = cam[rows]
+        tr, rot, solved = (pose_seqs.translations.clone(), pose_seqs.rotations.clone(),
+                           pose_seqs.solved.clone())
+        tr[rows, at] = poses.translation[rows].detach()
+        rot[rows, at] = poses.rotation[rows].detach()
+        solved[rows, at] = True
+        pose_seqs = PoseSequence(translations=tr, rotations=rot, solved=solved)
+    return (models, opt_states, pose_seqs, pose_opt_states, loss, drop_maxes, crop_maxes,
+            any(write))
+
+
+def _identity_poses(s_n: int, dev) -> ObjectPose:
+    one = identity_pose(dev)
+    return ObjectPose(translation=one.translation.expand(s_n, 3).contiguous(),
+                      rot6d=one.rot6d.expand(s_n, 3, 2).contiguous())
 
 
 def fine_tune_obj(
@@ -159,122 +199,11 @@ def fine_tune_obj(
     (with save_dir): the state (model, Adam state, pose Adam state, pose
     sequence, split generator) goes to save_dir/ckpt_fine_obj.npz every
     that many iterations, and a run whose file exists resumes from it."""
-    if device is None:
-        device = torch.device("cuda")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from egogaussian_tpu_torch.parallel.scene_trainer import FineSceneInput, train_fine_scenes
 
-    rng = np.random.RandomState(seed)
-    fp = cfg.fine
-    model = obj_model
-    batch = stack_cameras(list(cameras), device)
-    pose_seq = PoseSequence(translations=pose_seq.translations.to(device),
-                            rotations=pose_seq.rotations.to(device),
-                            solved=pose_seq.solved.to(device))
-
-    solved = pose_seq.solved.cpu().numpy()
-    static_list = [f for ph in static_phase_frames for f in ph]
-    dynamic_list = [f for ph in dynamic_phase_frames for f in ph if solved[f]]
-    dynamic_set = set(dynamic_list)
-    frames = static_list + dynamic_list
-    weights = np.array([1.0] * len(static_list) + [5.0] * len(dynamic_list))
-    weights = weights / weights.sum()
-    CONSOLE.log(f"[fine_obj] {len(static_list)} static + {len(dynamic_list)} dynamic "
-                f"frames, {fp.total_num_iter} iters")
-
-    opt_state = adam_init(model.params)
-    tile_cfg = auto_tile_config(model, batch.camera(0), tile_size=cfg.render.tile_size)
-    backend = pick_backend(tile_cfg, backend)
-    crop_size = pose_crop_size(batch, cfg, "fine_obj")
-    pose_opt = adam_init(identity_pose(device))  # shared by every frame
-    gen = torch.Generator().manual_seed(seed)  # densify split seeds
-
-    def zero_crop_stat():
-        return (torch.zeros((3,), dtype=torch.int32, device=device) if crop_size is not None
-                else torch.zeros((), dtype=torch.int32, device=device))
-
-    drop_max = torch.zeros((), dtype=torch.int64, device=device)
-    last_drop = 0
-    crop_max = zero_crop_stat()
-    last_crop = 0
-
-    ckpt = StageCheckpointer(
-        os.path.join(save_dir, "ckpt_fine_obj.npz") if save_dir and checkpoint_every else None,
-        checkpoint_every)
-    start_it = 0
-    if ckpt.exists():
-        model, opt_state = grow_to_capacity(model, opt_state, ckpt.peek_capacity())
-        (model, opt_state, pose_opt, pose_seq), start_it = ckpt.try_restore(
-            (model, opt_state, pose_opt, pose_seq), rng, gen, "fine_obj")
-        loop = restore_loop(ckpt.extra, device)
-        tile_cfg, drop_max, last_drop = loop["tile_cfg"], loop["drop_max"], loop["last_drop"]
-        crop_size, crop_max, last_crop = loop["crop_size"], loop["crop_max"], loop["last_crop"]
-        backend = pick_backend(tile_cfg, backend)
-
-    accum = (pose_seq.accum_T(), pose_seq.accum_R())
-    for it in range(start_it + 1, fp.total_num_iter + 1):
-        if it == 1:
-            cam_idx, train_p = static_phase_frames[0][0], False
-        else:
-            cam_idx = int(frames[rng.choice(len(frames), p=weights)])
-            train_p = cam_idx in dynamic_set
-        before = pose_seq
-        (model, opt_state, pose_seq, pose_opt, loss, drop_max, crop_max) = _fine_obj_step(
-            model, opt_state, pose_seq, accum, pose_opt, batch, cam_idx, it, drop_max,
-            train_p, cfg.opt, fp, backend, tile_cfg, crop_size, crop_max)
-        if pose_seq is not before:  # a written-back delta moves later frames
-            accum = (pose_seq.accum_T(), pose_seq.accum_R())
-        if on_step is not None:
-            on_step(cam_idx, it, loss)
-
-        if it % fp.densification_interval == 0:
-            tile_cfg, last_drop, changed = maybe_regrow_tile_config(
-                model, batch.camera(0), tile_cfg, drop_max, last_drop, "fine_obj")
-            if changed:
-                drop_max, last_drop = torch.zeros_like(drop_max), 0
-            crop_size, last_crop, cchanged = maybe_grow_crop(
-                crop_size, crop_max, last_crop, batch, "fine_obj")
-            if cchanged:
-                crop_max = zero_crop_stat()
-            log_metrics("fine_obj", it, loss=loss, alive=model.num_alive,
-                        capacity=model.capacity, dropped_pairs=drop_max,
-                        crop_escapes=crop_escape_count(crop_max))
-        if fp.densify_from_iter < it < fp.densify_until_iter:
-            if it % fp.densification_interval == 0:
-                size_threshold = 20.0 if it > fp.opacity_reset_interval else None
-                noise = None if densify_noise is None else densify_noise(model.capacity)
-                sub_seed = int(torch.randint(0, 2**31 - 1, (), generator=gen))
-                res = densify_and_prune(
-                    model, opt_state, sub_seed,
-                    max_grad=fp.densify_grad_threshold,
-                    min_opacity=fp.min_opacity,
-                    extent=cameras_extent,
-                    max_screen_size=size_threshold,
-                    percent_dense=cfg.opt.percent_dense,
-                    which_object=1,
-                    noise=noise,
-                )
-                model, opt_state = res.model, res.opt_state
-                overflow = int(res.overflow)
-                if overflow:
-                    CONSOLE.log(f"[fine_obj] it {it}: densify overflow — {overflow} "
-                                "candidates dropped")
-                model, opt_state, grew = ensure_capacity(model, opt_state)
-                if grew:
-                    tile_cfg = auto_tile_config(model, batch.camera(0),
-                                                tile_size=cfg.render.tile_size)
-            if it % fp.opacity_reset_interval == 0:
-                model, opt_state = reset_opacity(model, opt_state, which_object=1)
-        ckpt.maybe_save(it, (model, opt_state, pose_opt, pose_seq), rng, gen, extra=dict(
-            tile_cfg=tile_cfg, drop_max=drop_max, last_drop=last_drop, crop_size=crop_size,
-            crop_max=crop_max, last_crop=last_crop))
-
-    _log_dropped_pairs("fine_obj", None, drop_max)
-    log_metrics("fine_obj", fp.total_num_iter, event="stage_end", steps=fp.total_num_iter,
-                crop_size=crop_size, dropped_pairs=drop_max,
-                crop_escapes=crop_escape_count(crop_max) if crop_size is not None else 0)
-    if save_dir:
-        save_pose_sequence(os.path.join(save_dir, "obj_pose_sequence.npz"), pose_seq,
-                           [c.image_name for c in cameras])
-        save_ply(model, os.path.join(save_dir, "gaussians_fine.ply"))
-    return pose_seq, model
+    scene = FineSceneInput(cameras, obj_model, pose_seq, static_phase_frames,
+                           dynamic_phase_frames, cameras_extent, save_dir=save_dir, seed=seed,
+                           densify_noise=densify_noise)
+    hook = None if on_step is None else (lambda s, f, it, loss: on_step(f, it, loss))
+    return train_fine_scenes([scene], cfg, backend=backend, checkpoint_every=checkpoint_every,
+                             device=device, on_step=hook)[0]

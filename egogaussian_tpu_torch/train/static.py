@@ -25,110 +25,44 @@ interval's host sync.
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from egogaussian_tpu_torch.config import Config
-from egogaussian_tpu_torch.data.readers import FrameBatch, dilate_mask, stack_cameras
-from egogaussian_tpu_torch.models.densify import (
-    densify_and_prune,
-    prune_by_opacity,
-    reset_opacity,
-)
-from egogaussian_tpu_torch.models.gaussians import (
-    GaussianModel,
-    GaussianParams,
-    ensure_capacity,
-    from_points,
-    save_ply,
-    split_by_is_object,
-)
-from egogaussian_tpu_torch.models.optim import adam_init, adam_update, gaussian_lr_tree
-from egogaussian_tpu_torch.ops.losses import bce_with_logits
-from egogaussian_tpu_torch.parallel.mesh import gather_blocks, max_blocks, sum_blocks
-from egogaussian_tpu_torch.render.api import render
-from egogaussian_tpu_torch.train.ckpt_hook import (
-    StageCheckpointer,
-    grow_to_capacity,
-    restore_loop,
-)
-from egogaussian_tpu_torch.train.common import (
-    auto_tile_config,
-    image_loss,
-    mask_grad,
-    maybe_regrow_tile_config,
-    opacity_entropy,
-    pick_backend,
-    render_gaussians,
-    render_label_image,
-)
+from egogaussian_tpu_torch.models.gaussians import GaussianModel
+from egogaussian_tpu_torch.models.optim import gaussian_lr_tree
 from egogaussian_tpu_torch.utils.console import CONSOLE
-from egogaussian_tpu_torch.utils.logging import log_metrics
+
+
+def _one(x):
+    """The one-scene stack of x (views)."""
+    from egogaussian_tpu_torch.parallel.multi_scene import stack_scenes
+
+    return stack_scenes([x])
+
+
+def _caps_of(model, batch, tile_config):
+    from egogaussian_tpu_torch.render.tiled import scene_caps
+
+    return scene_caps([tile_config], [(batch.width, batch.height)], model.device,
+                      model.capacity)
 
 
 def _frames_loss_grads(model, batch, fidxs, grad_masks, mode, lambda_dssim,
                        backend, tile_config, bg):
     """Gradient of the MEAN loss over frames `fidxs` w.r.t. the params and
     the per-frame means2d probes. Returns (param grads, probe grads
-    [K, C, 2], losses [K], radii [K, C], dropped [K])."""
-    leaves = {k: v.detach().requires_grad_(True) for k, v in model.params.as_dict().items()}
-    m = dataclasses.replace(model, params=GaussianParams(**leaves))
-    probes = [torch.zeros((model.capacity, 2), device=model.device, requires_grad=True)
-              for _ in fidxs]
-    losses, radii, dropped = [], [], []
-    for k, f in enumerate(fidxs):
-        cam, gt, _, obj_mask = batch.frame(f)
-        grad_mask = FrameBatch.decode_mask(grad_masks[f])
-        if mode == "label":
-            # one render: the label as the color channel with detached
-            # geometry; its radii are the visibility filter
-            res = render(
-                cam, m.params.xyz.detach(), m.covariance().detach(), m.opacity.detach(),
-                bg=torch.zeros((1,), device=model.device),
-                colors_precomp=m.params.label, valid_mask=m.aux.alive,
-                backend=backend, tile_config=tile_config,
-            )
-            loss = bce_with_logits(mask_grad(res.image, grad_mask), obj_mask)
-        else:
-            res = render_gaussians(m, cam, bg, means2d_probe=probes[k],
-                                   backend=backend, tile_config=tile_config)
-            loss = image_loss(mask_grad(res.image, grad_mask), gt, lambda_dssim)
-            if mode == "entropy":
-                loss = loss + 0.1 * opacity_entropy(m.params.opacity_logit[:, 0], res.radii > 0)
-        losses.append(loss)
-        radii.append(res.radii)
-        dropped.append(res.dropped_pairs)
-    losses = torch.stack(losses)
-    inputs = list(leaves.values()) + (probes if mode != "label" else [])
-    grads = torch.autograd.grad(torch.mean(losses), inputs, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
-    param_grads = GaussianParams(**dict(zip(leaves, grads[:len(leaves)])))
-    if mode == "label":
-        probe_grads = torch.zeros((len(fidxs), model.capacity, 2), device=model.device)
-    else:
-        probe_grads = torch.stack(grads[len(leaves):])
-    return (param_grads, probe_grads, losses.detach(), torch.stack(radii),
-            torch.stack(dropped))
+    [K, C, 2], losses [K], radii [K, C], dropped [K]). The one-scene case
+    of parallel/multi_scene.py's."""
+    from egogaussian_tpu_torch.parallel import multi_scene as ms
 
-
-def _probe_stats(batch, probe_grads, radii, undo_mean_k):
-    """Densification statistics of a frame set, reduced over frames. The
-    probe is in pixels and the reference accumulates NDC-scaled gradients
-    (W/2, H/2); undo_mean_k undoes the 1/K of the mean loss so each frame
-    contributes what a standalone reference iteration would."""
-    ndc_scale = torch.tensor([batch.width * 0.5, batch.height * 0.5],
-                             dtype=probe_grads.dtype, device=probe_grads.device)
-    g = probe_grads * (ndc_scale * undo_mean_k)
-    gnorm = torch.sqrt(torch.sum(g * g, dim=-1))  # [K, C]
-    visible = radii > 0
-    zero = torch.zeros_like(gnorm)
-    gn_sum = torch.sum(torch.where(visible, gnorm, zero), dim=0)
-    den_sum = torch.sum(visible.to(torch.float32), dim=0)
-    rad_max = torch.amax(torch.where(visible, radii.to(torch.float32), zero), dim=0)
-    return gn_sum, den_sum, rad_max
+    fidx = torch.as_tensor(list(fidxs), dtype=torch.int64, device=model.device)[None]
+    pg, probe, losses, radii, dropped = ms._frames_loss_grads(
+        _one(model), _one(batch), fidx, grad_masks[None], mode, lambda_dssim,
+        backend, _caps_of(model, batch, tile_config), bg[None])
+    return (pg.map(lambda x: x[0]), probe[:, 0], losses[:, 0], radii[:, 0], dropped[:, 0])
 
 
 def _static_lr_tree(model, it, opt_cfg, mode, label_lr):
@@ -138,35 +72,18 @@ def _static_lr_tree(model, it, opt_cfg, mode, label_lr):
     return gaussian_lr_tree(it, opt_cfg, model.spatial_lr_scale, label_lr=0.0)
 
 
-def _apply_step(model, opt_state, lr_tree, param_grads, gn, den, rmax):
-    """Accumulate the densification statistics and take the Adam step."""
-    aux = dataclasses.replace(
-        model.aux,
-        xyz_gradient_accum=model.aux.xyz_gradient_accum + gn,
-        denom=model.aux.denom + den,
-        max_radii2d=torch.maximum(model.aux.max_radii2d, rmax),
-    )
-    with torch.no_grad():
-        new_params, new_opt = adam_update(model.params, param_grads, opt_state, lr_tree)
-    return dataclasses.replace(model, params=new_params, aux=aux), new_opt
-
-
 def _static_step(model, opt_state, batch, fidxs, grad_masks, it, drop_max,
                  mode="std", lambda_dssim=0.2, backend="tiled", tile_config=None,
                  bg_color=None, opt_cfg=None, label_lr=0.0):
     """One training iteration over frames `fidxs` (a list of K indices; the
     photometric gradient is the mean over them). mode in {std, entropy,
     label}. Returns (model, opt_state, loss, radii [K, C], drop_max), all
-    device tensors."""
-    lr_tree = _static_lr_tree(model, it, opt_cfg, mode, label_lr)
-    bg = (torch.zeros(3, device=model.device) if bg_color is None
-          else torch.as_tensor(bg_color, device=model.device))
-    param_grads, probe_grads, losses, radii, dropped = _frames_loss_grads(
-        model, batch, fidxs, grad_masks, mode, lambda_dssim, backend, tile_config, bg)
-    gn, den, rmax = _probe_stats(batch, probe_grads, radii, len(fidxs))
-    model, new_opt = _apply_step(model, opt_state, lr_tree, param_grads, gn, den, rmax)
-    return (model, new_opt, torch.mean(losses), radii,
-            torch.maximum(drop_max, torch.amax(dropped)))
+    device tensors. The one-scene case of
+    parallel/multi_scene.py:multi_scene_static_step."""
+    return _dp_static_step(model, opt_state, batch, fidxs, grad_masks, it, drop_max,
+                           mesh=None, mode=mode, lambda_dssim=lambda_dssim, backend=backend,
+                           tile_config=tile_config, bg_color=bg_color, opt_cfg=opt_cfg,
+                           label_lr=label_lr)
 
 
 def _dp_static_step(model, opt_state, batch, fidxs, grad_masks, it, drop_max, mesh=None,
@@ -175,56 +92,28 @@ def _dp_static_step(model, opt_state, batch, fidxs, grad_masks, it, drop_max, me
     """Frame-data-parallel `_static_step` (JAX's `_dp_static_step`): the
     K frames `fidxs` (K a multiple of the axis size; every rank passes the
     same list) are cut into equal contiguous blocks, and rank d of the
-    mesh's `axis` runs the real per-frame body (`_frames_loss_grads`) on
-    block d. The parameter gradients and the loss are the mean of the
-    ranks' local means; the densification sums (grad-norm accumulator,
-    visibility counts) are summed and the max screen radius and dropped
-    pairs max-reduced, so the statistics equal K sequential reference
-    iterations. Every reduced tensor goes in one flat buffer through one
-    all_gather, and each rank reduces the blocks in rank order itself:
-    every replica gets the same bits, and Adam then runs replicated.
-    Returns (model, opt_state, loss, this rank's radii [K / n, C],
-    drop_max). On a one-rank axis it gives `_static_step`'s bits."""
-    n = mesh.shape[axis]
-    if len(fidxs) % n:
-        raise ValueError(f"frame batch {len(fidxs)} not divisible by {axis}={n}")
-    k = len(fidxs) // n
-    i = mesh.coords[axis]
-    lr_tree = _static_lr_tree(model, it, opt_cfg, mode, label_lr)
-    bg = (torch.zeros(3, device=model.device) if bg_color is None
-          else torch.as_tensor(bg_color, device=model.device))
-    param_grads, probe_grads, losses, radii, dropped = _frames_loss_grads(
-        model, batch, fidxs[i * k:(i + 1) * k], grad_masks, mode, lambda_dssim, backend,
-        tile_config, bg)
-    gn, den, rmax = _probe_stats(batch, probe_grads, radii, k)
-    grads = list(param_grads.as_dict().values())
-    # [grads | loss | grad-norm sums | counts] summed, [max radii] and the
-    # dropped count (int32 bits carried as float32) max-reduced
-    summed = torch.cat([g.reshape(-1) for g in grads] + [torch.mean(losses)[None], gn, den])
-    drop_bits = torch.amax(dropped).to(torch.int32).reshape(1).view(torch.float32)
-    blocks = gather_blocks(mesh, torch.cat([summed, rmax, drop_bits]), axis)
-    c = model.capacity
-    total = sum_blocks(blocks[:, :summed.numel()])
-    rmax = max_blocks(blocks[:, summed.numel():summed.numel() + c])
-    drop = torch.amax(blocks[:, -1].contiguous().view(torch.int32)).to(drop_max.dtype)
-    n_grad = summed.numel() - 1 - 2 * c
-    mean = total[:n_grad + 1] / n
-    split = torch.split(mean[:n_grad], [g.numel() for g in grads])
-    param_grads = GaussianParams(**{name: g.view_as(x) for (name, x), g in
-                                    zip(param_grads.as_dict().items(), split)})
-    gn, den = total[n_grad + 1:n_grad + 1 + c], total[n_grad + 1 + c:]
-    model, new_opt = _apply_step(model, opt_state, lr_tree, param_grads, gn, den, rmax)
-    return model, new_opt, mean[n_grad], radii, torch.maximum(drop_max, drop)
+    mesh's `axis` runs the real per-frame body on block d. The parameter
+    gradients and the loss are the mean of the ranks' local means; the
+    densification sums (grad-norm accumulator, visibility counts) are
+    summed and the max screen radius and dropped pairs max-reduced, so the
+    statistics equal K sequential reference iterations. Every reduced
+    tensor goes in one flat buffer through one all_gather, and each rank
+    reduces the blocks in rank order itself: every replica gets the same
+    bits, and Adam then runs replicated. Returns (model, opt_state, loss,
+    this rank's radii [K / n, C], drop_max). On a one-rank axis (or
+    mesh=None) it gives `_static_step`'s bits. The one-scene case of
+    multi_scene_static_step."""
+    from egogaussian_tpu_torch.parallel.multi_scene import multi_scene_static_step, unstack_scenes
 
-
-def _run_static_step(mesh, model, opt_state, batch, fidxs, grad_masks, it, drop_max, **kw):
-    """Route one static / background iteration to the single-rank step or,
-    on a mesh whose data axis has more than one rank, the
-    frame-data-parallel one."""
-    if mesh is None or mesh.shape["data"] <= 1:
-        return _static_step(model, opt_state, batch, fidxs, grad_masks, it, drop_max, **kw)
-    return _dp_static_step(model, opt_state, batch, fidxs, grad_masks, it, drop_max,
-                           mesh=mesh, **kw)
+    fidx = torch.as_tensor(list(fidxs), dtype=torch.int64, device=model.device)[None]
+    bg = None if bg_color is None else torch.as_tensor(bg_color, device=model.device)[None]
+    m, opt, loss, radii, drop = multi_scene_static_step(
+        _one(model), _one(opt_state), _one(batch), fidx, grad_masks[None], it,
+        drop_max.reshape(1), mesh=mesh, mode=mode, lambda_dssim=lambda_dssim, backend=backend,
+        tile_config=_caps_of(model, batch, tile_config), opt_cfg=opt_cfg, label_lr=label_lr,
+        bg_colors=bg, axis=axis)
+    (m,), (opt,) = unstack_scenes(m, 1), unstack_scenes(opt, 1)
+    return m, opt, loss[0], radii[:, 0], drop[0].reshape(drop_max.shape)
 
 
 def _dp_frame_batch(fb: int, mesh) -> int:
@@ -308,158 +197,14 @@ def train_static(
     tensors, so the replicas stay identical; rank (s, 0) alone writes the
     PLYs, masks and checkpoints, and the row waits at a barrier after
     each write. `device` then defaults to mesh.device."""
-    if device is None:
-        device = mesh.device if mesh is not None else torch.device("cuda")
-    # float32 throughout: cuDNN would run the SSIM convolutions in TF32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from egogaussian_tpu_torch.parallel.scene_trainer import SceneInput, train_static_scenes
 
-    rng = np.random.RandomState(seed)
-    sp = cfg.static
-    opt_cfg = cfg.opt
-    total_iters = sp.std_train_iter + sp.entropy_reg_iter + sp.label_train_iter
-    results: List[StaticPhaseResult] = []
-
-    for phase, frame_idxs in enumerate(static_phase_frames):
-        phase_cams = [cameras[i] for i in frame_idxs]
-        batch = stack_cameras(phase_cams, device)
-        model = from_points(points, colors, device, sh_degree=cfg.model.sh_degree,
-                            spatial_lr_scale=cameras_extent, seed=seed)
-        opt_state = adam_init(model.params)
-        tile_cfg = auto_tile_config(model, batch.camera(0), tile_size=cfg.render.tile_size)
-        backend = pick_backend(tile_cfg, backend)
-        gen = torch.Generator().manual_seed(seed + phase)  # densify split seeds
-        drop_max = torch.zeros((), dtype=torch.int64, device=device)
-        last_drop = 0
-
-        ckpt = StageCheckpointer(
-            os.path.join(save_dir, f"ckpt_static_phase{phase}.npz")
-            if save_dir and checkpoint_every else None, checkpoint_every, mesh)
-        start_it = 0
-        if ckpt.exists():
-            model, opt_state = grow_to_capacity(model, opt_state, ckpt.peek_capacity())
-            (model, opt_state), start_it = ckpt.try_restore((model, opt_state), rng, gen,
-                                                            "static")
-            loop = restore_loop(ckpt.extra, device)
-            tile_cfg, drop_max, last_drop = loop["tile_cfg"], loop["drop_max"], loop["last_drop"]
-            backend = pick_backend(tile_cfg, backend)
-
-        stack = list(range(len(phase_cams)))
-        mask_valid = batch.obj_mask_valid
-        # >= : a checkpoint taken on the entropy-end boundary already holds
-        # the prune, so the label-phase rewind applies too
-        if start_it >= sp.std_train_iter + sp.entropy_reg_iter and start_it > 0:
-            stack = _label_stack(stack, phase, len(static_phase_frames),
-                                 sp.rewind_frames, mask_valid)
-        CONSOLE.log(f"[static] phase {phase}: {len(phase_cams)} frames, "
-                    f"{total_iters} iters, capacity {model.capacity}")
-        fb = _dp_frame_batch(sp.frame_batch, mesh)
-        for it in range(start_it + 1, total_iters + 1):
-            if fb == 1:
-                fidxs = [stack[rng.randint(len(stack))]]
-            else:
-                fidxs = [stack[i] for i in rng.randint(len(stack), size=fb)]
-            if it <= sp.std_train_iter:
-                mode = "std"
-            elif it <= sp.std_train_iter + sp.entropy_reg_iter:
-                mode = "entropy"
-            else:
-                mode = "label"
-            bg_color = rng.rand(3).astype(np.float32) if opt_cfg.random_background else None
-            model, opt_state, loss, _, drop_max = _run_static_step(
-                mesh, model, opt_state, batch, fidxs, batch.hand_masks, it, drop_max,
-                mode=mode, lambda_dssim=opt_cfg.lambda_dssim, backend=backend,
-                tile_config=tile_cfg, bg_color=bg_color, opt_cfg=opt_cfg,
-                label_lr=sp.label_lr,
-            )
-            if on_step is not None:
-                on_step(it, mode, loss)
-
-            # drop-triggered capacity regrowth at the interval host sync
-            if it % opt_cfg.densification_interval == 0:
-                tile_cfg, last_drop, changed = maybe_regrow_tile_config(
-                    model, batch.camera(0), tile_cfg, drop_max, last_drop, "static")
-                if changed:  # new baseline: re-arm the running-max counter
-                    drop_max, last_drop = torch.zeros_like(drop_max), 0
-                log_metrics("static", it, phase=phase, mode=mode, loss=loss,
-                            alive=model.num_alive, capacity=model.capacity,
-                            dropped_pairs=drop_max)
-
-            # densification schedule (train_static.py:125-133)
-            if it <= sp.densify_until_iter:
-                if it > sp.densify_from_iter and it % opt_cfg.densification_interval == 0:
-                    size_threshold = 20.0 if it > opt_cfg.opacity_reset_interval else None
-                    sub_seed = int(torch.randint(0, 2**31 - 1, (), generator=gen))
-                    res = densify_and_prune(
-                        model, opt_state, sub_seed,
-                        max_grad=opt_cfg.densify_grad_threshold,
-                        min_opacity=0.005,
-                        extent=cameras_extent,
-                        max_screen_size=size_threshold,
-                        percent_dense=opt_cfg.percent_dense,
-                    )
-                    model, opt_state = res.model, res.opt_state
-                    overflow = int(res.overflow)
-                    if overflow:
-                        CONSOLE.log(f"[static] it {it}: densify overflow — {overflow} "
-                                    "candidates dropped (capacity grows next interval)")
-                    model, opt_state, grew = ensure_capacity(model, opt_state)
-                    if grew:
-                        tile_cfg = auto_tile_config(model, batch.camera(0),
-                                                    tile_size=cfg.render.tile_size)
-                if it % opt_cfg.opacity_reset_interval == 0:
-                    model, opt_state = reset_opacity(model, opt_state)
-
-            # entropy-phase end: prune + rewind (train_static.py:146-162)
-            if it == sp.std_train_iter + sp.entropy_reg_iter:
-                model, opt_state, n_pruned = prune_by_opacity(model, opt_state, min_opacity=0.5)
-                CONSOLE.log(f"[static] pruned {int(n_pruned)} low-opacity; "
-                            f"alive {int(model.num_alive)}")
-                stack = _label_stack(stack, phase, len(static_phase_frames),
-                                     sp.rewind_frames, mask_valid)
-
-            # at the end of the iteration, so a checkpoint on the entropy-end
-            # boundary holds the prune (the rewound stack is recomputed)
-            ckpt.maybe_save(it, (model, opt_state), rng, gen,
-                            extra=dict(tile_cfg=tile_cfg, drop_max=drop_max,
-                                       last_drop=last_drop))
-
-        _log_dropped_pairs("static", phase, drop_max)
-        model = model.infer_is_object_from_label()
-        obj_model, bg_model = split_by_is_object(model)
-
-        pred_masks: Dict[str, np.ndarray] = {}
-        with torch.no_grad():
-            for j, cam_obj in enumerate(phase_cams):
-                lbl = render_label_image(model, batch.camera(j), backend=backend,
-                                         tile_config=tile_cfg)
-                pred_masks[cam_obj.image_name] = (lbl[0] > 0.5).to(torch.float32).cpu().numpy()
-
-        if save_dir and (mesh is None or mesh.writes):
-            ply_dir = os.path.join(save_dir, "ply")
-            save_ply(model, os.path.join(ply_dir, f"static_phase{phase}.ply"))
-            save_ply(obj_model, os.path.join(ply_dir, f"static_phase{phase}_obj.ply"))
-            save_ply(bg_model, os.path.join(ply_dir, f"static_phase{phase}_bg.ply"))
-            mask_dir = os.path.join(save_dir, "obj_masks")
-            os.makedirs(mask_dir, exist_ok=True)
-            try:
-                from PIL import Image
-            except ImportError:
-                Image = None
-            if Image is not None:
-                for name, msk in pred_masks.items():
-                    Image.fromarray((msk * 255).astype(np.uint8)).save(
-                        os.path.join(mask_dir, f"{name}.png"))
-        if mesh is not None:
-            mesh.barrier()
-
-        results.append(StaticPhaseResult(
-            model=model, obj_model=obj_model, bg_model=bg_model,
-            pred_masks=pred_masks, dropped_pairs=int(drop_max),
-        ))
-        if first_phase_only:
-            break
-    return results
+    scene = SceneInput(cameras, points, colors, static_phase_frames, cameras_extent,
+                       save_dir=save_dir, seed=seed)
+    step_hook = None if on_step is None else (lambda s, it, mode, loss: on_step(it, mode, loss))
+    return train_static_scenes([scene], cfg, backend=backend, first_phase_only=first_phase_only,
+                               checkpoint_every=checkpoint_every, mesh=mesh, device=device,
+                               on_step=step_hook)[0]
 
 
 def train_background(
@@ -491,106 +236,10 @@ def train_background(
     many iterations, and a run whose file exists resumes from it.
     `mesh`: frame-data-parallel over its data axis, as train_static's;
     rank (s, 0) alone writes the checkpoints and the PLY."""
-    if device is None:
-        device = mesh.device if mesh is not None else torch.device("cuda")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from egogaussian_tpu_torch.parallel.scene_trainer import SceneInput, train_background_scenes
 
-    rng = np.random.RandomState(seed)
-    bp = cfg.static_bg
-    opt_cfg = cfg.opt
-    total_iters = bp.std_train_iter + bp.entropy_reg_iter
-
-    train_cams = [cameras[i] for i in train_frame_idxs]
-    batch = stack_cameras(train_cams, device)
-    # the interaction mask needs both masks of every frame (JAX raises too)
-    missing = [c.image_name for c in train_cams if c.hand_mask is None or c.obj_mask is None]
-    if missing:
-        raise ValueError(f"train_background: {len(missing)} training frames have no hand or "
-                         f"object mask: {missing[:5]}")
-    # interaction masks, built once on the host; binary, so stored as uint8
-    int_masks = np.stack([
-        dilate_mask(np.maximum(c.hand_mask.detach().cpu().numpy(),
-                               c.obj_mask.detach().cpu().numpy()), iterations=dilate_size)
-        for c in train_cams])
-    int_masks = torch.as_tensor(int_masks.astype(np.uint8), device=device)
-
-    model = from_points(points, colors, device, sh_degree=cfg.model.sh_degree,
-                        spatial_lr_scale=cameras_extent, seed=seed)
-    opt_state = adam_init(model.params)
-    tile_cfg = auto_tile_config(model, batch.camera(0), tile_size=cfg.render.tile_size)
-    backend = pick_backend(tile_cfg, backend)
-    gen = torch.Generator().manual_seed(seed)  # densify split seeds
-    drop_max = torch.zeros((), dtype=torch.int64, device=device)
-    last_drop = 0
-
-    ckpt = StageCheckpointer(
-        os.path.join(save_dir, "ckpt_bg.npz") if save_dir and checkpoint_every else None,
-        checkpoint_every, mesh)
-    start_it = 0
-    if ckpt.exists():
-        model, opt_state = grow_to_capacity(model, opt_state, ckpt.peek_capacity())
-        (model, opt_state), start_it = ckpt.try_restore((model, opt_state), rng, gen, "bg")
-        loop = restore_loop(ckpt.extra, device)
-        tile_cfg, drop_max, last_drop = loop["tile_cfg"], loop["drop_max"], loop["last_drop"]
-        backend = pick_backend(tile_cfg, backend)
-    CONSOLE.log(f"[bg] {len(train_cams)} frames, {total_iters} iters")
-
-    fb = _dp_frame_batch(bp.frame_batch, mesh)
-    for it in range(start_it + 1, total_iters + 1):
-        if fb == 1:
-            fidxs = [rng.randint(len(train_cams))]
-        else:
-            fidxs = list(rng.randint(len(train_cams), size=fb))
-        mode = "std" if it <= bp.std_train_iter else "entropy"
-        model, opt_state, loss, _, drop_max = _run_static_step(
-            mesh, model, opt_state, batch, fidxs, int_masks, it, drop_max,
-            mode=mode, lambda_dssim=opt_cfg.lambda_dssim, backend=backend,
-            tile_config=tile_cfg, opt_cfg=opt_cfg,
-        )
-        if it % opt_cfg.densification_interval == 0:
-            tile_cfg, last_drop, changed = maybe_regrow_tile_config(
-                model, batch.camera(0), tile_cfg, drop_max, last_drop, "bg")
-            if changed:
-                drop_max, last_drop = torch.zeros_like(drop_max), 0
-            log_metrics("bg", it, mode=mode, loss=loss, alive=model.num_alive,
-                        capacity=model.capacity, dropped_pairs=drop_max)
-        if it <= bp.densify_until_iter:
-            if it > bp.densify_from_iter and it % opt_cfg.densification_interval == 0:
-                size_threshold = 20.0 if it > opt_cfg.opacity_reset_interval else None
-                noise = None if densify_noise is None else densify_noise(model.capacity)
-                sub_seed = int(torch.randint(0, 2**31 - 1, (), generator=gen))
-                res = densify_and_prune(
-                    model, opt_state, sub_seed,
-                    max_grad=opt_cfg.densify_grad_threshold,
-                    min_opacity=0.005,
-                    extent=cameras_extent,
-                    max_screen_size=size_threshold,
-                    percent_dense=opt_cfg.percent_dense,
-                    noise=noise,
-                )
-                model, opt_state = res.model, res.opt_state
-                overflow = int(res.overflow)
-                if overflow:
-                    CONSOLE.log(f"[bg] it {it}: densify overflow — {overflow} "
-                                "candidates dropped")
-                model, opt_state, grew = ensure_capacity(model, opt_state)
-                if grew:
-                    tile_cfg = auto_tile_config(model, batch.camera(0),
-                                                tile_size=cfg.render.tile_size)
-            if it % opt_cfg.opacity_reset_interval == 0:
-                model, opt_state = reset_opacity(model, opt_state)
-        if it == total_iters:
-            model, opt_state, n_pruned = prune_by_opacity(model, opt_state, min_opacity=0.5)
-            CONSOLE.log(f"[bg] final prune: {int(n_pruned)} removed")
-        ckpt.maybe_save(it, (model, opt_state), rng, gen,
-                        extra=dict(tile_cfg=tile_cfg, drop_max=drop_max, last_drop=last_drop))
-
-    _log_dropped_pairs("bg", None, drop_max)
-    log_metrics("bg", total_iters, event="stage_end", steps=total_iters,
-                dropped_pairs=drop_max)
-    if save_dir and (mesh is None or mesh.writes):
-        save_ply(model, os.path.join(save_dir, "static_bg.ply"))
-    if mesh is not None:
-        mesh.barrier()
-    return model
+    scene = SceneInput(cameras, points, colors, [], cameras_extent, save_dir=save_dir, seed=seed,
+                       train_frame_idxs=list(train_frame_idxs), densify_noise=densify_noise)
+    return train_background_scenes([scene], cfg, backend=backend, dilate_size=dilate_size,
+                                   checkpoint_every=checkpoint_every, mesh=mesh,
+                                   device=device)[0]

@@ -91,6 +91,22 @@ def log_metrics(stage: str, step: int, **metrics: Any) -> None:
 
 
 @contextlib.contextmanager
+def use_logger(logger: Optional[MetricsLogger]):
+    """Route log_metrics to `logger` in the enclosed region and restore the
+    one installed before (None leaves it as it is); the logger stays open.
+    The lockstep drivers log each scene to its own video's logger."""
+    if logger is None:
+        yield get_active_logger()
+        return
+    previous = get_active_logger()
+    set_active_logger(logger)
+    try:
+        yield logger
+    finally:
+        set_active_logger(previous)
+
+
+@contextlib.contextmanager
 def active_logger(logger: MetricsLogger):
     """Install `logger` for the enclosed region and close it after."""
     set_active_logger(logger)

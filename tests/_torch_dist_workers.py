@@ -5,7 +5,7 @@ import os
 
 import torch
 
-from egogaussian_tpu_torch.parallel import make_dp_train_step, replicate, shard_batch
+from egogaussian_tpu_torch.parallel import make_dp_train_step, replicate, scene_trainer, shard_batch
 from egogaussian_tpu_torch.parallel.mesh import gather_blocks
 from egogaussian_tpu_torch.parallel.shard_render import (
     make_memory_sharded_render,
@@ -64,7 +64,7 @@ def background_resume(mesh, cams, points, colors, cfg, out_a, out_b, stop_at):
     `stop_at` and called again on out_b (resuming from it). Returns both
     models and, per run, how many files this rank wrote."""
     writes = {"ckpt": 0, "ply": 0}
-    save_state, save_ply = ckpt_hook.save_train_state, static.save_ply
+    save_state, save_ply = ckpt_hook.save_train_state, scene_trainer.save_ply
 
     def count_state(*a, **k):
         writes["ckpt"] += 1
@@ -74,7 +74,8 @@ def background_resume(mesh, cams, points, colors, cfg, out_a, out_b, stop_at):
         writes["ply"] += 1
         return save_ply(*a, **k)
 
-    ckpt_hook.save_train_state, static.save_ply = count_state, count_ply
+    # the stage loop is the one-scene case of the lockstep driver, which saves
+    ckpt_hook.save_train_state, scene_trainer.save_ply = count_state, count_ply
     maybe_save = ckpt_hook.StageCheckpointer.maybe_save
     idx = list(range(len(cams)))
     try:
@@ -98,7 +99,7 @@ def background_resume(mesh, cams, points, colors, cfg, out_a, out_b, stop_at):
         b = static.train_background(cams, points, colors, cfg, idx, 1.0, save_dir=out_b,
                                     backend="tiled", checkpoint_every=stop_at, mesh=mesh)
     finally:
-        ckpt_hook.save_train_state, static.save_ply = save_state, save_ply
+        ckpt_hook.save_train_state, scene_trainer.save_ply = save_state, save_ply
         ckpt_hook.StageCheckpointer.maybe_save = maybe_save
     return dict(unbroken=_np_model(a), resumed=_np_model(b), writes_unbroken=first,
                 writes_all=dict(writes), files=sorted(os.listdir(out_b)))

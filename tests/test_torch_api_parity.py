@@ -2,9 +2,9 @@
 `__init__` of egogaussian_tpu re-exports is importable from the same
 package of egogaussian_tpu_torch, and every public name of JAX's
 utils/logging.py from the port's. The JAX files are read as text (ast),
-not imported. The only names left out are JAX's scene lockstep, which the
-port has not yet (ROADMAP.md §A item 11), listed below so that no other
-gap can open silently."""
+not imported. Names the port lacks would be listed below, so that no gap
+can open silently; since the scene lockstep (ROADMAP.md §A item 11) the
+list is empty."""
 import ast
 import importlib
 import os
@@ -16,13 +16,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PKG = os.path.join(REPO, "egogaussian_tpu")
 
-# egogaussian_tpu/parallel/__init__.py's scene lockstep (multi_scene.py,
-# scene_trainer.py): ROADMAP.md §A item 11
-NOT_YET = {
-    "parallel": {"multi_scene_coarse_step", "multi_scene_static_step", "stack_scenes",
-                 "unstack_scenes", "CoarseSceneInput", "SceneInput",
-                 "train_background_scenes", "train_coarse_scenes", "train_static_scenes"},
-}
+NOT_YET = {}
 
 
 def _packages():

@@ -32,6 +32,7 @@ import torch
 
 from egogaussian_tpu.utils.checkpoint import load_train_state as j_load_train_state
 from egogaussian_tpu.utils.checkpoint import save_train_state as j_save_train_state
+from egogaussian_tpu_torch.parallel import scene_trainer
 from egogaussian_tpu_torch.config import Config
 from egogaussian_tpu_torch.data import make_synthetic_video, split_viewpoints_by_phase
 from egogaussian_tpu_torch.data.readers import SceneData, compute_nerfpp_norm
@@ -44,7 +45,7 @@ from egogaussian_tpu_torch.models.pose import (
     pose_sequence_from_jax_arrays,
 )
 from egogaussian_tpu_torch.pipeline import run_pipeline
-from egogaussian_tpu_torch.train import ckpt_hook, coarse_pose, fine_obj, static
+from egogaussian_tpu_torch.train import ckpt_hook
 from egogaussian_tpu_torch.train.coarse_pose import estimate_coarse_obj_pose
 from egogaussian_tpu_torch.train.fine_all import fine_tune_all
 from egogaussian_tpu_torch.train.fine_obj import fine_tune_obj
@@ -163,9 +164,11 @@ def _interrupt_after_save(monkeypatch, at_it):
     monkeypatch.setattr(ckpt_hook.StageCheckpointer, "maybe_save", save_then_stop)
 
 
-def _count_growth(monkeypatch, module):
-    """Record the alive count each densify_and_prune call of `module` adds."""
-    original = module.densify_and_prune
+def _count_growth(monkeypatch):
+    """Record the alive count each densify_and_prune call of the stage
+    loops (the lockstep drivers, whose one-scene case each trainer runs)
+    adds."""
+    original = scene_trainer.densify_and_prune
     grown = []
 
     def densify(model, *args, **kwargs):
@@ -173,7 +176,7 @@ def _count_growth(monkeypatch, module):
         grown.append(int(res.model.num_alive) - int(model.num_alive))
         return res
 
-    monkeypatch.setattr(module, "densify_and_prune", densify)
+    monkeypatch.setattr(scene_trainer, "densify_and_prune", densify)
     return grown
 
 
@@ -209,7 +212,7 @@ def test_train_static_resume_equals_unbroken(video, tmp_path, monkeypatch, stop_
                             device=CPU)[0]
 
     with monkeypatch.context() as m:
-        grown = _count_growth(m, static)
+        grown = _count_growth(m)
         whole = run(tmp_path / "whole")
     # densify at 10 and 20 both split: the first case stops between them
     assert len(grown) == 2 and all(n > 0 for n in grown)
@@ -239,7 +242,7 @@ def test_train_background_resume_equals_unbroken(video, tmp_path, monkeypatch):
                                 save_dir=str(d), checkpoint_every=6, device=CPU)
 
     with monkeypatch.context() as m:
-        grown = _count_growth(m, static)
+        grown = _count_growth(m)
         whole = run(tmp_path / "whole")
     assert len(grown) == 2 and all(n > 0 for n in grown)
     with monkeypatch.context() as m:
@@ -276,7 +279,7 @@ def test_coarse_resume_equals_unbroken(video, tmp_path, monkeypatch):
 
     seq_w, model_w, solved_w = run(tmp_path / "whole")
     assert int(model_w.num_alive) > int(_object_model(video).num_alive)  # splits ran
-    original = coarse_pose.save_pose_sequence
+    original = scene_trainer.save_pose_sequence
     calls = []
 
     def save_then_stop(*args, **kwargs):
@@ -286,7 +289,8 @@ def test_coarse_resume_equals_unbroken(video, tmp_path, monkeypatch):
             raise Interrupt("stopped after two solved frames")
 
     with monkeypatch.context() as m:
-        m.setattr(coarse_pose, "save_pose_sequence", save_then_stop)
+        # the stage loop is the one-scene case of the lockstep driver
+        m.setattr(scene_trainer, "save_pose_sequence", save_then_stop)
         with pytest.raises(Interrupt):
             run(tmp_path / "broken")
     solved_steps = []
@@ -323,7 +327,7 @@ def test_fine_tune_obj_resume_equals_unbroken(video, tmp_path, monkeypatch):
                              device=CPU)
 
     with monkeypatch.context() as m:
-        grown = _count_growth(m, fine_obj)
+        grown = _count_growth(m)
         seq_w, model_w = run(tmp_path / "whole")
     assert len(grown) == 2 and grown[1] > 0
     with monkeypatch.context() as m:

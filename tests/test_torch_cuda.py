@@ -570,3 +570,68 @@ def test_fma_chain_matches_twin(dev):
     assert peak.FmaChain.launches == 1
     assert torch.equal(k, peak.fma_chain_plain(x, 1000))
     assert peak.fma_peak_gflops(dev, n_loop=10_000) > 0
+
+
+@pytest.mark.parametrize("d", [3, 1])
+@pytest.mark.parametrize("tile_size", [16, 32])
+def test_scene_axis_launch_equals_one_scene_launches(dev, d, tile_size):
+    """Two scenes (the second at twice the binning capacities) in one
+    launch of the tile-grid pair (both backward flavors) and the chunked
+    windowed pair against each scene's one-scene launch, bit for bit;
+    each wrapper counts one launch per call."""
+    from egogaussian_tpu_torch.render.project import ProjectedGaussians
+    from egogaussian_tpu_torch.render.tiled import (
+        scene_caps,
+        tilegrid_layout_scenes,
+        window_layout_scenes,
+    )
+
+    cam = _camera(dev)
+    scenes = []
+    for seed in (11, 12):
+        means, cov3d, cols, ops = _scene(dev, seed=seed)
+        proj = project_gaussians(means, cov3d, cam.viewmat, cam.fx, cam.fy, cam.cx, cam.cy,
+                                 W, H)
+        scenes.append((proj, cols[:, :d].contiguous(), ops))
+    cfg = TileConfig(max_per_tile=256, max_pairs=8192, tile_size=tile_size)
+    cfgs = [cfg, TileConfig(max_per_tile=512, max_pairs=16384, max_slots=16384,
+                            tile_size=tile_size)]
+    bgs = [torch.full((d,), 0.2, device=dev), torch.full((d,), 0.6, device=dev)]
+    caps = scene_caps(cfgs, [(W, H)] * 2, dev, 60)
+    stk = ProjectedGaussians(*(torch.stack(list(x)) for x in zip(*(s[0] for s in scenes))))
+    cols = torch.stack([s[1] for s in scenes])
+    ops = torch.stack([s[2] for s in scenes])
+    lay = tilegrid_layout_scenes(stk, cols, ops, caps)
+    wlay = window_layout_scenes(stk, cols, ops, caps)
+    bg = torch.stack(bgs)
+    ts, n_tx, n_t = lay.tile_size, lay.n_tx, lay.n_tx * lay.n_ty
+    vals, data = lay.vals.detach().contiguous(), wlay.data.detach().contiguous()
+    cr.TileGridCompositor.reset_launch_counts()
+    out = cr.tilegrid_forward(lay.meta, vals, bg, ts, n_tx)
+    assert cr.TileGridCompositor.fwd_launches[d] == 1
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cot = [torch.randn(x.shape, generator=gen, device=dev) for x in out]
+    dv = {e: cr.tilegrid_backward(lay.meta, vals, bg, *out, *cot, ts, n_tx, exact_total=e)
+          for e in (False, True)}
+    wout = wr.window_chunked_forward(wlay.counts, data, bg, ts, n_tx)
+    wdd = wr.window_chunked_backward(wlay.counts, data, bg, wout[3], *cot, ts, n_tx)
+    sps = vals.shape[0] // 2
+    for s, ((p, c, o), cfg_s, b) in enumerate(zip(scenes, cfgs, bgs)):
+        one = tilegrid_layout(p, c, o, W, H, cfg_s)
+        v1 = one.vals.detach().contiguous()
+        o1 = cr.tilegrid_forward(one.meta, v1, b[None], ts, n_tx)
+        sl = slice(s * n_t, (s + 1) * n_t)
+        assert all(torch.equal(a[sl], b1) for a, b1 in zip(out, o1))
+        fit = int(one.meta[2, 0])
+        for e in (False, True):
+            d1 = cr.tilegrid_backward(one.meta, v1, b[None], *o1, *(x[sl] for x in cot), ts,
+                                      n_tx, exact_total=e)
+            assert torch.equal(dv[e][s * sps:s * sps + fit], d1[:fit])
+        w1 = window_layout(p, c, o, W, H, cfg_s)
+        wd = w1.data.detach().contiguous()
+        wo1 = wr.window_chunked_forward(w1.counts, wd, b[None], ts, n_tx)
+        assert all(torch.equal(a[sl], b1) for a, b1 in zip(wout, wo1))
+        wd1 = wr.window_chunked_backward(w1.counts, wd, b[None], wo1[3], *(x[sl] for x in cot),
+                                         ts, n_tx)
+        assert torch.equal(wdd[sl, :wd.shape[1]], wd1)
+        assert not bool(wdd[sl, wd.shape[1]:].any())

@@ -24,8 +24,20 @@ Tolerances, each beside the largest error measured in a CPU run of this file:
     gradients into differences of up to ~2.4e-4 of that rate.
   * fine_tune_obj, 16 steps: poses 1e-6 (measured 7.5e-9 on translations,
     1.9e-7 on rotations), params 2e-5 (measured 5.6e-6, quats).
-  * fine_tune_all, 25 steps: params 2e-5 (measured 9.9e-6, quats; 5.7e-7
-    on the other fields).
+  * fine_tune_all, 25 steps: params 2e-5 (measured 6.1e-6, xyz); opacity
+    logits 1e-3 and quats 1e-4, each above the largest reading over the
+    runs of 12 to 25 steps (the stage stopped after k steps is the same
+    run's state at step k): opacity logits 7.6e-4 (step 21; 1.8e-4 at
+    step 13, 6.8e-4 at 20, 5.7e-5 at 25), quats 6.4e-5 (step 25, from
+    3.9e-5 at step 12). Run from the same state, every step of the port
+    agrees with JAX's to ~1e-7 except step 13, where JAX's jitted step
+    departs from JAX's own un-jitted step by 1.8e-4 in an opacity logit
+    while the un-jitted step equals the port's bit for bit: XLA fuses the
+    loss and its reductions under jit, and the rounding of that fusion
+    depends on the host's vector width. Adam then turns it into a
+    normalized step, since that Gaussian's second moment was 3.3e-11. The
+    outcome therefore depends on the machine (other hosts measured 9.9e-6
+    on the quats and passed 2e-5), so each bound is the measured growth.
 """
 import dataclasses
 
@@ -223,7 +235,7 @@ def test_fine_tune_all_matches_jax(video, tmp_path):
                        _fine_all_cfg(Config()), static_g, dyn_g, save_dir=str(tmp_path),
                        device=CPU)
     assert int(mt.num_alive) == int(obj.num_alive) + 150
-    _assert_params(mt, mj, 2e-5)
+    _assert_params(mt, mj, 2e-5, opacity_logit=1e-3, quats=1e-4)
     # the clamp ran: the last clamped iteration (9) left every opacity
     # <= 0.01, and 16 steps at opacity_lr move a logit by at most 0.8
     assert float(torch.sigmoid(mt.params.opacity_logit[mt.aux.alive]).max()) < 0.03

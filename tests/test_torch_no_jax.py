@@ -58,7 +58,9 @@ def test_port_modules_found():
                      "egogaussian_tpu_torch.parallel.launch",
                      "egogaussian_tpu_torch.parallel.data_parallel",
                      "egogaussian_tpu_torch.parallel.shard_render",
-                     "egogaussian_tpu_torch.parallel.dryrun"):
+                     "egogaussian_tpu_torch.parallel.dryrun",
+                     "egogaussian_tpu_torch.parallel.multi_scene",
+                     "egogaussian_tpu_torch.parallel.scene_trainer"):
         assert expected in names
 
 

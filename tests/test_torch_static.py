@@ -24,6 +24,7 @@ from egogaussian_tpu.config import Config as JConfig
 from egogaussian_tpu.data import readers as j_readers
 from egogaussian_tpu.render.camera import Camera as JCamera
 from egogaussian_tpu.train.static import train_static as j_train_static
+from egogaussian_tpu_torch.parallel import scene_trainer
 from egogaussian_tpu_torch.config import Config
 from egogaussian_tpu_torch.data import make_synthetic_video, split_viewpoints_by_phase
 from egogaussian_tpu_torch.data import readers as t_readers
@@ -189,18 +190,17 @@ def test_trainers_default_to_the_card(monkeypatch, trainer):
     port's trainers run on CUDA unless given a device: device=None reaches
     the first tensor placement (stack_cameras, stubbed here, so no card is
     needed) as torch.device("cuda")."""
-    module = {"train_static": static, "train_background": static,
-              "estimate_coarse_obj_pose": coarse_pose, "fine_tune_obj": fine_obj,
-              "fine_tune_all": fine_all}[trainer]
     seen = []
 
     def stub(cams, device):
         seen.append(device)
         raise _Placed
 
-    monkeypatch.setattr(module, "stack_cameras", stub)
+    # the trainers are the one-scene case of the lockstep drivers, which
+    # place the frames
+    monkeypatch.setattr(scene_trainer, "stack_cameras", stub)
     if trainer == "fine_tune_all":  # combine_models places nothing new
-        monkeypatch.setattr(fine_all, "combine_models", lambda a, b: b)
+        monkeypatch.setattr(scene_trainer, "combine_models", lambda a, b: b)
     cfg = Config()
     pts = np.zeros((1, 3), np.float32)
     seq = empty_pose_sequence(1)
@@ -231,7 +231,9 @@ def test_pipeline_and_train_cli_default_to_the_card(monkeypatch, tmp_path):
         seen.append(device)
         raise _Placed
 
-    monkeypatch.setattr(pipeline, "train_static", stub)
+    # stage 1.0 is the lockstep driver's (run_pipeline is the one-video case
+    # of run_pipeline_scenes)
+    monkeypatch.setattr(scene_trainer, "train_static_scenes", stub)
     scene = SceneData(cameras=[], points=np.zeros((1, 3), np.float32),
                       colors=np.zeros((1, 3), np.float32), nerf_norm={"radius": 1.0},
                       image_names=[])
