@@ -36,8 +36,8 @@ nonzero and no result line is printed):
               against the oracle; the exact-total render's gradients
               within 5e-6; the scene axis (scene_axis_check): each case
               beside a second scene at twice its binning capacities in
-              one launch of rows 1-3 and 6-7 against two one-scene
-              launches, and so the twins, bit for bit
+              one launch of rows 1-7 against two one-scene launches, and
+              so the twins, bit for bit
   4. slice:   (path 1) stage-1.0 static training (train_static) on a
               640x480 synthetic video with ~100k Gaussians, shortened
               schedule; launch counters must show the tile-grid kernels
@@ -49,7 +49,11 @@ nonzero and no result line is printed):
   6. flavors: (path 2) the stage-2 step from the coarse stage's final state
               under the default, exact-total and stream tile configs:
               gradients and 20 steps' losses against the default's, and a
-              label (D = 1) render gradient per flavor
+              label (D = 1) render gradient per flavor; then the stream
+              step in lockstep (stream_lockstep): two lanes (the crop
+              window beside the full frame, the model beside itself padded
+              to twice its capacity), 5 steps at S = 2, each lane bit for
+              bit its own S = 1 steps
   7. eval:    (path 3) stage-6 evaluation: the eval CLI on the video
               exported in the reference's dataset layout, with path 1's
               model and path 2's poses filled over every frame, random
@@ -88,31 +92,29 @@ nonzero and no result line is printed):
               recolor / info, build_native
  10d. multi: (path 8) cli/train_multi.py (--mesh 1x1, --seed 0) over
               path 5's exported video and a second one (seed MULTI_SEED,
-              same sizes, 102,000 Gaussians) with path 5's flags, as a
-              child process (this script with --train-multi-child); its
-              launch counts, per-stage seconds of both videos beside path
-              5's; checks after the counts: video 0 against path 5 bit for
-              bit, every file byte for byte; video 1's artifacts, handover,
-              solved frames, losses, dropped pairs and stage 6, the
-              launches against path 5's plus what video 1's records imply,
-              a --resume rerun that trains nothing, every kernel against
-              its twin on video 1's stage-3 and stage-5 inputs
- 10f. lockstep: (path 10) path 8's videos and flags in lockstep
-              through cli/train.py:train_videos (every training stage one
-              batched step per iteration for both videos, one compositor
-              launch for both scenes' tiles) as a child (this script with
-              --train-lockstep-child, lockstep_main): wall time and
-              per-stage seconds beside path 8's, launches beside path 8's;
-              checks after the counts: each video against its path-8 tree,
-              stages 1.0 and 1.2 byte for byte, the rest within
-              LOCKSTEP_TOL, the files whose bytes differ named; then CUDA
-              kernels, runtime launch calls, ATen ops and wall ms per
-              iteration at S = 1 and S = 2 (torch.profiler) of the static
-              step and, on path 5's stage-3 start, the cropped stage-2 and
-              stage-3 pose steps and the stage-5 step; and the stage-3
-              pose gradient of that start under doubled binning
-              capacities, a doubled model capacity and a lockstep lane of
-              twice the capacity (pose_probe)
+              same sizes, 102,000 Gaussians) with path 5's flags, both in
+              one lockstep (every training stage one batched step per
+              iteration for both videos, one compositor launch for both
+              scenes' tiles), as a child process (this script with
+              --train-multi-child); its launch counts; then video 1 alone
+              through the training CLI with --seed 1 (a child, not
+              counted); per-stage seconds of the lockstep beside path 5's
+              and video 1's own run's; checks after the counts: each video
+              against its own run bit for bit, every file byte for byte
+              (video 0 against path 5, video 1 against its own run);
+              video 1's artifacts, handover, solved frames, losses, dropped
+              pairs and stage 6, the launches against what the videos'
+              records imply for a lockstep, a --resume rerun that trains
+              nothing, every kernel against its twin on video 1's stage-3
+              and stage-5 inputs; then CUDA kernels, runtime launch calls,
+              ATen ops and wall ms per iteration at S = 1 and S = 2
+              (torch.profiler) of the static step and, on path 5's stage-3
+              start, the cropped stage-2 and stage-3 pose steps and the
+              stage-5 step; and the stage-3 pose gradient of that start
+              under doubled binning capacities, the model padded in the
+              stack, a lockstep lane beside one of twice the capacity (all
+              three bit for bit) and a model of twice its own capacity
+              (pose_probe)
  10e. distributed: (path 9, the distributed layer; NCCL takes one GPU per
               rank, so the multi-rank runs are gloo ranks sharing the card)
               9a: train_static on path 1's video at DIST_SCHEDULE and frame
@@ -136,7 +138,7 @@ nonzero and no result line is printed):
               parallel/dryrun.py:dryrun_multichip(2) (two gloo CPU ranks),
               the frame-data-parallel checks, then the scene-axis checks;
               9c-9e run in a thread beside path 6 (whose runs are checked
-              by their files alone), 9a-9b alone after path 10
+              by their files alone), 9a-9b alone after path 8
  11. peak:    (row 10's path) the card's float32 FMA rate through
               utils/peak.py:fma_peak_gflops, beside the published 67 TFLOP/s
  12. checks after the paths: path 7's renders against backend="cuda"
@@ -162,9 +164,9 @@ nonzero and no result line is printed):
               (bytes over the HBM rate or instructions over the float32
               instruction rate, whichever is larger) on the covered
               evaluations of the same inputs, beside the dense count's
-              bound and the bound at the measured FMA rate; rows 1-3 and
-              6-7 at S = 2 (frames 0 and 1 in one launch) beside the sum
-              of the two one-scene launches
+              bound and the bound at the measured FMA rate; rows 1-7 at
+              S = 2 (frames 0 and 1 in one launch) beside the sum of the
+              two one-scene launches
  14. profile: torch.profiler over std-mode steps at the slice's size:
               device time by kernel and the device's busy share
               (table in chiprun_out/chip_smoke/profile.txt)
@@ -175,7 +177,7 @@ nonzero and no result line is printed):
               after
 Launch counters are set to 0 just before each path and read just after.
 Then the kernel table, the nvidia-smi line, and the result line
-{"ok": true, "device": {...}}. With --pipeline-only, paths 5-8 and 10 and their
+{"ok": true, "device": {...}}. With --pipeline-only, paths 5-8 and their
 checks alone (no result line); --repro adds a second unbroken run of path
 5's flags and prints its spread against path 5 (what PATH6_TOL holds).
 
@@ -860,20 +862,22 @@ def phase_kernels(dev, errs):
 
 
 # ---------------------------------------------------------------------------
-# The scene axis of rows 1-3 and 6-7 (the lockstep's one launch for all
-# scenes): an S-scene launch against S one-scene launches
+# The scene axis of rows 1-7 (the lockstep's one launch for all scenes): an
+# S-scene launch against S one-scene launches
 # ---------------------------------------------------------------------------
 
 def scene_axis_layouts(scenes, cfgs, width, height):
-    """One-scene tile-grid layouts and gather windows of `scenes` (proj,
-    colors, opacities per scene, one frame size) and their S-scene layout
-    and window (render/tiled.py tilegrid_layout_scenes /
+    """One-scene tile-grid, stream and gather-window layouts of `scenes`
+    (proj, colors, opacities per scene, one frame size) and their S-scene
+    layouts (render/tiled.py tilegrid_layout_scenes, stream_layout_scenes,
     window_layout_scenes) over the scenes' own capacities."""
     import torch
 
     from egogaussian_tpu_torch.render.project import ProjectedGaussians
     from egogaussian_tpu_torch.render.tiled import (
         scene_caps,
+        stream_layout,
+        stream_layout_scenes,
         tilegrid_layout,
         tilegrid_layout_scenes,
         window_layout,
@@ -881,7 +885,8 @@ def scene_axis_layouts(scenes, cfgs, width, height):
     )
 
     singles = [(tilegrid_layout(p, c, o, width, height, cfg),
-                window_layout(p, c, o, width, height, cfg))
+                window_layout(p, c, o, width, height, cfg),
+                stream_layout(p, c, o, width, height, cfg))
                for (p, c, o), cfg in zip(scenes, cfgs)]
     proj = ProjectedGaussians(*(torch.stack(list(x)) for x in zip(*(s[0] for s in scenes))))
     caps = scene_caps(cfgs, [(width, height)] * len(scenes), scenes[0][1].device,
@@ -889,28 +894,32 @@ def scene_axis_layouts(scenes, cfgs, width, height):
     cols = torch.stack([s[1] for s in scenes])
     ops = torch.stack([s[2] for s in scenes])
     return singles, (tilegrid_layout_scenes(proj, cols, ops, caps),
-                     window_layout_scenes(proj, cols, ops, caps))
+                     window_layout_scenes(proj, cols, ops, caps),
+                     stream_layout_scenes(proj, cols, ops, caps))
 
 
 SCENE_TWIN_TOL = 1e-5  # the twins' S-scene calls against their one-scene calls, on the card
 
 
 def scene_axis_check(name, scenes, cfgs, bgs, width, height, dev, twins=True):
-    """Rows 1-3 and 6-7 on S scenes in one launch against each scene's
-    one-scene launch, bit for bit: forward outputs tile for tile, both
+    """Rows 1-7 on S scenes in one launch against each scene's one-scene
+    launch, bit for bit: forward outputs tile for tile (the stream pair's
+    on the tiles that own a slot: it leaves the others unwritten), both
     tile-grid backward flavors slot for slot over each scene's fitting
-    slots, the chunked backward row for row over each scene's own window
-    (and zeros past it). With `twins`, the plain twins' S-scene calls
-    against their one-scene calls the same way, within SCENE_TWIN_TOL: on
-    the card cuBLAS picks the twins' batched products by batch count (on
-    the CPU the twins agree bit for bit, tests/test_torch_multi_scene.py).
-    Emits one scene_axis line; raises on any kernel difference."""
+    slots, the stream backward over each scene's own slots, the chunked
+    backward row for row over each scene's own window (and zeros past
+    both). With `twins`, the plain twins' S-scene calls against their
+    one-scene calls the same way, within SCENE_TWIN_TOL: on the card
+    cuBLAS picks the twins' batched products by batch count (on the CPU
+    the twins agree bit for bit, tests/test_torch_multi_scene.py). Emits
+    one scene_axis line; raises on any kernel difference."""
     import torch
 
     from egogaussian_tpu_torch.render import cuda_raster as cr
+    from egogaussian_tpu_torch.render import stream_raster as sr
     from egogaussian_tpu_torch.render import window_raster as wr
 
-    singles, (lay, wlay) = scene_axis_layouts(scenes, cfgs, width, height)
+    singles, (lay, wlay, slay) = scene_axis_layouts(scenes, cfgs, width, height)
     s_n = len(scenes)
     ts, n_tx = lay.tile_size, lay.n_tx
     n_t = lay.n_tx * lay.n_ty
@@ -922,14 +931,16 @@ def scene_axis_check(name, scenes, cfgs, bgs, width, height, dev, twins=True):
         return x[s * n_t:(s + 1) * n_t]
 
     impls = [("kernel", cr.tilegrid_forward, cr.tilegrid_backward, wr.window_chunked_forward,
-              wr.window_chunked_backward)]
+              wr.window_chunked_backward, sr.stream_forward, sr.stream_backward)]
     if twins:
         impls.append(("twin", cr.composite_tilegrid_plain_fwd, cr.composite_tilegrid_plain_bwd,
                       wr.composite_window_chunked_plain_fwd,
-                      wr.composite_window_chunked_plain_bwd))
+                      wr.composite_window_chunked_plain_bwd, sr.composite_stream_plain_fwd,
+                      sr.composite_stream_plain_bwd))
     vals = lay.vals.detach().contiguous()
     data = wlay.data.detach().contiguous()
-    for kind, fwd, bwd, wfwd, wbwd in impls:
+    svals = slay.vals.detach().contiguous()
+    for kind, fwd, bwd, wfwd, wbwd, sfwd, sbwd in impls:
         with torch.no_grad():
             out = fwd(lay.meta, vals, bg, ts, n_tx)
             cot = [torch.randn(x.shape, generator=gen, device=dev) * 1e-3 for x in out]
@@ -938,73 +949,92 @@ def scene_axis_check(name, scenes, cfgs, bgs, width, height, dev, twins=True):
             wout = wfwd(wlay.counts, data, bg, ts, n_tx)
             wcot = [torch.randn(x.shape, generator=gen, device=dev) * 1e-3 for x in wout[:3]]
             wdd = wbwd(wlay.counts, data, bg, wout[3], *wcot, ts, n_tx)
+            sout = sfwd(slay.meta, svals, bg, ts, n_tx, s_n * n_t)
+            sdv = sbwd(slay.meta, svals, bg, sout[3], *cot, ts, n_tx)
             ok, err = True, 0.0
             sps = vals.shape[0] // s_n
+            srows = svals.shape[0] // s_n
 
             def agree(a, b):
                 nonlocal err
                 err = max(err, max_err(a, b))
                 return torch.equal(a, b)
 
-            for s, ((l1, w1), b1) in enumerate(zip(singles, bgs)):
+            for s, ((l1, w1, s1), b1) in enumerate(zip(singles, bgs)):
                 v1 = l1.vals.detach().contiguous()
-                o1 = fwd(l1.meta, v1, b1[None].contiguous(), ts, n_tx)
+                b1 = b1[None].contiguous()
+                o1 = fwd(l1.meta, v1, b1, ts, n_tx)
                 ok &= all([agree(tiles(a, s), b) for a, b in zip(out, o1)])
                 fit = int(l1.meta[2, 0])
                 for e in (False, True):
-                    d1 = bwd(l1.meta, v1, b1[None].contiguous(), *o1,
-                             *(tiles(c, s) for c in cot), ts, n_tx, exact_total=e)
+                    d1 = bwd(l1.meta, v1, b1, *o1, *(tiles(c, s) for c in cot), ts, n_tx,
+                             exact_total=e)
                     ok &= agree(dv[e][s * sps:s * sps + fit], d1[:fit])
                 d1w = w1.data.detach().contiguous()
-                wo1 = wfwd(w1.counts, d1w, b1[None].contiguous(), ts, n_tx)
+                wo1 = wfwd(w1.counts, d1w, b1, ts, n_tx)
                 ok &= all([agree(tiles(a, s), b) for a, b in zip(wout, wo1)])
-                wd1 = wbwd(w1.counts, d1w, b1[None].contiguous(), wo1[3],
-                           *(tiles(c, s) for c in wcot), ts, n_tx)
+                wd1 = wbwd(w1.counts, d1w, b1, wo1[3], *(tiles(c, s) for c in wcot), ts, n_tx)
                 m1 = d1w.shape[1]
                 ok &= agree(tiles(wdd, s)[:, :m1], wd1)
                 ok &= not bool(tiles(wdd, s)[:, m1:].any())
+                sv1 = s1.vals.detach().contiguous()
+                so1 = sfwd(s1.meta, sv1, b1, ts, n_tx, n_t)
+                owned = ~s1.empty
+                ok &= all([agree(tiles(a, s)[owned], b[owned]) for a, b in zip(sout, so1)])
+                sd1 = sbwd(s1.meta, sv1, b1, so1[3], *(tiles(c, s) for c in cot), ts, n_tx)
+                k = sv1.shape[0]
+                ok &= agree(sdv[s * srows:s * srows + k], sd1)
+                ok &= not bool(sdv[s * srows + k:(s + 1) * srows].any())
             same[kind] = bool(ok)
             errs_of[kind] = err
     twin_ok = not twins or errs_of["twin"] <= SCENE_TWIN_TOL
     emit("scene_axis", case=name, scenes=s_n, d=bg.shape[1], tile_size=ts, tiles=n_t * s_n,
-         slots=vals.shape[0], window_rows=data.shape[1], bit_identical=same,
-         max_abs_err=errs_of, ok=same["kernel"] and twin_ok)
+         slots=vals.shape[0], stream_slots=svals.shape[0] // CHUNK_ROWS,
+         window_rows=data.shape[1], bit_identical=same, max_abs_err=errs_of,
+         ok=same["kernel"] and twin_ok)
     if not (same["kernel"] and twin_ok):
         raise AssertionError(f"scene axis: {name} S={s_n} d={bg.shape[1]} ts={ts}: an "
                              f"S-scene launch differs from the one-scene launches {same}")
 
 
 def time_scene_axis(name, scenes, cfgs, bgs, width, height, dev):
-    """Rows 1-3 and 6-7 at S = len(scenes): one S-scene launch against the
-    sum of the one-scene launches (CUDA events; the layouts of
+    """Rows 1-7 at S = len(scenes): one S-scene launch against the sum of
+    the one-scene launches (CUDA events; the layouts of
     scene_axis_layouts). Returns {key: (S-scene ms, sum of one-scene ms)}."""
     import torch
 
     from egogaussian_tpu_torch.render import cuda_raster as cr
+    from egogaussian_tpu_torch.render import stream_raster as sr
     from egogaussian_tpu_torch.render import window_raster as wr
 
-    singles, (lay, wlay) = scene_axis_layouts(scenes, cfgs, width, height)
+    singles, (lay, wlay, slay) = scene_axis_layouts(scenes, cfgs, width, height)
     bg = torch.stack(bgs).contiguous()
     ts, n_tx = lay.tile_size, lay.n_tx
 
-    def ms_of(meta, vals, counts, data, b):
+    def ms_of(meta, vals, counts, data, smeta, svals, b):
         vals, data = vals.detach().contiguous(), data.detach().contiguous()
+        svals = svals.detach().contiguous()
+        n_t = meta.shape[1]
         with torch.no_grad():
             out = cr.tilegrid_forward(meta, vals, b, ts, n_tx)
             wout = wr.window_chunked_forward(counts, data, b, ts, n_tx)
+            sout = sr.stream_forward(smeta, svals, b, ts, n_tx, n_t)
             return {
                 "fwd": cuda_ms(lambda: cr.tilegrid_forward(meta, vals, b, ts, n_tx)),
                 "bwd": cuda_ms(lambda: cr.tilegrid_backward(meta, vals, b, *out, *out, ts, n_tx)),
                 "bwd_exact": cuda_ms(lambda: cr.tilegrid_backward(
                     meta, vals, b, *out, *out, ts, n_tx, exact_total=True)),
+                "stream_fwd": cuda_ms(lambda: sr.stream_forward(smeta, svals, b, ts, n_tx, n_t)),
+                "stream_bwd": cuda_ms(lambda: sr.stream_backward(
+                    smeta, svals, b, sout[3], *sout[:3], ts, n_tx)),
                 "window_chunked_fwd": cuda_ms(lambda: wr.window_chunked_forward(
                     counts, data, b, ts, n_tx)),
                 "window_chunked_bwd": cuda_ms(lambda: wr.window_chunked_backward(
                     counts, data, b, wout[3], *wout[:3], ts, n_tx))}
 
-    multi = ms_of(lay.meta, lay.vals, wlay.counts, wlay.data, bg)
-    ones = [ms_of(l1.meta, l1.vals, w1.counts, w1.data, b[None].contiguous())
-            for (l1, w1), b in zip(singles, bgs)]
+    multi = ms_of(lay.meta, lay.vals, wlay.counts, wlay.data, slay.meta, slay.vals, bg)
+    ones = [ms_of(l1.meta, l1.vals, w1.counts, w1.data, s1.meta, s1.vals, b[None].contiguous())
+            for (l1, w1, s1), b in zip(singles, bgs)]
     times = {k: (multi[k], sum(o[k] for o in ones)) for k in multi}
     emit("scene_axis_timing", case=name, scenes=len(scenes), d=bg.shape[1], tile_size=ts,
          **{f"{k}_ms_s{len(scenes)}": v[0] for k, v in times.items()},
@@ -1391,6 +1421,107 @@ def phase_flavors(model, cfg, fr):
          ok=ok)
     if not ok:
         raise AssertionError(f"a step flavor disagrees with the default: {report}")
+
+
+STREAM_LOCKSTEP_STEPS = 5
+
+
+def trees_equal(a, b) -> bool:
+    """Every tensor of two trees of dataclasses bit for bit (other leaves
+    ignored)."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if dataclasses.is_dataclass(a):
+        return all(trees_equal(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+    return True
+
+
+def phase_stream_lockstep(model, cfg, fr, dyn, seq):
+    """The stage-2 pose step with compositor="stream" in lockstep (rows 4-5
+    with the scene axis): two lanes, the flavor frame's state (its crop
+    window) and the coarse model padded to twice its capacity at the
+    previous dynamic frame's pose (the full frame), STREAM_LOCKSTEP_STEPS
+    steps of pose_scenes_step at S = 2 against each lane's own pose_step
+    at S = 1: losses, models, poses and both Adam states bit for bit."""
+    import torch
+
+    from egogaussian_tpu_torch.models.gaussians import ensure_capacity
+    from egogaussian_tpu_torch.models.optim import adam_init
+    from egogaussian_tpu_torch.models.pose import pose_from_rt
+    from egogaussian_tpu_torch.parallel.multi_scene import stack_scenes, unstack_scenes
+    from egogaussian_tpu_torch.render.tiled import scene_caps
+    from egogaussian_tpu_torch.train.coarse_pose import (
+        _coarse_lr_tree,
+        _coarse_pose_lrs,
+        pose_scenes_step,
+        pose_step,
+    )
+
+    cp = cfg.coarse
+    dev = model.device
+    scfg = dataclasses.replace(fr.base, compositor="stream")
+    padded, _, _ = ensure_capacity(model, adam_init(model.params), min_free=model.capacity + 1)
+    f1 = dyn[-2] if len(dyn) > 1 else fr.f
+    lanes = [dict(model=model, f=fr.f, pose=fr.pose0, crop=fr.crop),
+             dict(model=padded, f=f1, pose=pose_from_rt(seq.rotations[f1], seq.translations[f1]),
+                  crop=None)]
+    it = cp.warm_up_iter + 1
+    lrs = _coarse_lr_tree(model, it, cfg.opt, cp, False)
+    plr_t, plr_r = _coarse_pose_lrs(it, cfg.opt, cp)
+    lam = dict(lambda_image=cp.lambda_image, lambda_dssim=cp.lambda_dssim,
+               lambda_l1_alpha=cp.lambda_Ll1_alpha, lambda_l2_alpha=cp.lambda_Ll2_alpha,
+               backend="cuda")
+    zero3 = torch.zeros((3,), dtype=torch.int32, device=dev)
+    drop = torch.zeros((), dtype=torch.int64, device=dev)
+    singles = []
+    for ln in lanes:
+        state = (ln["model"], adam_init(ln["model"].params), ln["pose"], adam_init(ln["pose"]))
+        losses = []
+        for _ in range(STREAM_LOCKSTEP_STEPS):
+            out = pose_step(*state, fr.batch, ln["f"], fr.table_T[ln["f"]],
+                            fr.table_R[ln["f"]], lrs, plr_t, plr_r, True, drop, True,
+                            tile_config=scfg, crop_size=ln["crop"],
+                            crop_max=zero3 if ln["crop"] is not None else 0, **lam)
+            state = out[:4]
+            losses.append(out[4])
+        singles.append((state, torch.stack(losses)))
+    w, h = fr.batch.width, fr.batch.height
+    caps = scene_caps([scfg, scfg], [ln["crop"] or (w, h) for ln in lanes], dev,
+                      padded.capacity)
+    crop = any(ln["crop"] is not None for ln in lanes)
+    state = (stack_scenes([ln["model"] for ln in lanes]),
+             stack_scenes([adam_init(ln["model"].params) for ln in lanes]),
+             stack_scenes([ln["pose"] for ln in lanes]),
+             stack_scenes([adam_init(ln["pose"]) for ln in lanes]))
+    fs = torch.tensor([ln["f"] for ln in lanes], device=dev)
+    losses = []
+    before = launch_counts()
+    for _ in range(STREAM_LOCKSTEP_STEPS):
+        out = pose_scenes_step(*state, stack_scenes([fr.batch, fr.batch]), fs, fr.table_T[fs],
+                               fr.table_R[fs], lrs, plr_t, plr_r, True, drop.repeat(2),
+                               [True, True], caps=caps, crop=crop,
+                               crop_max=zero3.repeat(2, 1) if crop else 0, **lam)
+        state = out[:4]
+        losses.append(out[4])
+    after = launch_counts()
+    launches = {k: after[k] - before[k] for k in ("stream_fwd_d3", "stream_bwd_d3")}
+    caps_n = [ln["model"].capacity for ln in lanes]
+    views = [unstack_scenes(state[0], 2, caps_n), unstack_scenes(state[1], 2, caps_n),
+             unstack_scenes(state[2], 2), unstack_scenes(state[3], 2)]
+    losses = torch.stack(losses)
+    same = [torch.equal(losses[:, j], one_losses)
+            and all(trees_equal(v[j], b) for v, b in zip(views, one))
+            for j, (one, one_losses) in enumerate(singles)]
+    ok = all(same) and all(n == STREAM_LOCKSTEP_STEPS for n in launches.values())
+    emit("stream_lockstep", frames=[ln["f"] for ln in lanes], crops=[ln["crop"] for ln in lanes],
+         capacities=caps_n, steps=STREAM_LOCKSTEP_STEPS, launches=launches,
+         losses=losses.cpu().numpy().tolist(), lanes_bit_for_bit=same, ok=ok)
+    if not ok:
+        raise AssertionError(f"stream lockstep: a lane parts from its own steps {same}, "
+                             f"launches {launches}")
 
 
 def phase_frame_kernels(model, fr, errs, prefix=""):
@@ -2658,20 +2789,18 @@ CHILD_TIMEOUT = 600  # seconds, per training-CLI child
 
 
 # the child entry flags of this script and the CLI module each one runs
-# (None: path 10's lockstep_main, below)
 CHILD_CLIS = {"--train-child": "egogaussian_tpu_torch.cli.train",
-              "--train-multi-child": "egogaussian_tpu_torch.cli.train_multi",
-              "--train-lockstep-child": None}
+              "--train-multi-child": "egogaussian_tpu_torch.cli.train_multi"}
 
 
 def train_child(counts_path, argv, module=CHILD_CLIS["--train-child"]) -> int:
-    """A training CLI's main (`module`, or lockstep_main for None) in a
-    child process of paths 6, 8, 9d and 10, with the launch counters flushed to counts_path every 0.1 s (a
+    """A training CLI's main (`module`) in a child process of paths 6, 8
+    and 9d, with the launch counters flushed to counts_path every 0.1 s (a
     SIGKILLed child keeps what its last flush wrote) and at exit."""
     import importlib
     import threading
 
-    train_main = lockstep_main if module is None else importlib.import_module(module).main
+    train_main = importlib.import_module(module).main
 
     def flush():
         tmp = counts_path + ".tmp"
@@ -2857,10 +2986,10 @@ def repro_run(argv5, model_dir5, out_dir):
     shutil.rmtree(model_dir)
 
 
-# path 8: the multi-video CLI over path 5's exported video and a second one;
-# video 0 is path 5's video, seed and schedule through the same pipeline, so
-# its files are held to path 5's byte for byte (PATH6_TOL, the spread of two
-# unbroken runs: 0)
+# path 8: the multi-video CLI over path 5's exported video and a second one,
+# both in one lockstep; each lane is its own run bit for bit, so video 0's
+# files are held to path 5's byte for byte (PATH6_TOL, the spread of two
+# unbroken runs: 0) and video 1's to its own one-video run's
 MULTI_SEED = 1  # the second video's make_synthetic_video seed
 MULTI_STAGES = ("static", "background", "coarse", "fine_obj/from-static",
                 "fine_obj/from-coarse", "fine_all", "eval")
@@ -2879,15 +3008,16 @@ def multi_inputs(dev, vid, src, model_dir5, weights):
     vid1 = make_synthetic_video(dev, seed=MULTI_SEED, **SLICE_VIDEO)
     src1 = export_colmap_dataset(vid1, os.path.join(root, "data_multi1"))
     outs = [os.path.join(root, f"multi{i}") for i in range(2)]
-    argv = (["--videos", src, src1, "--outputs", *outs, "--mesh", "1x1", "--seed", "0",
-             "--device", str(dev), "--lpips_weights", weights] + pipeline_flags())
-    return dict(vids=[vid, vid1], srcs=[src, src1], outs=outs, argv=argv)
+    flags = ["--device", str(dev), "--lpips_weights", weights] + pipeline_flags()
+    argv = ["--videos", src, src1, "--outputs", *outs, "--mesh", "1x1", "--seed", "0"] + flags
+    return dict(vids=[vid, vid1], srcs=[src, src1], outs=outs, argv=argv, flags=flags)
 
 
 def phase_multi(multi, out_dir):
-    """Path 8: cli/train_multi.py with multi_inputs' arguments, as a child
-    process (train_child) whose launch counts are flushed to a file.
-    Returns the launch counts; multi gains the run's seconds."""
+    """Path 8: cli/train_multi.py with multi_inputs' arguments (both videos
+    in one lockstep), as a child process (train_child) whose launch counts
+    are flushed to a file. Returns the launch counts; multi gains the
+    run's seconds."""
     for o in multi["outs"]:
         shutil.rmtree(o, ignore_errors=True)
     ended, seconds, launches = run_child(multi["argv"], "multi_run", out_dir,
@@ -2898,56 +3028,101 @@ def phase_multi(multi, out_dir):
     return launches
 
 
+def phase_multi_single(multi, out_dir):
+    """Video 1 of path 8 alone: `cli.train -s <video 1> --seed 1` with path
+    8's flags, as a child process (its launches are its own, not path
+    8's), the tree video 1's lane is held to. multi gains its output and
+    seconds."""
+    out = os.path.join(os.path.dirname(multi["outs"][1]), "single1")
+    shutil.rmtree(out, ignore_errors=True)
+    ended, seconds, _ = run_child(["-s", multi["srcs"][1], "-m", out, "--seed", "1"]
+                                  + multi["flags"], "multi_single1", out_dir)
+    if ended != "exit 0":
+        raise AssertionError(f"path 8: video 1's own run ended with {ended}")
+    multi["single1"], multi["single1_seconds"] = out, seconds
+
+
 def expected_launches(vid, model_dir):
-    """Tile-grid launches one video's training makes, from its run's
-    records: a D = 3 forward and backward per training step of stages
-    1.0 (std and entropy), 1.2, 2 (real steps), 3 (both variants) and 5; a
-    D = 1 pair per label step and a D = 1 forward per predicted mask."""
+    """Tile-grid launches one video's training makes, by stage, from its
+    run's records: a D = 3 forward and backward per training step of
+    stages 1.0 (std and entropy), 1.2, 2 (real steps), 3 (both variants)
+    and 5; a D = 1 pair per label step and a D = 1 forward per predicted
+    mask."""
     recs = pipeline_records(model_dir)
     timed = {r["name"]: r for r in recs if r.get("event") == "stage_time"
              and not r["resumed"]}
     coarse = [r for r in recs if r.get("event") == "stage_end" and r["stage"] == "coarse"][0]
     s = PIPELINE_STATIC
     phases = len(vid.static_phases)
-    d3 = (phases * (s["std_train_iter"] + s["entropy_reg_iter"]) + timed["background"]["iterations"]
-          + coarse["steps"] + timed["fine_obj/from-static"]["iterations"]
-          + timed["fine_obj/from-coarse"]["iterations"] + timed["fine_all"]["iterations"])
+    d3 = {"static": phases * (s["std_train_iter"] + s["entropy_reg_iter"]),
+          "coarse": int(coarse["steps"])}
+    for k in ("background", "fine_obj/from-static", "fine_obj/from-coarse", "fine_all"):
+        d3[k] = int(timed[k]["iterations"])
     masks = len(os.listdir(os.path.join(model_dir, "static", "obj_masks")))
-    label = phases * s["label_train_iter"]
-    return {"tilegrid_fwd_d3": d3, "tilegrid_bwd_d3": d3, "tilegrid_fwd_d1": label + masks,
-            "tilegrid_bwd_d1": label}
+    return {"d3": d3, "label": phases * s["label_train_iter"], "masks": masks}
+
+
+def one_video_launches(e):
+    """expected_launches' stages summed: one video's counts by kernel row."""
+    d3 = sum(e["d3"].values())
+    return {"tilegrid_fwd_d3": d3, "tilegrid_bwd_d3": d3,
+            "tilegrid_fwd_d1": e["label"] + e["masks"], "tilegrid_bwd_d1": e["label"]}
+
+
+def lockstep_launches(expect):
+    """The tile-grid launches of the videos' lockstep (expected_launches
+    of each), by kernel row, as (least, most): one launch for all lanes per
+    step, so stages 1.0, 1.2, 3 and 5 and the label steps make the longest
+    lane's count; stage 2 makes between the longest lane's and less than
+    the lanes' sum of real steps where every lane has some (its lanes step
+    together, each skipping its no-op frames); the predicted masks are
+    per video. A loop of
+    one-video runs makes the sum of every stage and falls above."""
+    shared = sum(max(e["d3"][k] for e in expect) for k in expect[0]["d3"] if k != "coarse")
+    coarse = [e["d3"]["coarse"] for e in expect]
+    d3 = (shared + max(coarse), shared + (sum(coarse) - 1 if min(coarse) else max(coarse)))
+    label = max(e["label"] for e in expect)
+    fwd1 = label + sum(e["masks"] for e in expect)
+    return {"tilegrid_fwd_d3": d3, "tilegrid_bwd_d3": d3, "tilegrid_fwd_d1": (fwd1, fwd1),
+            "tilegrid_bwd_d1": (label, label)}
 
 
 def check_multi(dev, multi, model_dir5, launches5, launches8, errs):
-    """After path 8's counts are read: video 0's output against path 5's
-    (compare_runs) within PATH6_TOL, and each of its files (cfg_args.json
-    and the metrics log aside) byte for byte path 5's; video 1's every
-    artifact of JAX's layout, at least MIN_OBJECT_GAUSSIANS handed to
-    stage 2, every dynamic frame solved after stage 4, finite losses, six
-    stage ends without dropped pairs, stage 6's PSNR / SSIM finite;
-    per-stage seconds of both videos beside path 5's; the launches against
-    path 5's plus what video 1's records imply; the CLI again with
+    """After path 8's counts are read: each lane against its own run, video
+    0's output against path 5's and video 1's against its one-video run
+    (phase_multi_single): compare_runs within PATH6_TOL, and every file
+    (cfg_args.json and the metrics log aside) byte for byte, both ways;
+    video 1's every artifact of JAX's layout, at least
+    MIN_OBJECT_GAUSSIANS handed to stage 2, every dynamic frame solved
+    after stage 4, finite losses, six stage ends without dropped pairs,
+    stage 6's PSNR / SSIM finite; per-stage seconds of the lockstep beside
+    path 5's and video 1's own run's; the launches against what the
+    videos' records imply for a lockstep (lockstep_launches: one launch
+    for both lanes per step, stage 2 below the lanes' sum, the masks and
+    stage 6 per video), which a loop of one-video runs exceeds; the CLI
+    again with
     --resume (no trainer logs a step, the same results.txt); then every
-    kernel against its twin on video 1's own stage-3 and stage-5 inputs."""
+    kernel against its twin on video 1's own stage-3 and stage-5
+    inputs."""
     from egogaussian_tpu_torch.cli.train_multi import main as multi_main
     from egogaussian_tpu_torch.models.pose import load_pose_sequence
 
     vids, srcs, outs = multi["vids"], multi["srcs"], multi["outs"]
-    diff = compare_runs(model_dir5, outs[0])
-    exact = all(diff[k] <= tol for k, tol in PATH6_TOL.items())
-    files0 = sorted(os.path.relpath(os.path.join(d, f), outs[0])
-                    for d, _, fs in os.walk(outs[0]) for f in fs)
-    files0 = [f for f in files0 if f != "cfg_args.json" and not f.startswith("logs")]
-    differ = [f for f in files0 if not os.path.exists(os.path.join(model_dir5, f))
-              or not filecmp.cmp(os.path.join(model_dir5, f), os.path.join(outs[0], f),
-                                 shallow=False)]
+    refs = [model_dir5, multi["single1"]]
+    diffs = [{k: v for k, v in compare_runs(ref, out).items() if k != "handover"}
+             for ref, out in zip(refs, outs)]
+    exact = all(d[k] <= tol for d in diffs for k, tol in PATH6_TOL.items())
+    differ = [sorted(set(differing_files(out, ref)) | set(differing_files(ref, out)))
+              for ref, out in zip(refs, outs)]
+    n_files = [len([f for d, _, fs in os.walk(out) for f in fs]) for out in outs]
     vid1, out1 = vids[1], outs[1]
     recs = pipeline_records(out1)
     missing = [f for f in pipeline_artifacts(vid1, srcs[1])
                if not os.path.exists(os.path.join(out1, f))]
     timed = [{r["name"]: r for r in pipeline_records(o) if r.get("event") == "stage_time"}
-             for o in (model_dir5, *outs)]
-    handover1 = {k: int(timed[2][k]["alive"]) for k in MULTI_STAGES if k != "eval"}
+             for o in (model_dir5, multi["single1"], outs[0])]
+    handover1 = {k: int({r["name"]: r for r in recs if r.get("event") == "stage_time"}[k]
+                        ["alive"]) for k in MULTI_STAGES if k != "eval"}
     solved = {}
     for variant in ("static", "coarse"):
         seq, _ = load_pose_sequence(os.path.join(out1, f"interpolate_pose_{variant}",
@@ -2959,17 +3134,23 @@ def check_multi(dev, multi, model_dir5, launches5, launches8, errs):
     dropped = [[r["stage"], int(r["dropped_pairs"])] for r in recs
                if r.get("event") == "stage_end"]
     stage6 = read_results_txt(os.path.join(out1, "evaluation", "results.txt"))
-    stages = {k: {"path5_s": timed[0][k]["seconds"], "video0_s": timed[1][k]["seconds"],
-                  "video1_s": timed[2][k]["seconds"]} for k in MULTI_STAGES}
+    # the lockstep's stage spans both videos (each tree records the same span)
+    stages = {k: {"path5_s": timed[0][k]["seconds"], "video1_alone_s": timed[1][k]["seconds"],
+                  "lockstep_s": timed[2][k]["seconds"]} for k in MULTI_STAGES}
+    one_by_one = sum(timed[0][k]["seconds"] + timed[1][k]["seconds"] for k in MULTI_STAGES)
+    lockstep = sum(timed[2][k]["seconds"] for k in MULTI_STAGES)
     rows = ("tilegrid_fwd_d3", "tilegrid_bwd_d3", "tilegrid_fwd_d1", "tilegrid_bwd_d1")
     expect = [expected_launches(v, o) for v, o in zip(vids, outs)]
+    alone = [one_video_launches(e) for e in expect]
+    span = lockstep_launches(expect)
     launches = {k: {"path8": launches8[k], "path5": launches5[k],
-                    "expected_video0": expect[0][k], "expected_video1": expect[1][k]}
-                for k in rows}
+                    "expected_video0": alone[0][k], "expected_video1": alone[1][k],
+                    "expected_lockstep": span[k]} for k in rows}
     launches["window_chunked_fwd_d3"] = {"path8": launches8["window_chunked_fwd_d3"],
                                          "path5": launches5["window_chunked_fwd_d3"]}
-    launches_ok = (all(launches8[k] == launches5[k] + expect[1][k]
-                       and expect[0][k] == launches5[k] for k in rows)
+    launches["by_stage"] = [e["d3"] for e in expect]
+    launches_ok = (all(span[k][0] <= launches8[k] <= span[k][1]
+                       and alone[0][k] == launches5[k] for k in rows)
                    and launches8["window_chunked_fwd_d3"]
                    == 2 * launches5["window_chunked_fwd_d3"])
 
@@ -2984,22 +3165,24 @@ def check_multi(dev, multi, model_dir5, launches5, launches8, errs):
     with open(os.path.join(out1, "evaluation", "results.txt")) as f:
         resume_same = f.read() == results1
 
-    ok = (exact and not differ and bool(files0) and not missing
+    ok = (exact and not any(differ) and all(n_files) and not missing
           and handover1["static"] >= MIN_OBJECT_GAUSSIANS
           and all(solved.values()) and bool(losses) and bool(np.isfinite(losses).all())
           and len(dropped) == 6 and not any(n for _, n in dropped)
           and all(np.isfinite(v) for m in stage6.values() for k, v in m.items() if k != "lpips")
           and launches_ok and not trained and resume_same)
-    emit("multi", videos=2, seed=MULTI_SEED, seconds=multi["seconds"], stages=stages,
-         vs_path5=diff, tol=PATH6_TOL, bit_for_bit=exact, video0_files=len(files0),
-         video0_files_differ=differ, video1_alive=handover1, video1_stage6=stage6,
+    emit("multi", videos=2, seed=MULTI_SEED, seconds=multi["seconds"],
+         video1_alone_seconds=multi["single1_seconds"], stages=stages,
+         stage_seconds={"one_by_one": one_by_one, "lockstep": lockstep},
+         speedup=one_by_one / lockstep, vs_own_runs=diffs, tol=PATH6_TOL, bit_for_bit=exact,
+         files=n_files, files_differ=differ, video1_alive=handover1, video1_stage6=stage6,
          video1_missing_artifacts=missing, video1_solved=solved,
          video1_losses_logged=len(losses), video1_dropped_pairs=dropped, launches=launches,
          launches_as_expected=launches_ok, resume_seconds=resume_s, resume_trained=trained,
          resume_results_same=resume_same, ok=ok)
     if not ok:
-        raise AssertionError(f"path 8 failed: against path 5 {diff} (files differing "
-                             f"{differ}), missing {missing}, alive {handover1}, solved "
+        raise AssertionError(f"path 8 failed: against the own runs {diffs} (files "
+                             f"differing {differ}), missing {missing}, alive {handover1}, solved "
                              f"{solved}, dropped {dropped}, launches {launches}, resume "
                              f"trained {trained}")
     for prefix, model, fr in pipeline_frames(dev, srcs[1], out1):
@@ -3755,70 +3938,8 @@ PATH_OF = {"fwd": "slice", "bwd": "slice", "bwd_exact": "coarse", "stream_fwd": 
 
 
 # ---------------------------------------------------------------------------
-# Path 10: the scene lockstep over path 8's two videos
+# The lockstep's steps (path 8's, launches per iteration) and the pose probe
 # ---------------------------------------------------------------------------
-
-# path 10's videos against their per-video runs (path 8's trees): stages
-# 1.0 and 1.2 byte for byte (their steps are batch-invariant on the card);
-# from stage 2 on the lanes part (PERF.md §7: a lane's rigid move and pose
-# products run as batched products at S = 2 where its own run makes
-# unbatched ones, and its pose gradient reduces over the stack's padded
-# rows), so the check holds them to these bounds: the largest distances the
-# H100 measured over both videos (alive 359, pose 0.0692, PSNR 0.693 dB,
-# SSIM 0.0056, no solved frame apart) times 1.5
-LOCKSTEP_TOL = {"solved": 0, "alive": 540, "pose": 0.105, "psnr": 1.05, "ssim": 0.0085}
-
-
-def lockstep_main(argv=None) -> int:
-    """Path 10's child (--train-lockstep-child): the videos of path 8's
-    multi-video command line in lockstep through cli/train.py's
-    train_videos, video i with --seed + i, every config flag for all."""
-    import dataclasses as dc
-
-    import torch
-
-    from egogaussian_tpu_torch.cli.train import train_videos
-    from egogaussian_tpu_torch.config import add_config_args, extract_config
-    from egogaussian_tpu_torch.eval.lpips import LPIPS
-
-    parser = argparse.ArgumentParser(description="the videos in lockstep (path 10)")
-    add_config_args(parser)
-    parser.add_argument("--videos", nargs="+", required=True)
-    parser.add_argument("--outputs", nargs="+", required=True)
-    parser.add_argument("--mesh", default="1x1", choices=("1x1",))
-    parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--lpips_weights", default=None)
-    parser.add_argument("--device", default="cuda")
-    args = parser.parse_args(argv)
-    dev = torch.device(args.device)
-    cfg = extract_config(args)
-    cfgs = [dc.replace(cfg, model=dc.replace(cfg.model, source_path=os.path.abspath(s),
-                                             model_path=os.path.abspath(o)))
-            for s, o in zip(args.videos, args.outputs)]
-    lpips_fn = LPIPS(weights_path=args.lpips_weights, device=dev) if args.lpips_weights else None
-    train_videos(cfgs, [args.seed + i for i in range(len(cfgs))], resume=False,
-                 lpips_fn=lpips_fn, checkpoint_every=0, device=dev)
-    return 0
-
-
-def phase_lockstep(dev, multi, out_dir):
-    """Path 10: path 8's two videos and flags in lockstep (lockstep_main:
-    every training stage one batched step per iteration for both videos,
-    one compositor launch for both scenes' tiles) into other outputs, as a
-    child process (--train-lockstep-child). Returns (outputs and seconds,
-    launch counts)."""
-    outs = [os.path.join(os.path.dirname(multi["outs"][0]), f"lockstep{i}") for i in range(2)]
-    for o in outs:
-        shutil.rmtree(o, ignore_errors=True)
-    argv = list(multi["argv"])
-    at = argv.index("--outputs")
-    argv[at + 1:at + 1 + len(outs)] = outs
-    ended, seconds, launches = run_child(argv, "lockstep_run", out_dir,
-                                         flag="--train-lockstep-child")
-    if ended != "exit 0":
-        raise AssertionError(f"path 10: the lockstep multi-video run ended with {ended}")
-    return dict(outs=outs, seconds=seconds), launches
-
 
 def differing_files(dir_a, dir_b):
     """Files of dir_a (cfg_args.json and the metrics log aside) that dir_b
@@ -3828,42 +3949,6 @@ def differing_files(dir_a, dir_b):
     files = [f for f in files if f != "cfg_args.json" and not f.startswith("logs")]
     return [f for f in files if not os.path.exists(os.path.join(dir_b, f))
             or not filecmp.cmp(os.path.join(dir_a, f), os.path.join(dir_b, f), shallow=False)]
-
-
-def check_lockstep(multi, lock, launches8, launches10):
-    """Path 10 against path 8, which runs the same videos one after the
-    other (video 0's tree is path 5's byte for byte): each video's tree
-    against path 8's (compare_runs: alive counts, solved frames, pose
-    values, the final PLY, stage 6's scores; and the files whose bytes
-    differ): stages 1.0 and 1.2 byte for byte, the rest within
-    LOCKSTEP_TOL; per-stage seconds (the lockstep's stage spans both
-    videos) beside the sum of path 8's two; the launches beside path
-    8's."""
-    per_video_diff = []
-    for ref, out in zip(multi["outs"], lock["outs"]):
-        diff = compare_runs(ref, out)
-        diff.pop("handover")
-        per_video_diff.append(dict(diff, files_differ=differing_files(ref, out)))
-    timed = [{r["name"]: r for r in pipeline_records(o) if r.get("event") == "stage_time"}
-             for o in (*multi["outs"], lock["outs"][0])]
-    stages = {k: {"per_video_s": timed[0][k]["seconds"] + timed[1][k]["seconds"],
-                  "lockstep_s": timed[2][k]["seconds"]} for k in MULTI_STAGES}
-    per_video = sum(v["per_video_s"] for v in stages.values())
-    lockstep = sum(v["lockstep_s"] for v in stages.values())
-    rows = ("tilegrid_fwd_d3", "tilegrid_bwd_d3", "tilegrid_fwd_d1", "tilegrid_bwd_d1",
-            "window_chunked_fwd_d3")
-    stage1_exact = not any(f.startswith(("static/", "background/"))
-                           for v in per_video_diff for f in v["files_differ"])
-    ok = stage1_exact and all(all(v[k] <= tol for k, tol in LOCKSTEP_TOL.items())
-                              for v in per_video_diff)
-    emit("lockstep", seconds=lock["seconds"], path8_seconds=multi["seconds"],
-         stage_seconds={"per_video": per_video, "lockstep": lockstep},
-         speedup=per_video / lockstep, stages=stages, videos=per_video_diff,
-         launches={k: {"path10": launches10[k], "path8": launches8[k]} for k in rows},
-         stage1_byte_for_byte=stage1_exact, tolerance=LOCKSTEP_TOL, ok=ok)
-    if not ok:
-        raise AssertionError(f"path 10: a lockstep video parts from its own run "
-                             f"{per_video_diff}")
 
 
 def coarse_start(dev, model_dir5):
@@ -4023,10 +4108,14 @@ def phase_pose_probe(dev, model_dir5):
     """The stage-3 pose gradient of path 5's from-coarse start
     (coarse_start: a dynamic frame with the pose trained) against the same
     gradient under (a) doubled binning capacities (max_pairs,
-    max_per_tile, max_slots), (b) the model padded to twice its capacity
-    with dead rows, and (c) the lockstep at S = 2 beside a second lane of
-    twice the capacity: per case the largest difference of the loss, the
-    pose gradient and the parameter gradients (0 = bit for bit)."""
+    max_per_tile, max_slots), (b) the model padded with dead rows to twice
+    its capacity in the scene stack (its own rows stay its capacity, as a
+    lockstep lane below the stack's capacity), (c) the lockstep at S = 2
+    beside a second lane of twice the capacity, and (d) a model whose own
+    capacity is twice as large (another run: its sums take more rows):
+    per case the largest difference of the loss, the pose gradient and
+    the parameter gradients (0 = bit for bit). Raises unless (a)-(c) are
+    0."""
     import dataclasses as dc
 
     import torch
@@ -4053,20 +4142,22 @@ def phase_pose_probe(dev, model_dir5):
             backend="cuda", caps=caps)
 
     size = [(batch.width, batch.height)]
-    base = grads(stack_scenes([model]), scene_caps([tcfg], size, dev, model.capacity))
+    c = model.capacity
+    base = grads(stack_scenes([model]), scene_caps([tcfg], size, dev, c))
     double = dc.replace(tcfg, max_pairs=2 * tcfg.max_pairs, max_per_tile=2 * tcfg.max_per_tile,
                         max_slots=2 * (tcfg.max_slots or tcfg.max_pairs))
-    padded, _, _ = ensure_capacity(model, adam_init(model.params), min_free=model.capacity + 1)
+    padded, _, _ = ensure_capacity(model, adam_init(model.params), min_free=c + 1)
     cases = {
         "binning_capacities_x2": grads(stack_scenes([model]),
-                                       scene_caps([double], size, dev, model.capacity)),
-        "model_capacity_x2": grads(stack_scenes([padded]),
-                                   scene_caps([tcfg], size, dev, padded.capacity)),
+                                       scene_caps([double], size, dev, c)),
+        "stack_padded_x2": grads(dc.replace(stack_scenes([padded]), scene_rows=(c,)),
+                                 scene_caps([tcfg], size, dev, padded.capacity)),
         "lockstep_s2_beside_x2_lane": grads(stack_scenes([model, padded]),
                                             scene_caps([tcfg, tcfg], size * 2, dev,
                                                        padded.capacity), lanes=2),
+        "own_capacity_x2": grads(stack_scenes([padded]),
+                                 scene_caps([tcfg], size, dev, padded.capacity)),
     }
-    c = model.capacity
     out = {}
     for name, g in cases.items():
         out[name] = {
@@ -4078,15 +4169,20 @@ def phase_pose_probe(dev, model_dir5):
                           for k in base.params.as_dict()),
             "probe": float((g.probe[0][:c] - base.probe[0]).abs().max()),
         }
+    exact = [k for k in cases if k != "own_capacity_x2"]
+    ok = all(v == 0.0 for k in exact for v in out[k].values())
     emit("pose_probe", frame=f, gaussians=int(model.num_alive), capacity=c,
-         pose_grad_scale=float(base.pose.rot6d.abs().max()), cases=out)
+         pose_grad_scale=float(base.pose.rot6d.abs().max()), cases=out, bit_for_bit=exact,
+         ok=ok)
+    if not ok:
+        raise AssertionError(f"pose probe: a padded capacity moved the pose gradient {out}")
     return out
 
 
 def paths_5_to_8(dev, vid, out_dir, repro=False, beside_6=None):
-    """Paths 5, 6, 7, 8 and 10, each with the launch counters set to 0 just
-    before it and read just after (paths 6's, 8's and 10's from their
-    child processes). beside_6(multi), where given, runs in a thread while
+    """Paths 5, 6, 7 and 8, each with the launch counters set to 0 just
+    before it and read just after (paths 6's and 8's from their child
+    processes). beside_6(multi), where given, runs in a thread while
     path 6 runs: path 6's three runs are child processes checked by their
     files alone, so no time of theirs is compared. Returns (what the checks
     need, {path: launch counts}, what beside_6 returned)."""
@@ -4114,23 +4210,22 @@ def paths_5_to_8(dev, vid, out_dir, repro=False, beside_6=None):
         raise AssertionError("window_chunked_fwd_d3 never launched on the viewer path")
     launches["multi"] = phase_multi(multi, out_dir)
     emit("multi_launches", **{k: n for k, n in launches["multi"].items() if n})
-    lock, launches["lockstep"] = phase_lockstep(dev, multi, out_dir)
-    emit("lockstep_launches_path10", **{k: n for k, n in launches["lockstep"].items() if n})
-    for path in ("multi", "lockstep"):
-        for name in ("tilegrid_fwd_d3", "tilegrid_bwd_d3", "tilegrid_fwd_d1", "tilegrid_bwd_d1",
-                     "window_chunked_fwd_d3"):
-            if launches[path][name] <= 0:
-                raise AssertionError(f"{name} never launched on the {path} path")
+    for name in ("tilegrid_fwd_d3", "tilegrid_bwd_d3", "tilegrid_fwd_d1", "tilegrid_bwd_d1",
+                 "window_chunked_fwd_d3"):
+        if launches["multi"][name] <= 0:
+            raise AssertionError(f"{name} never launched on the multi path")
+    # video 1's own run, the tree its lane is held to (a child: its
+    # launches are not path 8's)
+    phase_multi_single(multi, out_dir)
     # per-iteration launches of the lockstep's steps at S = 1 and 2 (after
     # every path's counts are read)
     phase_lockstep_launches(dev, vid, model_dir)
-    return (pipe, views, multi, lock, launches), launches, side
+    return (pipe, views, multi, launches), launches, side
 
 
 def check_paths_5_to_8(dev, pipe, errs):
-    pipe, views, multi, lock, launches = pipe
+    pipe, views, multi, launches = pipe
     check_viewers(views)
-    check_lockstep(multi, lock, launches["multi"], launches["lockstep"])
     phase_pose_probe(dev, pipe[1])
     check_multi(dev, multi, pipe[1], launches["pipeline"], launches["multi"], errs)
     check_pipeline(dev, *pipe, errs)
@@ -4198,6 +4293,7 @@ def main(argv=None) -> int:
                                          out_dir)
     fr = flavor_frame(dev, vid, seq, model, dyn, ccfg)
     phase_flavors(model, ccfg, fr)
+    phase_stream_lockstep(model, ccfg, fr, dyn, seq)
     path_launches["coarse"] = launch_counts()
     # path 3: stage-6 evaluation (the eval CLI, then every frame at full
     # width through the tiled backend)
@@ -4214,8 +4310,8 @@ def main(argv=None) -> int:
     path_launches["entry"] = launch_counts()
     # paths 5-8: the six-stage pipeline through the training CLI, the same
     # run killed and resumed from its checkpoints, the viewers and tools,
-    # the multi-video CLI over path 5's video and a second one
-    # (and path 10, the two videos in lockstep), with path 9's sharded
+    # the multi-video CLI over path 5's video and a second one in lockstep,
+    # with path 9's sharded
     # renders, multi-video CLI's scene axis and dry run beside path 6
     pipe, launches5, beside = paths_5_to_8(
         dev, vid, out_dir,

@@ -39,6 +39,7 @@ import torch
 
 from egogaussian_tpu_torch.config import add_config_args, extract_config, save_config
 from egogaussian_tpu_torch.data.readers import (
+    colmap_frame_sizes,
     load_colmap_scene,
     read_phase_index,
     read_split_file,
@@ -124,13 +125,32 @@ def train_videos(cfgs, seeds, resume: bool, lpips_fn, checkpoint_every: int,
     """train_video for several datasets in lockstep (cfgs[i] and seeds[i]
     per video, the other settings cfgs[0]'s): every training stage runs
     one batched step per iteration for all of them (run_pipeline_scenes),
-    and each tree holds the files its own train_video writes: stages 1.0
-    and 1.2 bit for bit, later stages within the distances PERF.md §7
-    measures. Returns the per-video results."""
+    and each tree holds the files its own train_video writes, byte for
+    byte. Videos whose frames differ in size raise ValueError before
+    anything is written (they cannot share a stack). Returns the
+    per-video results."""
+    mix = frame_size_mix(cfgs)
+    if mix:
+        raise ValueError(mix)
     runs = [video_run(cfg, seed, lpips_fn, device, mesh) for cfg, seed in zip(cfgs, seeds)]
     return run_pipeline_scenes(runs, cfgs[0], backend=cfgs[0].render.backend, resume=resume,
                                fine_variant=fine_variant, checkpoint_every=checkpoint_every,
                                mesh=mesh, device=device, stop_after=stop_after)
+
+
+def frame_size_mix(cfgs) -> str:
+    """Why the datasets of `cfgs` cannot share a lockstep ("" when they
+    can): their frames, read from the COLMAP files alone, differ in size.
+    The message names each dataset's sizes. One dataset always can."""
+    if len(cfgs) < 2:
+        return ""
+    sizes = [colmap_frame_sizes(c.model.source_path, c.model.images, c.model.resolution)
+             for c in cfgs]
+    if len({tuple(x) for x in sizes}) <= 1:
+        return ""
+    return ("videos whose frames differ in size cannot train in one lockstep: "
+            + "; ".join(f"{c.model.source_path}: " + ", ".join(f"{w}x{h}" for w, h in x)
+                        for c, x in zip(cfgs, sizes)))
 
 
 def video_run(cfg, seed: int, lpips_fn, device: torch.device, mesh=None) -> VideoRun:

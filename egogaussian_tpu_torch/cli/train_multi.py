@@ -1,25 +1,32 @@
-"""Multi-video training CLI: several datasets on a (scene, data) grid of
-ranks, or in one process.
+"""Multi-video training CLI: several datasets trained in lockstep, on a
+(scene, data) grid of ranks or in one process.
 
 Port of `egogaussian_tpu/cli/train_multi.py`. The reference trains V videos
 as V jobs, one GPU each (train.sh:13-19); JAX's CLI trains them in one
-process, stacked on a scene axis in lockstep. Here each video trains
-through the six-stage pipeline of cli/train.py (train_video) with seed
---seed + i, so video i's output tree is the one
-`cli.train -s <dataset i> -m <output i> --seed <seed + i>` writes:
+process, every stage stacked on a scene axis in lockstep. So does this
+one: a scene row's videos go through cli/train.py:train_videos (the
+pipeline's lockstep, pipeline.py:run_pipeline_scenes), every training
+stage one batched step per iteration for all of them, with seed --seed +
+i for video i:
 
-  * --mesh 1x1 (the default): the videos one after the other in this
-    process.
+  * --mesh 1x1 (the default): all videos in one lockstep in this process.
   * --mesh SxD with S·D > 1: S·D ranks started on this host
-    (parallel/launch.py); scene row s trains videos s, s+S, ... one after
-    the other, and its D data ranks run each video's stages 1.0 and 1.2
-    frame-data-parallel (stages 2-6 on the row's first rank). With D = 1
-    every video's tree equals its single run's byte for byte.
+    (parallel/launch.py); scene row s trains videos s, s+S, ... in one
+    lockstep, and its D data ranks run stages 1.0 and 1.2
+    frame-data-parallel (stages 2-6 on the row's first rank).
 
-This departs on purpose from JAX's lockstep stage loops, which step all
-scenes together through one vmapped step (ROADMAP.md §A item 11: a
-lockstep whose scenes share one launch, to be measured against this
-loop).
+Each lane of the lockstep is its own run bit for bit: every op that mixes
+a scene's rows into a per-scene quantity runs on the scene's own rows
+through its one-scene call (parallel/scene_trainer.py), and each scene
+keeps its own random streams, capacities, crop window and files. So video
+i's output tree is, file for file and byte for byte, the one
+`cli.train -s <dataset i> -m <output i> --seed <seed + i>` writes (with
+D = 1), but for cfg_args.json's paths and the metrics log's timings.
+Videos whose frames differ in size cannot share a stack, as in JAX: such
+a mix within one scene row is refused before anything is written, naming
+each video's size (videos on different rows never share a stack).
+Unlike JAX's CLI, stage 2 reads stage 1.0's object model back from its
+file (ROADMAP.md §C), as the single-video pipeline does.
 
   python -m egogaussian_tpu_torch.cli.train_multi --videos ds1 ds2 \\
       --outputs out1 out2 [--mesh 1x1] [--dist_backend nccl] [--seed 0] \\
@@ -30,7 +37,8 @@ Every dataset follows the reference layout (split/*.txt, as cli/train.py
 reads it) and every config flag of cli/train.py applies to all videos.
 --stage1_only stops each video after stage 1.2 and --through_coarse after
 stage 2, where JAX's CLI stops; --resume skips every stage whose files
-exist, per video; --checkpoint_every is run_pipeline's. Runs on the card
+exist, per video; --checkpoint_every is run_pipeline's, and a rerun resumes
+each video mid-stage from its own checkpoint files. Runs on the card
 unless `--device cpu` is given. --dist_backend: nccl (the default on cuda,
 one GPU per rank) or gloo (the default on cpu; on cuda, ranks may share a
 card). A mesh that is not SxD with positive axes, or that has more ranks
@@ -44,7 +52,7 @@ from argparse import ArgumentParser
 
 import torch
 
-from egogaussian_tpu_torch.cli.train import train_video
+from egogaussian_tpu_torch.cli.train import frame_size_mix, train_videos
 from egogaussian_tpu_torch.config import add_config_args, extract_config
 from egogaussian_tpu_torch.parallel.launch import BACKENDS, default_backend, placeable, spawn
 from egogaussian_tpu_torch.utils.console import CONSOLE
@@ -104,6 +112,11 @@ def main(argv=None) -> int:
                                                          for s in srcs]
     if len(outs) != len(srcs):
         parser.error(f"{len(srcs)} videos but {len(outs)} outputs")
+    for row in range(n_scene):  # videos row, row + S, ... share a stack
+        mix = frame_size_mix([dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, source_path=src)) for src in srcs[row::n_scene]])
+        if mix:
+            parser.error(f"scene row {row}: {mix}" if n_scene > 1 else mix)
     stop_after = "background" if args.stage1_only else "coarse" if args.through_coarse else None
     run = (cfg, srcs, outs, args.seed, args.resume, args.lpips_weights, args.checkpoint_every,
            args.fine_variant, stop_after)
@@ -111,30 +124,34 @@ def main(argv=None) -> int:
         CONSOLE.print(f"[multi] mesh {n_scene}x{n_data} of {backend} ranks on {device.type}")
         spawn(_scene_row, n_scene, n_data, backend, device, args=run)
     else:
-        _train_videos(range(len(srcs)), device, None, *run)
+        _train_row(range(len(srcs)), device, None, *run)
     return 0
 
 
 def _scene_row(mesh, *run):
     """One rank of --mesh SxD: scene row s trains videos s, s+S, ..."""
-    _train_videos(range(mesh.coords["scene"], len(run[1]), mesh.shape["scene"]),
-                  mesh.device, mesh, *run)
+    _train_row(range(mesh.coords["scene"], len(run[1]), mesh.shape["scene"]), mesh.device,
+               mesh, *run)
 
 
-def _train_videos(videos, device, mesh, cfg, srcs, outs, seed, resume, lpips_weights,
-                  checkpoint_every, fine_variant, stop_after):
+def _train_row(videos, device, mesh, cfg, srcs, outs, seed, resume, lpips_weights,
+               checkpoint_every, fine_variant, stop_after):
+    """Videos `videos` of the command line in one lockstep (train_videos)."""
+    videos = list(videos)
+    if not videos:
+        return
     lpips_fn = None
     if lpips_weights:
         from egogaussian_tpu_torch.eval.lpips import LPIPS
 
         lpips_fn = LPIPS(weights_path=lpips_weights, device=device)
-    for i in videos:
-        CONSOLE.print(f"[multi] video {i + 1} of {len(srcs)}: {srcs[i]}")
-        cfg_i = dataclasses.replace(cfg, model=dataclasses.replace(
-            cfg.model, source_path=srcs[i], model_path=outs[i]))
-        result = train_video(cfg_i, seed=seed + i, resume=resume, lpips_fn=lpips_fn,
-                             checkpoint_every=checkpoint_every, device=device,
-                             fine_variant=fine_variant, stop_after=stop_after, mesh=mesh)
+    CONSOLE.print(f"[multi] videos {[i + 1 for i in videos]} of {len(srcs)} in lockstep")
+    cfgs = [dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, source_path=srcs[i], model_path=outs[i])) for i in videos]
+    results = train_videos(cfgs, [seed + i for i in videos], resume, lpips_fn,
+                           checkpoint_every, device, fine_variant=fine_variant,
+                           stop_after=stop_after, mesh=mesh)
+    for i, result in zip(videos, results):
         if result is not None:
             CONSOLE.print(f"{srcs[i]}: final metrics {result.metrics}")
 

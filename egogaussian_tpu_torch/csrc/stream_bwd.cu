@@ -42,15 +42,16 @@
 
 // Returns cudaGetLastError() after the launch (0 = launched), or -1 for a
 // (d, ts) the library was not built for. Writes every slot of dvals. vals
-// must be 16-byte aligned.
+// must be 16-byte aligned. The n_tiles tiles are scenes of tps tiles each,
+// scene-major (bg [n_tiles / tps, d]), as in egogs_stream_fwd.
 extern "C" int egogs_stream_bwd(const int* meta, const float* vals, const float* bg,
                                 const float* logt, const float* gimg, const float* galpha,
                                 const float* gdepth, float* dvals, int n_slots, int n_tiles,
-                                int n_tx, int ts, int d, void* stream) {
+                                int n_tx, int tps, int ts, int d, void* stream) {
   using namespace egogs::cp;
   if (n_slots == 0) return 0;
   return launch_bwd<true>(StreamRows{meta, n_slots}, vals, bg, logt, gimg, galpha, gdepth,
-                          dvals, n_tiles, n_tx, n_tiles, ts, d, stream);
+                          dvals, n_tiles, n_tx, tps, ts, d, stream);
 }
 
 // The same kernel with the per-warp cull compiled out: a check instance,
@@ -59,9 +60,9 @@ extern "C" int egogs_stream_bwd_nocull(const int* meta, const float* vals, const
                                        const float* logt, const float* gimg,
                                        const float* galpha, const float* gdepth,
                                        float* dvals, int n_slots, int n_tiles, int n_tx,
-                                       int ts, int d, void* stream) {
+                                       int tps, int ts, int d, void* stream) {
   using namespace egogs::cp;
   if (n_slots == 0) return 0;
   return launch_bwd<false>(StreamRows{meta, n_slots}, vals, bg, logt, gimg, galpha, gdepth,
-                           dvals, n_tiles, n_tx, n_tiles, ts, d, stream);
+                           dvals, n_tiles, n_tx, tps, ts, d, stream);
 }

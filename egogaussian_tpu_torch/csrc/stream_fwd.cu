@@ -46,25 +46,27 @@
 
 // Returns cudaGetLastError() after the launch (0 = launched), or -1 for a
 // (d, ts) the library was not built for. Writes only the tiles that own a
-// chunk slot. vals must be 16-byte aligned.
+// chunk slot. vals must be 16-byte aligned. The n_tiles tiles are scenes
+// of tps tiles each, scene-major (bg [n_tiles / tps, d]); meta row 0 holds
+// global tile ids, nondecreasing over the scenes' slots.
 extern "C" int egogs_stream_fwd(const int* meta, const float* vals, const float* bg,
                                 float* img, float* alpha, float* depth, float* logt,
-                                int n_slots, int n_tiles, int n_tx, int ts, int d,
+                                int n_slots, int n_tiles, int n_tx, int tps, int ts, int d,
                                 void* stream) {
   using namespace egogs::cp;
   if (n_slots == 0) return 0;
   return launch_fwd<true>(StreamRows{meta, n_slots}, vals, bg, img, alpha, depth, logt,
-                          n_tiles, n_tx, n_tiles, ts, d, stream);
+                          n_tiles, n_tx, tps, ts, d, stream);
 }
 
 // The same kernel with the per-warp cull compiled out: a check instance,
 // whose outputs must equal egogs_stream_fwd's bit for bit.
 extern "C" int egogs_stream_fwd_nocull(const int* meta, const float* vals, const float* bg,
                                        float* img, float* alpha, float* depth, float* logt,
-                                       int n_slots, int n_tiles, int n_tx, int ts, int d,
-                                       void* stream) {
+                                       int n_slots, int n_tiles, int n_tx, int tps, int ts,
+                                       int d, void* stream) {
   using namespace egogs::cp;
   if (n_slots == 0) return 0;
   return launch_fwd<false>(StreamRows{meta, n_slots}, vals, bg, img, alpha, depth, logt,
-                           n_tiles, n_tx, n_tiles, ts, d, stream);
+                           n_tiles, n_tx, tps, ts, d, stream);
 }

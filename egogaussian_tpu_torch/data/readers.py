@@ -317,6 +317,37 @@ def write_scene_artifacts(scene: SceneData, out_dir: str) -> None:
         json.dump([camera_to_json(i, c) for i, c in enumerate(scene.cameras)], f)
 
 
+def _colmap_views(source_path: str, images_dir: str):
+    """(intrinsics, registered images with a file, pick(name) -> (path,
+    is_binary)) of a COLMAP scene directory."""
+    sparse = os.path.join(source_path, "sparse", "0")
+    if not os.path.isdir(sparse):
+        sparse = os.path.join(source_path, "sparse")
+    img_dir = os.path.join(source_path, images_dir)
+    present = sorted(os.listdir(img_dir)) if os.path.isdir(img_dir) else []
+
+    def pick(name):
+        b = os.path.join(sparse, name + ".bin")
+        return (b, True) if os.path.exists(b) else (os.path.join(sparse, name + ".txt"), False)
+
+    cam_path, is_bin = pick("cameras")
+    intr = colmap.read_cameras_binary(cam_path) if is_bin else colmap.read_cameras_text(cam_path)
+    img_path, is_bin = pick("images")
+    extr = (colmap.read_images_binary(img_path, present) if is_bin
+            else colmap.read_images_text(img_path, present))
+    return intr, extr, pick
+
+
+def colmap_frame_sizes(source_path: str, images_dir: str = "images",
+                       resolution: int = -1) -> List[Tuple[int, int]]:
+    """The distinct (width, height) that load_colmap_scene gives the
+    scene's frames, sorted, from the COLMAP files alone (no image is
+    read)."""
+    intr, extr, _ = _colmap_views(source_path, images_dir)
+    return sorted({compute_resolution(intr[im.camera_id].width, intr[im.camera_id].height,
+                                      resolution) for im in extr.values()})
+
+
 def load_colmap_scene(
     source_path: str,
     device: torch.device,
@@ -337,21 +368,8 @@ def load_colmap_scene(
         est_depths/  pred_cb/     (optional feature planes, loaded when
                                    asked and present; no loss reads them;
                                    est_depths also takes .npy)"""
-    sparse = os.path.join(source_path, "sparse", "0")
-    if not os.path.isdir(sparse):
-        sparse = os.path.join(source_path, "sparse")
+    intr, extr, pick = _colmap_views(source_path, images_dir)
     img_dir = os.path.join(source_path, images_dir)
-    present = sorted(os.listdir(img_dir)) if os.path.isdir(img_dir) else []
-
-    def pick(name):
-        b = os.path.join(sparse, name + ".bin")
-        return (b, True) if os.path.exists(b) else (os.path.join(sparse, name + ".txt"), False)
-
-    cam_path, is_bin = pick("cameras")
-    intr = colmap.read_cameras_binary(cam_path) if is_bin else colmap.read_cameras_text(cam_path)
-    img_path, is_bin = pick("images")
-    extr = (colmap.read_images_binary(img_path, present) if is_bin
-            else colmap.read_images_text(img_path, present))
     pts_path, is_bin = pick("points3D")
     xyz, rgb, _ = (colmap.read_points3d_binary(pts_path) if is_bin
                    else colmap.read_points3d_text(pts_path))

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +73,9 @@ class GaussianModel:
     aux: GaussianAux
     sh_degree: int = 0
     spatial_lr_scale: float = 1.0
+    # a scene stack's own row count per scene (parallel/multi_scene.py
+    # stack_scenes); None for one model
+    scene_rows: Optional[Tuple[int, ...]] = None
 
     @property
     def capacity(self) -> int:
@@ -101,8 +104,8 @@ class GaussianModel:
         rotated by extra_rot [3, 3] (reference gaussian_model.py:46-63)."""
         mask = self.aux.is_object == which_object
         return covariance_from_scaling_rotation_rotated(
-            self.scaling, self.params.quats, extra_rot, mask, scale_modifier
-        )
+            self.scaling, self.params.quats, extra_rot, mask, scale_modifier,
+            rows=self.scene_rows)
 
     @property
     def num_alive(self) -> torch.Tensor:

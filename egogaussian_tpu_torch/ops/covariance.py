@@ -7,6 +7,8 @@ JAX version, so both packages do the same float operations.
 """
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import torch
 
 from egogaussian_tpu_torch.ops.quaternion import quat_normalize, quat_to_rotmat
@@ -73,45 +75,78 @@ def covariance_from_scaling_rotation_rotated(
     extra_rot: torch.Tensor,
     apply_mask: torch.Tensor,
     scale_modifier: float = 1.0,
+    rows: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
     """Covariance with an extra left rotation applied to a subset of
     Gaussians: Sigma = (X L)(X L)^T where X = extra_rot [3, 3] and
     apply_mask [...] is 1 where it applies (the object Gaussians rendered
     at a frame pose). Blended as rot*m + cov*(1-m), like the JAX package,
-    so both packages take the same gradient paths."""
+    so both packages take the same gradient paths. With a scene axis (X
+    [S, 3, 3]) X's gradient sums each scene's own rows rows[s] as the
+    scene's run alone does (congruence_transform)."""
     cov = covariance_from_scaling_rotation(scales, quats, scale_modifier)
-    rot = congruence_transform(cov, extra_rot)
+    rot = congruence_transform(cov, extra_rot, rows)
     mask = apply_mask[..., None].to(cov.dtype)
     return rot * mask + cov * (1.0 - mask)
 
 
-def congruence_transform(cov: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+class _SceneRowsBroadcast(torch.autograd.Function):
+    """x [S, 1], one entry per scene, broadcast over a scene stack's n rows
+    as [S, n]. The backward sums each scene's own rows g[s, :rows[s]] with
+    the reduction a one-scene broadcast's backward takes over its rows, so
+    the scene's entry gets the gradient its run alone gets (the stack's
+    padded rows add nothing, and the sum's length is the scene's own)."""
+
+    @staticmethod
+    def forward(ctx, x, n, rows):
+        ctx.rows = rows
+        return x.expand(x.shape[0], n)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.new_empty(g.shape[0], 1)
+        for s, c in enumerate(ctx.rows):
+            torch.sum(g[s, :c], 0, keepdim=True, out=out[s])
+        return out, None, None
+
+
+def congruence_transform(cov: torch.Tensor, X: torch.Tensor,
+                         rows: Optional[Sequence[int]] = None) -> torch.Tensor:
     """X Sigma X^T on packed [..., 6] covariances, channel-wise (X [3, 3];
-    with a leading scene axis cov [S, N, 6] and X [S, 3, 3])."""
+    with a leading scene axis cov [S, N, 6] and X [S, 3, 3], each entry
+    of X[s] broadcast over scene s's rows, as one scene's X is over its
+    own, one _SceneRowsBroadcast per use: X's gradient sums each use over
+    the scene's own rows rows[s] (default all N) as its run alone does)."""
     xx, xy, xz, yy, yz, zz = (cov[..., i] for i in range(6))
     Xn = X[..., None, :, :]  # entries broadcast over the covariances
-    x00, x01, x02 = Xn[..., 0, 0], Xn[..., 0, 1], Xn[..., 0, 2]
-    x10, x11, x12 = Xn[..., 1, 0], Xn[..., 1, 1], Xn[..., 1, 2]
-    x20, x21, x22 = Xn[..., 2, 0], Xn[..., 2, 1], Xn[..., 2, 2]
+    entries = [Xn[..., i, j] for i in range(3) for j in range(3)]
+    if X.dim() == 3:
+        n = cov.shape[1]
+        rows = tuple(rows) if rows is not None else (n,) * X.shape[0]
+
+        def use(k):
+            return _SceneRowsBroadcast.apply(entries[k], n, rows)
+    else:
+        use = entries.__getitem__
     # T = X @ Sigma (rows of the intermediate as channels)
-    t00 = x00 * xx + x01 * xy + x02 * xz
-    t01 = x00 * xy + x01 * yy + x02 * yz
-    t02 = x00 * xz + x01 * yz + x02 * zz
-    t10 = x10 * xx + x11 * xy + x12 * xz
-    t11 = x10 * xy + x11 * yy + x12 * yz
-    t12 = x10 * xz + x11 * yz + x12 * zz
-    t20 = x20 * xx + x21 * xy + x22 * xz
-    t21 = x20 * xy + x21 * yy + x22 * yz
-    t22 = x20 * xz + x21 * yz + x22 * zz
+    t00 = use(0) * xx + use(1) * xy + use(2) * xz
+    t01 = use(0) * xy + use(1) * yy + use(2) * yz
+    t02 = use(0) * xz + use(1) * yz + use(2) * zz
+    t10 = use(3) * xx + use(4) * xy + use(5) * xz
+    t11 = use(3) * xy + use(4) * yy + use(5) * yz
+    t12 = use(3) * xz + use(4) * yz + use(5) * zz
+    t20 = use(6) * xx + use(7) * xy + use(8) * xz
+    t21 = use(6) * xy + use(7) * yy + use(8) * yz
+    t22 = use(6) * xz + use(7) * yz + use(8) * zz
     # Sigma' = T @ X^T (upper triangle only)
     return torch.stack(
         [
-            t00 * x00 + t01 * x01 + t02 * x02,
-            t00 * x10 + t01 * x11 + t02 * x12,
-            t00 * x20 + t01 * x21 + t02 * x22,
-            t10 * x10 + t11 * x11 + t12 * x12,
-            t10 * x20 + t11 * x21 + t12 * x22,
-            t20 * x20 + t21 * x21 + t22 * x22,
+            t00 * use(0) + t01 * use(1) + t02 * use(2),
+            t00 * use(3) + t01 * use(4) + t02 * use(5),
+            t00 * use(6) + t01 * use(7) + t02 * use(8),
+            t10 * use(3) + t11 * use(4) + t12 * use(5),
+            t10 * use(6) + t11 * use(7) + t12 * use(8),
+            t20 * use(6) + t21 * use(7) + t22 * use(8),
         ],
         dim=-1,
     )

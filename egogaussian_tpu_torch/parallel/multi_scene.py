@@ -94,7 +94,8 @@ def stack_scenes(items: Sequence):
         # arithmetic of the scene's learning rates (a numpy float32 extent
         # multiplies in float32)
         return GaussianModel(params=params, aux=aux, sh_degree=first.sh_degree,
-                             spatial_lr_scale=tuple(m.spatial_lr_scale for m in items))
+                             spatial_lr_scale=tuple(m.spatial_lr_scale for m in items),
+                             scene_rows=tuple(m.capacity for m in items))
     if isinstance(first, AdamState):
         rows = None
         if isinstance(first.mu, GaussianParams):

@@ -21,11 +21,17 @@ drops only what its own capacities drop), its own regrowth from its own
 re-estimate, its own crop window and its own stage-2 warm-up elision
 (masks: an elided scene keeps its state bit for bit).
 
-What can still part a scene from its single run is an op whose rounding
-depends on the batch: a reduction over a scene's rows or pixels on [S,
-...] tensors (the loss means, the pose gradient's sum over the Gaussians)
-and the batched 3x3 / 4x4 matrix products (PERF.md §7 records what the
-card measured). One scene runs the unbatched ops.
+So each scene is its own run bit for bit: an op that mixes a scene's rows
+into a per-scene quantity (the object's rigid move, the pose's 3x3 / 4x4
+products, their gradients' sums over the Gaussians) runs per scene on
+the scene's own rows through the one-scene call
+(render/project.py:rigid_apply; a stacked model's `scene_rows` are the
+scenes' own capacities); the
+covariance's rotation, elementwise, runs once for all scenes and sums
+each scene's rows of its gradient apart (ops/covariance.py); and scenes
+whose crop windows differ take their losses over their own windows
+(train/coarse_pose.py). Every other op is elementwise or per row, and
+runs once on the [S, ...] tensors.
 """
 from __future__ import annotations
 

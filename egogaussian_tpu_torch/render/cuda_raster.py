@@ -146,10 +146,10 @@ def kernel_library() -> ctypes.CDLL:
         fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     for fn in (lib.egogs_stream_fwd, lib.egogs_stream_fwd_nocull):
         fn.restype = i
-        fn.argtypes = [p] * 7 + [i] * 5 + [p]
+        fn.argtypes = [p] * 7 + [i] * 6 + [p]
     for fn in (lib.egogs_stream_bwd, lib.egogs_stream_bwd_nocull):
         fn.restype = i
-        fn.argtypes = [p] * 8 + [i] * 5 + [p]
+        fn.argtypes = [p] * 8 + [i] * 6 + [p]
     for fn in (lib.egogs_window_chunked_fwd, lib.egogs_window_chunked_fwd_nocull):
         fn.restype = i
         fn.argtypes = [p] * 7 + [i] * 6 + [p]

@@ -10,20 +10,29 @@ radius, 0 = culled), cov2d [N,3].
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 
-def rigid_apply(x: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+def rigid_apply(x: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
+                rows: Optional[Sequence[int]] = None) -> torch.Tensor:
     """x @ R^T + t: x [N, 3] with R [3, 3], t [3]; or with a leading scene
-    axis, x [S, N, 3], R [S, 3, 3], t [S, 3]. One scene takes the unbatched
-    product, so it gives the bits of the call without a scene axis."""
+    axis, x [S, N, 3], R [S, 3, 3], t [S, 3]. Each scene takes the
+    unbatched product over its own rows x[s, :rows[s]] (default all N), so
+    it gives the bits of its call without a scene axis, values and
+    gradients alike: R's and t's gradients are sums over the rows inside
+    the product's backward, which a batched product takes over the padded
+    stack. The padded rows pass through."""
     if x.dim() == 2:
         return x @ R.T + t
-    if x.shape[0] == 1:
-        return (x[0] @ R[0].T + t[0])[None]
-    return torch.matmul(x, R.transpose(-1, -2)) + t[:, None, :]
+    n = x.shape[1]
+    out = []
+    for s in range(x.shape[0]):
+        c = n if rows is None else int(rows[s])
+        y = x[s, :c] @ R[s].T + t[s]
+        out.append(y if c == n else torch.cat([y, x[s, c:]]))
+    return torch.stack(out)
 
 
 class ProjectedGaussians(NamedTuple):
@@ -61,7 +70,12 @@ def project_gaussians(
     """
     R = viewmat[..., :3, :3]
     t = viewmat[..., :3, 3]
-    t_cam = rigid_apply(means3d, R, t)  # [N, 3]
+    if means3d.dim() == 3 and means3d.shape[0] > 1:
+        # one batched product: the camera is no parameter, so no gradient
+        # sums the rows into a per-scene quantity here
+        t_cam = torch.matmul(means3d, R.transpose(-1, -2)) + t[:, None, :]
+    else:
+        t_cam = rigid_apply(means3d, R, t)  # [N, 3]
     Rn = R[..., None, :, :]  # entries broadcast over the Gaussians
     z = t_cam[..., 2]
 

@@ -16,7 +16,9 @@ Interface (the TPU kernels'):
     rank >= count are pure padding.
   vals [n_slots*128, 7+D] float32, row-major pairs
     mu_x | mu_y | a | b | c | op | col x D | z
-  bg [1, D] float32
+  bg [S, D] float32: S scenes of T / S tiles each, scene-major (a scene's
+    tiles and slots follow the scene before it, render/tiled.py
+    stream_layout_scenes); tile t composites over bg[t // (T / S)]
   -> img [T, ts*ts, D], alpha [T, ts*ts, 1], depth [T, ts*ts, 1] and the
      final log-transmittance logT [T, 1, ts*ts] saved for the backward.
 Transmittance is carried in log space (log1p, prefix sums, exp) and there
@@ -41,6 +43,7 @@ from egogaussian_tpu_torch.render.cuda_raster import (
     _launch_check,
     _pixel_coords,
     kernel_library,
+    tile_bg,
 )
 
 
@@ -50,8 +53,10 @@ def _check(meta, vals, bg, ts, n_tiles, tensors=()):
         raise ValueError(f"tile size {ts} not in {SUPPORTED_TS}")
     if meta.dtype != torch.int32 or meta.dim() != 2 or meta.shape[0] != 4:
         raise ValueError(f"meta must be int32 [4, n_slots], got {meta.dtype} {tuple(meta.shape)}")
-    if bg.dtype != torch.float32 or bg.dim() != 2 or bg.shape[0] != 1:
-        raise ValueError(f"bg must be float32 [1, D], got {bg.dtype} {tuple(bg.shape)}")
+    if bg.dtype != torch.float32 or bg.dim() != 2 or bg.shape[0] < 1:
+        raise ValueError(f"bg must be float32 [S, D], got {bg.dtype} {tuple(bg.shape)}")
+    if n_tiles % bg.shape[0]:
+        raise ValueError(f"{n_tiles} tiles do not split into {bg.shape[0]} scenes")
     n_slots, d = meta.shape[1], bg.shape[1]
     if d not in SUPPORTED_D:
         raise ValueError(f"channel count {d} not in {SUPPORTED_D}")
@@ -115,7 +120,7 @@ def composite_stream_plain_fwd(meta, vals, bg, ts: int, n_tx: int, n_tiles: int)
     p = ts * ts
     c0, n_real, tiles = _runs(meta)
     n_runs = tiles.shape[0]
-    px, py = _pixel_coords(n_tiles, ts, n_tx, dev)
+    px, py = _pixel_coords(n_tiles, ts, n_tx, dev, bg.shape[0])
     px, py = px[tiles], py[tiles]
     log_t = torch.zeros((n_runs, p, 1), device=dev)
     acc_img = torch.zeros((n_runs, p, d), device=dev)
@@ -138,7 +143,7 @@ def composite_stream_plain_fwd(meta, vals, bg, ts: int, n_tx: int, n_tiles: int)
     alpha_o = torch.zeros((n_tiles, p, 1), device=dev)
     depth_o = torch.zeros((n_tiles, p, 1), device=dev)
     logt_o = torch.zeros((n_tiles, 1, p), device=dev)
-    img[tiles] = acc_img + torch.exp(log_t) * bg[0]
+    img[tiles] = acc_img + torch.exp(log_t) * tile_bg(bg, n_tiles)[tiles]
     alpha_o[tiles] = acc_a
     depth_o[tiles] = acc_d
     logt_o[tiles] = log_t.transpose(1, 2)
@@ -166,11 +171,12 @@ def composite_stream_plain_bwd(meta, vals, bg, logt, gimg, galpha, gdepth,
     dvals = torch.zeros_like(vals).reshape(-1, CHUNK, 7 + d)
     if n_runs == 0:
         return dvals.reshape(vals.shape)
-    px, py = _pixel_coords(n_tiles, ts, n_tx, dev)
+    px, py = _pixel_coords(n_tiles, ts, n_tx, dev, bg.shape[0])
     px, py = px[tiles], py[tiles]
     log_total = logt[tiles].transpose(1, 2)  # [R, P, 1]
     gi, ga, gz = gimg[tiles], galpha[tiles], gdepth[tiles]
-    base_s = torch.exp(log_total) * torch.sum(gi * bg[0], dim=-1, keepdim=True)
+    base_s = torch.exp(log_total) * torch.sum(gi * tile_bg(bg, n_tiles)[tiles], dim=-1,
+                                              keepdim=True)
     suf_log = torch.zeros_like(log_total)
     suf_s = torch.zeros_like(log_total)
     for k in reversed(range(int(n_real.max()))):
@@ -220,7 +226,7 @@ def _launch_fwd(symbol, meta, vals, bg, ts, n_tx, n_tiles, n_slots, d):
     stream = torch.cuda.current_stream(vals.device).cuda_stream
     rc = getattr(kernel_library(), symbol)(
         meta.data_ptr(), vals.data_ptr(), bg.data_ptr(), *(o.data_ptr() for o in outs),
-        n_slots, n_tiles, n_tx, ts, d, stream)
+        n_slots, n_tiles, n_tx, n_tiles // bg.shape[0], ts, d, stream)
     _launch_check(rc, "stream forward")
     return tuple(outs)
 
@@ -264,7 +270,7 @@ def _launch_bwd(symbol, meta, vals, bg, logt, gimg, galpha, gdepth, ts, n_tx, n_
     stream = torch.cuda.current_stream(vals.device).cuda_stream
     rc = getattr(kernel_library(), symbol)(
         *(x.data_ptr() for x in (meta, vals, bg, logt, gimg, galpha, gdepth, dvals)),
-        n_slots, n_tiles, n_tx, ts, d, stream)
+        n_slots, n_tiles, n_tx, n_tiles // bg.shape[0], ts, d, stream)
     _launch_check(rc, "stream backward")
     return dvals
 

@@ -692,6 +692,45 @@ def tilegrid_layout(
     return lay._replace(dropped=lay.dropped[0])
 
 
+def stream_layout_scenes(proj: ProjectedGaussians, colors: torch.Tensor,
+                         opacities: torch.Tensor, caps: SceneCaps) -> StreamLayout:
+    """The stream flavor's layout for S scenes in one layout (proj fields
+    [S, N, ...], colors [S, N, D], opacities [S, N]; port of the stream
+    branch of the JAX `composite_pallas`, vmapped): the same padded runs,
+    pairs row-major with no padding rows, and a per-slot meta of four
+    rows:
+      0 owning tile, 1 rank of the chunk's first pair within its tile,
+      2 the tile's pair count, 3 the last occupied slot of its scene.
+    Scene s's tiles are tiles [s T, (s + 1) T) and its chunk slots [s n, (s
+    + 1) n) of the shared slot capacity n, so row 0 stays nondecreasing
+    over the scenes. Slots past a scene's last run belong to its last tile
+    with rank >= count (pure padding); each scene's runs, overflows and
+    drops are those of its own binning."""
+    runs = _padded_runs(proj, opacities, caps)
+    s_n = runs.tile_cnt.shape[0]
+    n_tiles = runs.n_tx * runs.n_ty
+    n_slots = runs.sc // CHUNK
+    dev = runs.tile_cnt.device
+    with torch.no_grad():
+        owner = slot_owner(runs.starts2, runs.sc)
+        src = _slot_sources(runs, owner)
+        q0 = torch.arange(0, runs.sc, CHUNK, dtype=torch.int64, device=dev)
+        t_chunk = owner[:, ::CHUNK]
+        rank_off = q0 - _take_rows(runs.starts2, t_chunk)
+        last_used = torch.minimum(
+            torch.clamp(torch.sum(runs.padded_cnt, dim=-1) // CHUNK - 1, min=0),
+            runs.caps.max_slots // CHUNK - 1)
+        scene = torch.arange(s_n, dtype=torch.int64, device=dev)[:, None]
+        meta = torch.stack([
+            t_chunk + scene * n_tiles, rank_off, _take_rows(runs.tile_cnt, t_chunk),
+            (last_used[:, None] + scene * n_slots).expand(s_n, n_slots),
+        ]).reshape(4, -1).to(torch.int32).contiguous()
+    vals = _flat_rows(proj, colors, opacities, 7 + colors.shape[-1])[src]
+    empty = ((runs.tile_cnt == 0) | runs.overflowed).reshape(-1)
+    return StreamLayout(meta, vals, empty, runs.dropped, runs.n_tx, runs.n_ty,
+                        caps.config.tile_size)
+
+
 def stream_layout(
     proj: ProjectedGaussians,
     colors: torch.Tensor,
@@ -700,32 +739,11 @@ def stream_layout(
     height: int,
     config: Optional[TileConfig] = None,
 ) -> StreamLayout:
-    """The stream flavor's layout (port of the stream branch of the JAX
-    `composite_pallas`): the same padded runs, pairs row-major with no
-    padding rows, and a per-slot meta of four rows:
-      0 owning tile, 1 rank of the chunk's first pair within its tile,
-      2 the tile's pair count, 3 the last occupied slot (broadcast).
-    Slots past the last tile's run belong to the last tile id with rank >=
-    count (pure padding). One scene only: the stream pair has no scene
-    axis."""
+    """The stream flavor's layout of one render: the one-scene case of
+    stream_layout_scenes (meta row 3 the last occupied slot)."""
     caps = scene_caps([config], [(width, height)], proj.means2d.device, proj.depths.shape[0])
-    runs = _padded_runs(_lead(proj), opacities[None], caps)
-    n_slots = runs.sc // CHUNK
-    dev = runs.tile_cnt.device
-    with torch.no_grad():
-        owner = slot_owner(runs.starts2, runs.sc)
-        src = _slot_sources(runs, owner)
-        owner, starts2, tile_cnt = owner[0], runs.starts2[0], runs.tile_cnt[0]
-        q0 = torch.arange(0, runs.sc, CHUNK, dtype=torch.int64, device=dev)
-        t_chunk = owner[::CHUNK]
-        rank_off = q0 - starts2[t_chunk]
-        last_used = torch.clamp(torch.sum(runs.padded_cnt[0]) // CHUNK - 1, 0, n_slots - 1)
-        meta = torch.stack([
-            t_chunk, rank_off, tile_cnt[t_chunk], last_used.expand(n_slots),
-        ]).to(torch.int32).contiguous()
-    vals = _flat_rows(_lead(proj), colors[None], opacities[None], 7 + colors.shape[-1])[src]
-    return StreamLayout(meta, vals, (tile_cnt == 0) | runs.overflowed[0], runs.dropped[0],
-                        runs.n_tx, runs.n_ty, caps.config.tile_size)
+    lay = stream_layout_scenes(_lead(proj), colors[None], opacities[None], caps)
+    return lay._replace(dropped=lay.dropped[0])
 
 
 def _pixel_mask(caps: SceneCaps, n_tx: int, n_ty: int, device) -> Optional[torch.Tensor]:
@@ -753,10 +771,12 @@ def composite_scenes(
 ) -> RenderOutput:
     """S renders in one compositor launch pair: proj fields [S, N, ...],
     colors [S, N, D], opacities [S, N], bg [S, D]. backend "cuda" takes the
-    tile-grid pair over tilegrid_layout_scenes, "tiled" the chunked
-    windowed pair over window_layout_scenes. Returns image [S, D, H, W],
-    alpha and depth [S, 1, H, W] at the largest scene size (a smaller
-    scene's pixels past its own size are bg / 0) and dropped_pairs [S]."""
+    pair config.compositor names (the tile-grid pair over
+    tilegrid_layout_scenes, the stream pair over stream_layout_scenes),
+    "tiled" the chunked windowed pair over window_layout_scenes. Returns
+    image [S, D, H, W], alpha and depth [S, 1, H, W] at the largest scene
+    size (a smaller scene's pixels past its own size are bg / 0) and
+    dropped_pairs [S]."""
     config = caps.config
     if backend == "tiled":
         from egogaussian_tpu_torch.render.window_raster import WindowChunkedCompositor
@@ -764,27 +784,24 @@ def composite_scenes(
         lay = window_layout_scenes(proj, colors, opacities, caps)
         img_t, alpha_t, depth_t = WindowChunkedCompositor.apply(
             lay.counts, lay.data, bg.contiguous(), lay.tile_size, lay.n_tx, lay.map_batch)
-    elif backend == "cuda" and config.compositor == "stream":
-        if bg.shape[0] != 1:
-            raise ValueError(
-                "the stream compositor pair has no scene axis (ROADMAP §A item 14: the scene "
-                "axis for rows 4-5 is queued); bin several scenes with compositor='tilegrid'")
-        (w, h), = caps.sizes
-        one = _composite_stream(ProjectedGaussians(*(x[0] for x in proj)), colors[0],
-                                opacities[0], bg[0], w, h, config)
-        return RenderOutput(image=one.image[None], alpha=one.alpha[None],
-                            depth=one.depth[None], radii=one.radii[None],
-                            dropped_pairs=one.dropped_pairs[None])
     elif backend == "cuda":
         from egogaussian_tpu_torch.render.cuda_raster import TileGridCompositor, tile_bg
 
-        lay = tilegrid_layout_scenes(proj, colors, opacities, caps)
-        img_t, alpha_t, depth_t = TileGridCompositor.apply(
-            lay.meta, lay.vals, bg.contiguous(), lay.tile_size, lay.n_tx,
-            config.bwd_exact_total)
-        # tiles owning no chunk (empty or overflowed) are background / zero:
-        # the kernel writes them as such; the mask also cuts the gradient of
-        # the overflowed tiles' chunks
+        if config.compositor == "stream":
+            from egogaussian_tpu_torch.render.stream_raster import StreamCompositor
+
+            lay = stream_layout_scenes(proj, colors, opacities, caps)
+            img_t, alpha_t, depth_t = StreamCompositor.apply(
+                lay.meta, lay.vals, bg.contiguous(), lay.tile_size, lay.n_tx,
+                lay.empty.shape[0])
+        else:
+            lay = tilegrid_layout_scenes(proj, colors, opacities, caps)
+            img_t, alpha_t, depth_t = TileGridCompositor.apply(
+                lay.meta, lay.vals, bg.contiguous(), lay.tile_size, lay.n_tx,
+                config.bwd_exact_total)
+        # tiles owning no chunk (empty or overflowed) are background / zero
+        # (the stream kernel never writes them); the mask also cuts the
+        # gradient of the overflowed tiles' chunks
         empty = lay.empty[:, None, None]
         img_t = torch.where(empty, tile_bg(bg, empty.shape[0]).to(img_t.dtype), img_t)
         alpha_t = torch.where(empty, torch.zeros_like(alpha_t), alpha_t)
@@ -814,29 +831,6 @@ def _first_scene(out: RenderOutput) -> RenderOutput:
                         radii=out.radii[0], dropped_pairs=out.dropped_pairs[0])
 
 
-def _composite_stream(proj, colors, opacities, bg, width, height, config) -> RenderOutput:
-    """One scene through the stream pair (no scene axis)."""
-    from egogaussian_tpu_torch.render.stream_raster import StreamCompositor
-
-    lay = stream_layout(proj, colors, opacities, width, height, config)
-    img_t, alpha_t, depth_t = StreamCompositor.apply(
-        lay.meta, lay.vals, bg[None, :], lay.tile_size, lay.n_tx, lay.n_tx * lay.n_ty)
-    ts, n_tx, n_ty = lay.tile_size, lay.n_tx, lay.n_ty
-    # tiles owning no chunk (empty or overflowed) are background / zero:
-    # the stream kernel never writes them
-    empty = lay.empty[:, None, None]
-    img_t = torch.where(empty, bg[None, None, :].to(img_t.dtype), img_t)
-    alpha_t = torch.where(empty, torch.zeros_like(alpha_t), alpha_t)
-    depth_t = torch.where(empty, torch.zeros_like(depth_t), depth_t)
-    return RenderOutput(
-        image=_untile(img_t, n_tx, n_ty, ts, width, height),
-        alpha=_untile(alpha_t, n_tx, n_ty, ts, width, height),
-        depth=_untile(depth_t, n_tx, n_ty, ts, width, height),
-        radii=proj.radii,
-        dropped_pairs=lay.dropped,
-    )
-
-
 def composite_cuda(
     proj: ProjectedGaussians,
     colors: torch.Tensor,
@@ -850,8 +844,6 @@ def composite_cuda(
     config.compositor names over its chunk-padded layout (the JAX
     composite_pallas)."""
     config = config or TileConfig()
-    if config.compositor == "stream":
-        return _composite_stream(proj, colors, opacities, bg, width, height, config)
     caps = scene_caps([config], [(width, height)], proj.means2d.device, proj.depths.shape[0])
     out = composite_scenes(_lead(proj), colors[None], opacities[None], bg[None], caps, "cuda")
     return _first_scene(out)

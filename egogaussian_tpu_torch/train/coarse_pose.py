@@ -65,10 +65,11 @@ class PoseGrads(NamedTuple):
 
 
 def smm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b over the last two axes; with a leading scene axis of one, the
-    unbatched product (the bits of the call without a scene axis)."""
-    if a.dim() == 3 and a.shape[0] == 1:
-        return (a[0] @ b[0])[None]
+    """a @ b over the last two axes; with a leading scene axis, each
+    scene's unbatched product (the bits of its call without a scene
+    axis)."""
+    if a.dim() == 3:
+        return torch.stack([a[s] @ b[s] for s in range(a.shape[0])])
     return a @ b
 
 
@@ -107,11 +108,9 @@ def pose_loss_grads_scenes(models, poses, batches, cam_idxs, fixed_T, fixed_R, t
         from egogaussian_tpu_torch.render.crop import crop_planes, mask_rects
 
         rects = mask_rects(obj_mask)
-        scales = [(cw * ch) / float(w * h) for cw, ch in caps.sizes]
         # sums over the crop / full-frame count == the full-frame means
         # (every pixel outside is exactly 0 in prediction and target)
-        loss_scale = (scales[0] if len(set(scales)) == 1
-                      else torch.tensor(scales, dtype=torch.float32, device=dev))
+        scales = [(cw * ch) / float(w * h) for cw, ch in caps.sizes]
 
     leaves = {k: v.detach().requires_grad_(grad_params)
               for k, v in models.params.as_dict().items()}
@@ -130,26 +129,37 @@ def pose_loss_grads_scenes(models, poses, batches, cam_idxs, fixed_T, fixed_R, t
     else:
         T, R_extra = fixed_T, fixed_R
     obj = (m.aux.is_object == 1)[..., None]
-    xyz = torch.where(obj, rigid_apply(m.params.xyz, T[..., :3, :3], T[..., :3, 3]),
-                      m.params.xyz)
+    xyz = torch.where(obj, rigid_apply(m.params.xyz, T[..., :3, :3], T[..., :3, 3],
+                                       m.scene_rows), m.params.xyz)
     res = render_scenes(cams, xyz, m.covariance_rotated(R_extra, 1), m.opacity, bg,
                         model_colors(m), caps, valid_mask=m.aux.alive, means2d_probe=probe,
                         backend=backend, crop=crop, crop_rects=rects if crop else None)
-    if crop:
+
+    def loss_of(image, alpha, gt_c, hand_c, mask_c):
+        img = mask_grad(image, hand_c)
+        alpha = mask_grad(alpha, hand_c)
+        loss = lambda_image * image_loss(img, gt_c * mask_c, lambda_dssim)
+        loss = loss + lambda_l1_alpha * l1_loss(mask_c, alpha)
+        return loss + lambda_l2_alpha * l2_loss(mask_c, alpha)
+
+    if crop and len(set(caps.sizes)) > 1:
+        # windows of different sizes: each scene's loss over its own
+        # window, as its own run takes it (the shared largest window's
+        # padding would enter the means)
         ox, oy = res.crop_offset[:, 0], res.crop_offset[:, 1]
-        cw_max = max(cw for cw, _ in caps.sizes)
-        ch_max = max(ch for _, ch in caps.sizes)
-        gt_c, hand_c, mask_c = (crop_planes(x, ox, oy, caps.sizes, cw_max, ch_max)
-                                for x in (gt, hand, obj_mask))
+        loss = torch.cat([
+            loss_of(res.image[s:s + 1, :, :ch, :cw], res.alpha[s:s + 1, :, :ch, :cw],
+                    *(crop_planes(x[s:s + 1], ox[s:s + 1], oy[s:s + 1], [(cw, ch)], cw, ch)
+                      for x in (gt, hand, obj_mask))) * scales[s]
+            for s, (cw, ch) in enumerate(caps.sizes)])
+    elif crop:
+        ox, oy = res.crop_offset[:, 0], res.crop_offset[:, 1]
+        (cw, ch), = set(caps.sizes)
+        loss = loss_of(res.image, res.alpha,
+                       *(crop_planes(x, ox, oy, caps.sizes, cw, ch)
+                         for x in (gt, hand, obj_mask))) * scales[0]
     else:
-        gt_c, hand_c, mask_c = gt, hand, obj_mask
-    img = mask_grad(res.image, hand_c)
-    alpha = mask_grad(res.alpha, hand_c)
-    loss = lambda_image * image_loss(img, gt_c * mask_c, lambda_dssim)
-    loss = loss + lambda_l1_alpha * l1_loss(mask_c, alpha)
-    loss = loss + lambda_l2_alpha * l2_loss(mask_c, alpha)
-    if crop:
-        loss = loss * loss_scale
+        loss = loss_of(res.image, res.alpha, gt, hand, obj_mask)
 
     inputs = [probe]
     if any_tp:

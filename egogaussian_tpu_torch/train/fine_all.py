@@ -54,8 +54,8 @@ def fine_all_scenes_step(models, opt_states, batches, cam_idxs, accum_Ts, accum_
     leaves = {k: v.detach().requires_grad_(True) for k, v in models.params.as_dict().items()}
     m = dataclasses.replace(models, params=GaussianParams(**leaves))
     obj = (m.aux.is_object == 1)[..., None]
-    xyz = torch.where(obj, rigid_apply(m.params.xyz, T[..., :3, :3], T[..., :3, 3]),
-                      m.params.xyz)
+    xyz = torch.where(obj, rigid_apply(m.params.xyz, T[..., :3, :3], T[..., :3, 3],
+                                       m.scene_rows), m.params.xyz)
     res = render_scenes(cams, xyz, m.covariance_rotated(R, 1), m.opacity,
                         torch.zeros((s_n, 3), device=dev), model_colors(m), tile_config,
                         valid_mask=m.aux.alive, backend=backend)

@@ -62,28 +62,13 @@ def _fine_lr_tree(model: GaussianModel, it: int, opt, divide_3dgs: float = 5.0
 
 def accum_tables(pose_seqs: PoseSequence):
     """(accum_T [S, F, 4, 4], accum_R [S, F, 3, 3]) of a scene-stacked
-    PoseSequence (PoseSequence.accum_T / accum_R per scene, the running
-    products taken once on [S, ...]); one scene takes the unbatched
-    products."""
-    if pose_seqs.translations.shape[0] == 1:
-        one = PoseSequence(pose_seqs.translations[0], pose_seqs.rotations[0],
-                           pose_seqs.solved[0])
-        return one.accum_T()[None], one.accum_R()[None]
-    from egogaussian_tpu_torch.ops.se3 import make_se3
-
-    solved = pose_seqs.solved[..., None, None]
-    eye4 = torch.eye(4, dtype=pose_seqs.translations.dtype, device=solved.device)
-    eye3 = torch.eye(3, dtype=pose_seqs.rotations.dtype, device=solved.device)
-    T = torch.where(solved, make_se3(pose_seqs.rotations, pose_seqs.translations), eye4)
-    R = torch.where(solved, pose_seqs.rotations, eye3)
-
-    def running(seq):  # over the frame axis, newest on the left
-        out = [seq[:, 0]]
-        for k in range(1, seq.shape[1]):
-            out.append(seq[:, k] @ out[-1])
-        return torch.stack(out, dim=1)
-
-    return running(T), running(R)
+    PoseSequence: PoseSequence.accum_T / accum_R of each scene, the
+    unbatched running products of its own run (frames past a scene's own
+    count are unsolved: identities times its last product)."""
+    seqs = [PoseSequence(pose_seqs.translations[s], pose_seqs.rotations[s],
+                         pose_seqs.solved[s]) for s in range(pose_seqs.translations.shape[0])]
+    return (torch.stack([q.accum_T() for q in seqs]),
+            torch.stack([q.accum_R() for q in seqs]))
 
 
 def fine_scenes_step(models, opt_states, pose_seqs, pose_opt_states, batches, cam_idxs,

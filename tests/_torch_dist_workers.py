@@ -123,3 +123,16 @@ def sharded_render_cases(mesh, cases):
                         depth=res.depth.numpy(), dropped=int(dropped),
                         dropped_pairs=int(res.dropped_pairs)))
     return out
+
+
+def stop_answering(mesh, where):
+    """Rank 1 stops answering (sleeps far past any test's limit); rank 0
+    returns at once (where="outside": no collective left to wait in) or
+    waits for rank 1 at a barrier (where="barrier")."""
+    import time
+
+    if mesh.rank == 1:
+        time.sleep(3600)
+    elif where == "barrier":
+        mesh.barrier()
+    return mesh.rank

@@ -187,6 +187,53 @@ def test_stream_kernels_match_twins(dev, d, tile_size):
     assert sr.StreamCompositor.bwd_launches[d] == 1
 
 
+@pytest.mark.parametrize("d", [3, 1])
+def test_stream_scene_launch_equals_one_scene_launches(dev, d):
+    """Two scenes (the second at twice the binning capacities) in one
+    stream layout and one launch of each stream kernel against each
+    scene's one-scene launch, bit for bit: the forward on each scene's
+    tiles that own a slot, the backward on each scene's own slots (zeros
+    past them); one launch of each kernel counted."""
+    from egogaussian_tpu_torch.render.project import ProjectedGaussians
+    from egogaussian_tpu_torch.render.tiled import scene_caps, stream_layout_scenes
+
+    projs, cols, opss, cfgs = [], [], [], []
+    for seed in (6, 7):
+        means, cov3d, colors, ops = _scene(dev, n=300, seed=seed)
+        projs.append(_project(dev, means, cov3d))
+        cols.append(colors[:, :d])
+        opss.append(ops)
+    base = TileConfig(max_pairs=16384, tile_size=32, compositor="stream")
+    cfgs = [base, TileConfig(max_pairs=32768, max_per_tile=2048, tile_size=32,
+                             compositor="stream")]
+    bg = torch.rand((2, d), device=dev)
+    stk = ProjectedGaussians(*(torch.stack(list(x)) for x in zip(*projs)))
+    lay = stream_layout_scenes(stk, torch.stack(cols), torch.stack(opss),
+                               scene_caps(cfgs, [(W, H)] * 2, dev, 300))
+    n = lay.n_tx * lay.n_ty
+    vals = lay.vals.detach().contiguous()
+    sr.StreamCompositor.reset_launch_counts()
+    out = sr.stream_forward(lay.meta, vals, bg, 32, lay.n_tx, 2 * n)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cots = [torch.randn(o.shape, generator=gen, device=dev) * 1e-2 for o in out[:3]]
+    dv = sr.stream_backward(lay.meta, vals, bg, out[3], *cots, 32, lay.n_tx)
+    torch.cuda.synchronize()
+    assert sr.StreamCompositor.fwd_launches[d] == sr.StreamCompositor.bwd_launches[d] == 1
+    per = lay.meta.shape[1] // 2 * 128
+    for s in range(2):
+        one = stream_layout(projs[s], cols[s], opss[s], W, H, cfgs[s])
+        v1 = one.vals.detach().contiguous()
+        o1 = sr.stream_forward(one.meta, v1, bg[s:s + 1].contiguous(), 32, one.n_tx, n)
+        owned = ~one.empty
+        for a, b in zip(out, o1):
+            assert torch.equal(a[s * n:(s + 1) * n][owned], b[owned])
+        d1 = sr.stream_backward(one.meta, v1, bg[s:s + 1].contiguous(), o1[3],
+                                *(c[s * n:(s + 1) * n].contiguous() for c in cots), 32,
+                                one.n_tx)
+        assert torch.equal(dv[s * per:s * per + v1.shape[0]], d1)
+        assert not dv[s * per + v1.shape[0]:(s + 1) * per].any()
+
+
 def _window_split(counts, data):
     """The simple windowed pair's five inputs from a chunked window, op
     zeroed at and past each tile's count."""

@@ -9,15 +9,19 @@ of the compositors, on the CPU:
     slot capacity doubled) and two crop sizes, so each scene drops, lays
     out and composites exactly what it does alone;
   * the stepped functions against JAX's on the same numpy-seeded inputs,
-    JAX on a 1x1 mesh, its Pallas kernels in interpret mode, two scenes
-    with per-scene xyz-rate factors: multi_scene_static_step (std,
-    entropy and label modes), multi_scene_train_step, coarse_step_traced
-    (every flag combination at one warm-up and one post-warm-up
-    iteration) and multi_scene_coarse_step; multi_scene_fine_step and
-    multi_scene_fine_all_step lane by lane against JAX's single-scene
-    steps, which JAX's lockstep vmaps. Tolerances are those the port's other
-    single-step comparisons with JAX use: parameters 2e-5 absolute, losses
-    1e-5 relative, screen radii and visibility counts equal.
+    its Pallas kernels in interpret mode, two scenes with per-scene
+    xyz-rate factors: multi_scene_train_step against JAX's own (jitted,
+    vmapped); coarse_step_traced (every flag combination at one warm-up
+    and one post-warm-up iteration) against JAX's; multi_scene_static_step
+    (std, entropy and label modes), multi_scene_coarse_step,
+    multi_scene_fine_step and multi_scene_fine_all_step lane by lane
+    against JAX's single-scene steps, which JAX's lockstep vmaps (each of
+    the port's lanes equals its one-scene run bit for bit,
+    tests/test_torch_scene_trainer.py; JAX's vmap over the interpret-mode
+    kernels compiles for up to twenty minutes each on the CPU). Tolerances
+    are those the port's other single-step comparisons with JAX use:
+    parameters 2e-5 absolute, losses 1e-5 relative, screen radii and
+    visibility counts equal.
 """
 import dataclasses
 
@@ -33,7 +37,6 @@ from egogaussian_tpu.models import adam_init as j_adam_init
 from egogaussian_tpu.models import from_points as j_from_points
 from egogaussian_tpu.models.pose import empty_pose_sequence as j_empty_seq
 from egogaussian_tpu.models.pose import identity_pose as j_identity_pose
-from egogaussian_tpu.parallel import make_mesh as j_make_mesh
 from egogaussian_tpu.parallel import multi_scene as j_ms
 from egogaussian_tpu.train.common import auto_tile_config as j_auto_tile_config
 from egogaussian_tpu.train.coarse_pose import coarse_step_traced as j_coarse_step_traced
@@ -81,7 +84,7 @@ def _grads_of(out):
 
 
 @pytest.mark.parametrize("d", [3, 1])
-@pytest.mark.parametrize("flavor", ["tilegrid", "tilegrid_exact", "chunked"])
+@pytest.mark.parametrize("flavor", ["tilegrid", "tilegrid_exact", "chunked", "stream"])
 def test_scene_axis_twins_equal_one_scene_twins(flavor, d):
     """Two scenes in one layout and one twin call per pass against each
     scene rendered alone at its own capacities and size: image, alpha,
@@ -94,7 +97,9 @@ def test_scene_axis_twins_equal_one_scene_twins(flavor, d):
     base[1] = TileConfig(tile_size=16, max_pairs=base[1].max_pairs * 2,
                          max_per_tile=base[1].max_per_tile * 2,
                          max_slots=base[1].max_slots * 2)
-    cfgs = [dataclasses.replace(c, bwd_exact_total=flavor == "tilegrid_exact") for c in base]
+    cfgs = [dataclasses.replace(c, bwd_exact_total=flavor == "tilegrid_exact",
+                                compositor="stream" if flavor == "stream" else "tilegrid")
+            for c in base]
     backend = "tiled" if flavor == "chunked" else "cuda"
     bg = torch.rand(2, d, generator=torch.Generator().manual_seed(3))
     singles = []
@@ -125,22 +130,111 @@ def test_scene_axis_twins_equal_one_scene_twins(flavor, d):
 
 
 def test_stream_compositor_takes_one_scene_only():
-    """The stream pair (rows 4-5) has no scene axis yet: one scene through
-    it equals composite_cuda's stream render bit for bit (the pose stages'
-    stream flavor), two scenes are refused with the ROADMAP item named."""
-    p, c, o = _splats(1)
-    cfg = dataclasses.replace(
-        estimate_tile_config(p.means2d, p.radii, W, H, tile_size=16, opacities=o),
-        compositor="stream")
-    one = composite_scenes(ProjectedGaussians(*(x[None] for x in p)), c[None], o[None],
-                           torch.zeros(1, 3), scene_caps([cfg], [(W, H)], CPU, 300), "cuda")
-    ref = composite_cuda(p, c, o, torch.zeros(3), W, H, cfg)
-    assert torch.equal(one.image[0], ref.image) and torch.equal(one.depth[0], ref.depth)
-    two = ProjectedGaussians(*(torch.stack([x, x]) for x in p))
-    caps = scene_caps([cfg, cfg], [(W, H)] * 2, CPU, 300)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        composite_scenes(two, torch.stack([c, c]), torch.stack([o, o]), torch.zeros(2, 3), caps,
-                         "cuda")
+    """The stream pair (rows 4-5) with a scene axis, named for the refusal
+    it replaced: two scenes in one stream layout and one twin call per pass
+    at ts 32 equal each scene through the one-scene stream layout and twin
+    calls bit for bit (every meta row of a scene is its own layout's, its
+    tiles and slots offset by the scenes before it; the shared capacity's
+    slots past its own are padding or its overflowed, masked tiles'),
+    where the second
+    scene's slot capacity ends inside a tile's run (its later tiles
+    overflow, are masked and count as dropped) and the first scene's is
+    twice its own need; image, alpha, depth, dropped pairs and the vals
+    gradient (the masked tiles' cotangents zero, as in the render; the
+    shared capacity's slots past a scene's own get none)."""
+    from egogaussian_tpu_torch.render import stream_raster as sr
+    from egogaussian_tpu_torch.render.tiled import stream_layout, stream_layout_scenes
+
+    scenes = [_splats(4, n=400), _splats(5, n=400)]
+    base = [estimate_tile_config(p.means2d, p.radii, W, H, tile_size=32, opacities=o)
+            for p, _, o in scenes]
+    cfgs = [TileConfig(tile_size=32, max_pairs=base[0].max_pairs,
+                       max_per_tile=base[0].max_per_tile, max_slots=base[0].max_slots * 2,
+                       compositor="stream"),
+            TileConfig(tile_size=32, max_pairs=base[1].max_pairs,
+                       max_per_tile=base[1].max_per_tile, max_slots=256, compositor="stream")]
+    bg = torch.rand(2, 3, generator=torch.Generator().manual_seed(6))
+    cots = None
+    singles = []
+    for (p, c, o), cfg, b in zip(scenes, cfgs, bg):
+        lay = stream_layout(p, c, o, W, H, cfg)
+        n = lay.n_tx * lay.n_ty
+        vals = lay.vals.detach().contiguous()
+        out = sr.stream_forward(lay.meta, vals, b[None], 32, lay.n_tx, n)
+        if cots is None:
+            g = torch.Generator().manual_seed(7)
+            cots = [torch.rand(x.shape, generator=g) for x in out[:3]]
+        # the render masks the tiles that own no chunk (empty or
+        # overflowed), so their cotangents are zero
+        own_cots = [torch.where(lay.empty[:, None, None], 0.0, c) for c in cots]
+        dv = sr.stream_backward(lay.meta, vals, b[None], out[3], *own_cots, 32, lay.n_tx)
+        singles.append((lay, out, dv, own_cots))
+    assert int(singles[1][0].dropped) > 0 and int(singles[0][0].dropped) == 0
+    stk = ProjectedGaussians(*(torch.stack([a, b]) for a, b in zip(scenes[0][0], scenes[1][0])))
+    lay = stream_layout_scenes(stk, torch.stack([scenes[0][1], scenes[1][1]]),
+                               torch.stack([scenes[0][2], scenes[1][2]]),
+                               scene_caps(cfgs, [(W, H)] * 2, CPU, 400))
+    n = lay.n_tx * lay.n_ty
+    vals = lay.vals.detach().contiguous()
+    out = sr.stream_forward(lay.meta, vals, bg, 32, lay.n_tx, 2 * n)
+    dv = sr.stream_backward(lay.meta, vals, bg, out[3],
+                            *(torch.cat([a, b]) for a, b in zip(singles[0][3], singles[1][3])),
+                            32, lay.n_tx)
+    n_slots = lay.meta.shape[1] // 2
+    for s, (one, one_out, one_dv, _) in enumerate(singles):
+        meta = lay.meta[:, s * n_slots:(s + 1) * n_slots]
+        k = one.meta.shape[1]
+        assert torch.equal(meta[0, :k] - s * n, one.meta[0])
+        assert torch.equal(meta[1:3, :k], one.meta[1:3])
+        assert torch.equal(meta[3, :k] - s * n_slots, one.meta[3])
+        # past the scene's own capacity: pure padding, or slots of tiles
+        # that overflowed it (masked, as alone)
+        tail = meta[:, k:].to(torch.int64)
+        assert bool(((tail[1] >= tail[2]) | lay.empty[tail[0]]).all())
+        assert int(lay.dropped[s]) == int(one.dropped)
+        assert torch.equal(lay.empty[s * n:(s + 1) * n], one.empty)
+        own = ~one.empty
+        for a, b in zip(out[:3], one_out[:3]):
+            assert torch.equal(a[s * n:(s + 1) * n][own], b[own])
+        rows = slice(s * n_slots * 128, s * n_slots * 128 + k * 128)
+        assert torch.equal(dv[rows], one_dv)
+        assert not dv[s * n_slots * 128:(s + 1) * n_slots * 128][k * 128:].any()
+
+
+@pytest.mark.parametrize("x_grad", [True, False])
+def test_rotated_covariance_scene_axis_equals_one_scene_calls(x_grad):
+    """The object covariance's extra rotation with a scene axis (one
+    forward for both scenes; X's gradient summed over each scene's own
+    rows) against each scene alone at its own row count, 3,000 and 4,096
+    rows in a 4,096-row stack: covariances and the scales', quats' and
+    (where X takes a gradient, as in stages 2-3) X's gradients bit for
+    bit."""
+    from egogaussian_tpu_torch.ops.covariance import (
+        covariance_from_scaling_rotation_rotated as rotated)
+
+    g = torch.Generator().manual_seed(8)
+    n, rows = 4096, (3000, 4096)
+    scales = torch.rand(2, n, 3, generator=g) * 0.1
+    quats = torch.randn(2, n, 4, generator=g)
+    X = torch.linalg.qr(torch.randn(2, 3, 3, generator=g))[0]
+    mask = torch.rand(2, n, generator=g) > 0.5
+    w = torch.randn(2, n, 6, generator=g)
+
+    def run(sc, q, x, m, wt, r=None):
+        sc, q = sc.clone().requires_grad_(True), q.clone().requires_grad_(True)
+        x = x.clone().requires_grad_(x_grad)
+        y = rotated(sc, q, x, m, rows=r)
+        (y * wt).sum().backward()
+        return y.detach(), sc.grad, q.grad, x.grad
+
+    stk = run(scales, quats, X, mask, w, rows)
+    for s, c in enumerate(rows):
+        one = run(scales[s, :c], quats[s, :c], X[s], mask[s, :c], w[s, :c])
+        for a, b in zip(stk[:3], one[:3]):
+            assert torch.equal(a[s, :c], b)
+        assert (stk[3] is None) == (not x_grad)
+        if x_grad:
+            assert torch.equal(stk[3][s], one[3])
 
 
 def test_stack_and_unstack_keep_each_scene():
@@ -203,8 +297,7 @@ def scenes():
         tm=ms.stack_scenes([s["tm"] for s in out]),
         to=ms.stack_scenes([adam_init(s["tm"].params) for s in out]),
         tb=ms.stack_scenes([s["tb"] for s in out]),
-        jtile=jtile, ttile=ttile, mesh=j_make_mesh(n_scene=1, n_data=1,
-                                                   devices=jax.devices()[:1]))
+        jtile=jtile, ttile=ttile)
     return stk
 
 
@@ -221,28 +314,39 @@ def _assert_models(tm, jm, atol=2e-5, aux=("denom", "max_radii2d")):
 MULT = (1.0, 1.3)
 
 
+def _lane(tree, s):
+    return jax.tree_util.tree_map(lambda x: x[s], tree)
+
+
 @pytest.mark.parametrize("mode", ["std", "entropy", "label"])
 def test_multi_scene_static_step_matches_jax(scenes, mode):
     """Two scenes, two frames each, per-scene xyz-rate factors: the port's
-    step (one batched render per frame slot) against JAX's vmapped one."""
+    step (one batched render per frame slot) lane by lane against JAX's
+    single-scene step at the lane's spatial_lr_scale (the xyz rate is
+    linear in it), the body JAX's lockstep vmaps."""
+    from egogaussian_tpu.train.static import _static_step as j_static_step
+
     p = scenes
     fidxs = np.array([[0, 3], [5, 1]], np.int32)
-    jout = j_ms.multi_scene_static_step(
-        p["jm"], p["jo"], p["jb"], jnp.asarray(fidxs), p["jb"].hand_masks, jnp.int32(120),
-        xyz_lr_mult=jnp.asarray(MULT, jnp.float32), mesh=p["mesh"], mode=mode,
-        backend="tiled", tile_config=p["jtile"], opt_cfg=JConfig().opt, label_lr=0.05)
     tout = ms.multi_scene_static_step(
         p["tm"], p["to"], p["tb"], torch.as_tensor(fidxs), p["tb"].hand_masks, 120,
         xyz_lr_mult=torch.tensor(MULT), mode=mode, backend="tiled", tile_config=p["ttile"],
         opt_cfg=Config().opt, label_lr=0.05)
     tm, _, tloss, tradii, tdrop = tout
-    jm, _, jloss, jradii, jdrop = jout
-    np.testing.assert_allclose(tloss.numpy(), np.asarray(jloss), rtol=1e-5)
-    np.testing.assert_array_equal(tradii.transpose(0, 1).numpy(), np.asarray(jradii))
-    np.testing.assert_array_equal(tdrop.numpy(), np.asarray(jdrop))
-    _assert_models(tm, jm)
-    np.testing.assert_allclose(tm.aux.xyz_gradient_accum.numpy(),
-                               np.asarray(jm.aux.xyz_gradient_accum), atol=1e-5, rtol=0)
+    lanes = ms.unstack_scenes(tm, 2)
+    for s in range(2):
+        jm = dataclasses.replace(_lane(p["jm"], s), spatial_lr_scale=MULT[s])
+        jb = _lane(p["jb"], s)
+        jm, _, jloss, jradii, jdrop = j_static_step(
+            jm, _lane(p["jo"], s), jb, jnp.asarray(fidxs[s]), jb.hand_masks, jnp.int32(120),
+            mode=mode, backend="tiled", tile_config=p["jtile"], opt_cfg=JConfig().opt,
+            label_lr=0.05)
+        np.testing.assert_allclose(float(tloss[s]), float(jloss), rtol=1e-5)
+        np.testing.assert_array_equal(tradii[:, s].numpy(), np.asarray(jradii))
+        assert int(tdrop[s]) == int(jdrop)
+        _assert_models(lanes[s], jm)
+        np.testing.assert_allclose(lanes[s].aux.xyz_gradient_accum.numpy(),
+                                   np.asarray(jm.aux.xyz_gradient_accum), atol=1e-5, rtol=0)
 
 
 def test_multi_scene_train_step_matches_jax(scenes):
@@ -280,9 +384,9 @@ def test_coarse_step_traced_matches_jax(scenes, it):
     with nonzero pose moments so a skipped pose update shows."""
     p = scenes
     one = ms.unstack_scenes(p["tm"], 2)[0]
-    jone = jax.tree_util.tree_map(lambda x: x[0], p["jm"])
+    jone = _lane(p["jm"], 0)
     tb = ms.unstack_scenes(p["tb"], 2)[0]
-    jb = jax.tree_util.tree_map(lambda x: x[0], p["jb"])
+    jb = _lane(p["jb"], 0)
     pose, jpose, f = _pose_problem(p)
     cfg, jcfg = Config(), JConfig()
     for train_pose in (True, False):
@@ -326,31 +430,40 @@ def test_coarse_step_traced_matches_jax(scenes, it):
 
 def test_multi_scene_coarse_step_matches_jax(scenes):
     """Two scenes with opposite per-scene flags (one trains its pose, the
-    other is its phase's first frame) and per-scene xyz-rate factors."""
+    other is its phase's first frame) and per-scene xyz-rate factors, lane
+    by lane against JAX's single-scene traced step with the lane's
+    parameter-gradient gate and xyz-rate factor, the body JAX's lockstep
+    vmaps."""
     p = scenes
     pose, jpose, f = _pose_problem(p)
     cfg, jcfg = Config(), JConfig()
-    jout = j_ms.multi_scene_coarse_step(
-        p["jm"], p["jo"], j_ms.stack_scenes([jpose, jpose]),
-        j_ms.stack_scenes([j_adam_init(jpose)] * 2), p["jb"], jnp.asarray([1, 3], jnp.int32),
-        jnp.tile(jnp.eye(4)[None, None], (2, f + 1, 1, 1)),
-        jnp.tile(jnp.eye(3)[None, None], (2, f + 1, 1, 1)), jnp.asarray([0, 2], jnp.int32),
-        jnp.int32(100), jnp.zeros(2, jnp.int32), train_poses=jnp.asarray([True, False]),
-        first_frames=jnp.asarray([False, True]), grad_params=True,
-        xyz_lr_mult=jnp.asarray(MULT, jnp.float32), mesh=p["mesh"], opt_cfg=jcfg.opt,
-        coarse_cfg=jcfg.coarse, backend="tiled", tile_config=p["jtile"])
+    cams, fixed, it = [1, 3], [0, 2], 100
+    train, first = [True, False], [False, True]
     tout = ms.multi_scene_coarse_step(
         p["tm"], p["to"], ms.stack_scenes([pose, pose]),
-        ms.stack_scenes([adam_init(pose), adam_init(pose)]), p["tb"], [1, 3],
-        torch.eye(4).expand(2, f + 1, 4, 4), torch.eye(3).expand(2, f + 1, 3, 3), [0, 2], 100,
-        torch.zeros(2, dtype=torch.int64), train_poses=[True, False],
-        first_frames=[False, True], grad_params=True, xyz_lr_mult=torch.tensor(MULT),
+        ms.stack_scenes([adam_init(pose), adam_init(pose)]), p["tb"], cams,
+        torch.eye(4).expand(2, f + 1, 4, 4), torch.eye(3).expand(2, f + 1, 3, 3), fixed, it,
+        torch.zeros(2, dtype=torch.int64), train_poses=train,
+        first_frames=first, grad_params=True, xyz_lr_mult=torch.tensor(MULT),
         opt_cfg=cfg.opt, coarse_cfg=cfg.coarse, backend="tiled", tile_config=p["ttile"])
-    np.testing.assert_allclose(tout[4].numpy(), np.asarray(jout[4]), rtol=1e-5)
-    _assert_models(tout[0], jout[0], aux=("denom",))
-    for k in ("translation", "rot6d"):
-        np.testing.assert_allclose(getattr(tout[2], k).numpy(), np.asarray(getattr(jout[2], k)),
-                                   atol=1e-6, rtol=0, err_msg=k)
+    lanes = ms.unstack_scenes(tout[0], 2)
+    poses = ms.unstack_scenes(tout[2], 2)
+    for s in range(2):
+        jm = _lane(p["jm"], s)
+        gate = jnp.float32(first[s] or it >= jcfg.coarse.warm_up_iter)
+        jout = j_coarse_step_traced(
+            jm, _lane(p["jo"], s), jpose, j_adam_init(jpose), _lane(p["jb"], s),
+            jnp.int32(cams[s]), jnp.tile(jnp.eye(4)[None], (f + 1, 1, 1)),
+            jnp.tile(jnp.eye(3)[None], (f + 1, 1, 1)), jnp.int32(fixed[s]), jnp.int32(it),
+            jnp.int32(0), jnp.asarray(train[s]), jnp.asarray(first[s]), grad_params=True,
+            param_grad_gate=gate, xyz_lr_mult=jnp.float32(MULT[s]), opt_cfg=jcfg.opt,
+            coarse_cfg=jcfg.coarse, backend="tiled", tile_config=p["jtile"])
+        np.testing.assert_allclose(float(tout[4][s]), float(jout[4]), rtol=1e-5)
+        _assert_models(lanes[s], jout[0], aux=("denom",))
+        for k in ("translation", "rot6d"):
+            np.testing.assert_allclose(getattr(poses[s], k).numpy(),
+                                       np.asarray(getattr(jout[2], k)), atol=1e-6, rtol=0,
+                                       err_msg=f"lane {s} {k}")
 
 
 def test_multi_scene_fine_steps_match_jax(scenes):
@@ -382,9 +495,8 @@ def test_multi_scene_fine_steps_match_jax(scenes):
     seqs = ms.unstack_scenes(tout[2], 2)
     jmodels = []
     for s in range(2):
-        jm = jax.tree_util.tree_map(lambda x: x[s], p["jm"])
-        jm = dataclasses.replace(jm, spatial_lr_scale=MULT[s])
-        jb = jax.tree_util.tree_map(lambda x: x[s], p["jb"])
+        jm = dataclasses.replace(_lane(p["jm"], s), spatial_lr_scale=MULT[s])
+        jb = _lane(p["jb"], s)
         jout = j_fine_obj_step(jm, j_adam_init(jm.params), jseq, j_adam_init(j_identity_pose()),
                                jb, jnp.int32(cams[s]), jnp.int32(it), jnp.int32(0),
                                train_pose=train[s], opt_cfg=jcfg.opt, fine_cfg=jcfg.fine,

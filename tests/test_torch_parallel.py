@@ -26,6 +26,8 @@ test_torch_pipeline.py::test_train_cli_on_exported_dataset, the
 multi-video CLI's scene and data axes in test_torch_train_multi.py.
 """
 import dataclasses
+import datetime
+import time
 
 import jax
 import jax.numpy as jnp
@@ -61,8 +63,13 @@ MODES = ("std", "entropy", "label")
 PARAMS = ("xyz", "log_scales", "quats", "opacity_logit", "features_dc", "label")
 
 
+# every wait of these tests' ranks, and their whole run, ends here: a rank
+# that stops answering fails its own test instead of holding the suite
+RANK_LIMIT = datetime.timedelta(minutes=5)
+
+
 def _gloo(fn, n_data, *args, n_scene=1):
-    return spawn(fn, n_scene, n_data, "gloo", CPU, args=args)
+    return spawn(fn, n_scene, n_data, "gloo", CPU, args=args, timeout=RANK_LIMIT)
 
 
 @pytest.fixture(scope="module")
@@ -223,3 +230,15 @@ def test_train_background_on_two_ranks_resumes_like_unbroken(tmp_path):
     assert out[0]["writes_all"] == {"ckpt": 2 + 1 + 1, "ply": 2}
     assert out[1]["writes_all"] == {"ckpt": 0, "ply": 0}
     assert out[0]["files"] == ["ckpt_bg.npz", "static_bg.ply"]
+
+
+@pytest.mark.parametrize("where", ["outside", "barrier"])
+def test_ranks_that_stop_answering_fail_by_the_limit(where):
+    """A rank that stops answering, outside any collective or with its peer
+    waiting for it at a barrier, ends spawn at its timeout: the ranks are
+    terminated and TimeoutError raised, long before the rank would wake."""
+    t0 = time.perf_counter()
+    with pytest.raises(TimeoutError, match="still running"):
+        spawn(workers.stop_answering, 1, 2, "gloo", CPU, args=(where,),
+              timeout=datetime.timedelta(seconds=4))
+    assert time.perf_counter() - t0 < 120

@@ -28,6 +28,7 @@ CPU run of it: the same artifact tree and alive counts; PLY params 5e-5
 1.5e-7).
 """
 import dataclasses
+import datetime
 import json
 import os
 
@@ -49,6 +50,7 @@ from egogaussian_tpu_torch.data import make_synthetic_video
 from egogaussian_tpu_torch.data.export_colmap import export_colmap_dataset
 from egogaussian_tpu_torch.data.readers import SceneData, compute_nerfpp_norm
 from egogaussian_tpu_torch.models.gaussians import from_points, save_ply
+from egogaussian_tpu_torch.parallel import launch
 from egogaussian_tpu_torch.pipeline import apply_predicted_masks, run_pipeline
 from egogaussian_tpu_torch.train import ckpt_hook
 from egogaussian_tpu_torch.train.static import train_background
@@ -248,6 +250,8 @@ def test_train_cli_on_exported_dataset(tmp_path, monkeypatch):
     assert bool(res.pose_seq.solved[held_out])
 
     # --mesh 2: two gloo ranks; rank 0 alone returns the metrics and writes
+    # (a rank that stops answering fails this test within minutes)
+    monkeypatch.setattr(launch, "WAIT_LIMIT", datetime.timedelta(minutes=5))
     mesh_out = str(tmp_path / "mesh")
     per_rank = train_main(["-s", src, "-m", mesh_out, "--device", "cpu", "--mesh", "2"]
                           + schedule)

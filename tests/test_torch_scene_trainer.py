@@ -5,26 +5,16 @@ single-scene trainer (train_static, ..., fine_tune_all are the drivers'
 one-scene case), and the lockstep pipeline (cli/train.py train_videos)
 against cli.train per video.
 
-Stages 1.0, 1.2 and 5 are held bit for bit. Stages 2 and 3 within a bound:
-when a scene's capacity is below the stack's, its Gaussian rows are padded
-with dead rows, and the rigid object move x R^T + t (render_gaussians'
-pose) is then a batched matrix product over more rows, whose float32
-rounding on the CPU depends on the row count (MKL picks its kernel by
-shape); the pose's rotation gradient, a reduction over the rows, moves
-with it, and Adam carries the difference. Each bound sits beside the
-largest difference measured in a CPU run of this file:
-  * stage 2 (densify and crop on): parameters 1e-4 (measured 2.6e-6,
-    opacity logits), pose deltas 1e-6 (measured 1.2e-10, rotations);
-  * stage 3: parameters 1e-4 (measured 1.4e-6, opacity logits), pose
-    deltas 1e-5 (measured 1.8e-7, rotations);
-  * the pipeline at test_torch_train_multi's schedule: every file byte for
-    byte but video 1's pose files and the stage-3 PLY trained from them,
-    whose poses lie within 1e-6 (measured 5.8e-11) and whose stage-6
-    scores are equal to 1e-4 dB.
+Every stage is held bit for bit, and the pipeline in every file byte for
+byte: each op that mixes a scene's rows into a per-scene quantity (the
+rigid object move x R^T + t, the pose's 4x4 / 3x3 products and its
+gradient's sums over the Gaussians) runs per scene on the scene's own
+rows through the one-scene call, and the covariance's extra rotation
+sums its gradient over each scene's own rows apart, so a scene whose
+capacity is below the stack's rounds as its own run does; scenes of
+different crop windows take their losses over their own windows.
 """
 import dataclasses
-import filecmp
-import os
 
 import numpy as np
 import pytest
@@ -120,8 +110,7 @@ def test_background_lockstep_equals_single_runs(videos):
 def test_coarse_lockstep_matches_single_runs(videos):
     """Stage 2 of both videos slot by slot (video 0 solves one frame more),
     with object densification, crop windows and per-scene warm-up elision:
-    the solved frames and elided counts equal, poses and models within the
-    module docstring's bounds."""
+    the solved frames, poses and models bit for bit."""
     cfg = _cfg()
     ins = [st.CoarseSceneInput(v.cameras, _object_model(v, 128 + 64 * i, 4.0 + i), *_groups(v),
                                4.0 + i, seed=i) for i, v in enumerate(videos)]
@@ -130,10 +119,9 @@ def test_coarse_lockstep_matches_single_runs(videos):
         seq, model, solved = st.train_coarse_scenes([sc], cfg, device=CPU)[0]
         assert both[i][2] == solved
         assert int(both[i][1].num_alive) > int(sc.obj_model.num_alive)  # splits ran
-        assert _diff(both[i][1], model) <= 1e-4
-        for f in ("translations", "rotations"):
-            assert float((getattr(both[i][0], f) - getattr(seq, f)).abs().max()) <= 1e-6
-        assert torch.equal(both[i][0].solved, seq.solved)
+        assert _diff(both[i][1], model) == 0.0
+        for f in ("translations", "rotations", "solved"):
+            assert torch.equal(getattr(both[i][0], f), getattr(seq, f)), f
 
 
 def _fine_inputs(videos, all_stage=False):
@@ -162,9 +150,9 @@ def test_fine_lockstep_matches_single_runs(videos):
     for i, sc in enumerate(ins):
         seq, model = st.train_fine_scenes([sc], cfg, device=CPU)[0]
         assert int(both[i][1].num_alive) > int(sc.obj_model.num_alive)  # splits ran
-        assert _diff(both[i][1], model) <= 1e-4
-        assert float((both[i][0].translations - seq.translations).abs().max()) <= 1e-5
-        assert float((both[i][0].rotations - seq.rotations).abs().max()) <= 1e-5
+        assert _diff(both[i][1], model) == 0.0
+        for f in ("translations", "rotations", "solved"):
+            assert torch.equal(getattr(both[i][0], f), getattr(seq, f)), f
 
 
 def test_fine_all_lockstep_equals_single_runs(videos):
@@ -178,15 +166,16 @@ def test_fine_all_lockstep_equals_single_runs(videos):
 def test_lockstep_pipeline_equals_per_video_cli(tmp_path):
     """cli/train.py's train_videos (the pipeline in lockstep) over two
     exported videos with cli.train's flags against cli.train per video
-    (seed i): the same file names; every file byte for byte except video
-    1's pose-dependent ones (see the module docstring)."""
+    (seed i): the same file names, every file byte for byte but
+    cfg_args.json (its own paths) and the metrics log (its own timings),
+    and the same stage_end records."""
     from argparse import ArgumentParser
 
     from egogaussian_tpu_torch.cli.train import main as train_main
     from egogaussian_tpu_torch.cli.train import train_videos
     from egogaussian_tpu_torch.config import add_config_args, extract_config
     from egogaussian_tpu_torch.data.export_colmap import export_colmap_dataset
-    from tests.test_torch_train_multi import SCHEDULE, _scores, _tree
+    from tests.test_torch_train_multi import SCHEDULE, _assert_equals_singles
 
     srcs = [export_colmap_dataset(
         make_synthetic_video(CPU, width=64, height=48, n_bg=150, n_obj=40, frames_static=3,
@@ -198,29 +187,72 @@ def test_lockstep_pipeline_equals_per_video_cli(tmp_path):
     cfgs = [extract_config(parser.parse_args(["-s", src, "-m", out] + SCHEDULE))
             for src, out in zip(srcs, outs)]
     train_videos(cfgs, [0, 1], resume=False, lpips_fn=None, checkpoint_every=0, device=CPU)
-    pose_files = {"coarse/obj_pose_sequence.npz", "fine_obj/from-coarse/obj_pose_sequence.npz",
-                  "fine_obj/from-static/obj_pose_sequence.npz",
-                  "fine_obj/from-static/gaussians_fine.ply",
-                  "fine_obj/from-coarse/gaussians_fine.ply",
-                  "interpolate_pose_coarse/obj_pose_sequence.npz",
-                  "interpolate_pose_static/obj_pose_sequence.npz"}
-    for i, src in enumerate(srcs):
-        single = str(tmp_path / f"single{i}")
+    singles = [str(tmp_path / f"single{i}") for i in range(2)]
+    for i, (src, single) in enumerate(zip(srcs, singles)):
         train_main(["-s", src, "-m", single, "--seed", str(i), "--device", "cpu"] + SCHEDULE)
-        assert _tree(outs[i]) == _tree(single)
-        for f in _tree(single):
-            if f == "cfg_args.json" or f.startswith("logs"):
-                continue
-            same = filecmp.cmp(os.path.join(single, f), os.path.join(outs[i], f), shallow=False)
-            if i == 0:
-                assert same, f
-            elif not same:
-                assert f in pose_files or f.startswith(("fine_all", "evaluation")), f
-                if f.endswith(".npz"):
-                    a, b = np.load(os.path.join(single, f)), np.load(os.path.join(outs[i], f))
-                    for k in ("translations", "rotations"):
-                        assert np.abs(a[k] - b[k]).max() <= 1e-6, (f, k)
-        sa = _scores(os.path.join(single, "evaluation", "results.txt"))
-        sb = _scores(os.path.join(outs[i], "evaluation", "results.txt"))
-        for bucket in sa:
-            assert abs(sa[bucket]["psnr"] - sb[bucket]["psnr"]) <= 1e-4
+    _assert_equals_singles(srcs, outs, singles)
+
+
+@pytest.mark.parametrize("compositor", ["tilegrid", "stream"])
+def test_pose_step_lanes_of_other_windows_equal_their_own_steps(videos, compositor):
+    """pose_scenes_step (stages 2 and 3's shared step) at S = 2 with lanes
+    that differ in capacity (128 and 192 rows) and in window (a crop beside
+    the full frame), through either compositor pair: each lane's loss,
+    model, Adam state, pose and pose Adam state bit for bit its own
+    pose_step, as a lockstep lane must (each lane's loss over its own
+    window, its pose's products and gradient sums over its own rows)."""
+    from egogaussian_tpu_torch.data import stack_cameras
+    from egogaussian_tpu_torch.models.optim import adam_init
+    from egogaussian_tpu_torch.models.pose import identity_pose
+    from egogaussian_tpu_torch.parallel.multi_scene import stack_scenes, unstack_scenes
+    from egogaussian_tpu_torch.render.tiled import scene_caps
+    from egogaussian_tpu_torch.train.coarse_pose import pose_scenes_step, pose_step
+    from egogaussian_tpu_torch.train.common import auto_tile_config, pose_crop_size
+
+    cfg = _cfg()
+    lanes = []
+    for i, v in enumerate(videos):
+        model = _object_model(v, 128 + 64 * i, 4.0 + i)
+        batch = stack_cameras(v.cameras, CPU)
+        f = v.dynamic_phases[0][0] + 1
+        pose = dataclasses.replace(identity_pose(CPU), translation=torch.tensor(
+            [0.01, -0.02, 0.015 * (i + 1)]))
+        tcfg = dataclasses.replace(auto_tile_config(model, batch.camera(0), tile_size=16),
+                                   compositor=compositor)
+        crop = pose_crop_size(batch, cfg, "coarse") if i == 0 else None
+        lanes.append(dict(model=model, batch=batch, f=f, pose=pose, tcfg=tcfg, crop=crop))
+    assert lanes[0]["crop"] is not None
+    w, h = lanes[0]["batch"].width, lanes[0]["batch"].height
+    eye4, eye3 = torch.eye(4), torch.eye(3)
+    lrs = {k: 1e-3 for k in FIELDS + ("features_rest",)}
+    kw = dict(lambda_l1_alpha=0.1, backend="cuda")
+    drop = torch.zeros((), dtype=torch.int64)
+    singles = []
+    for ln in lanes:
+        singles.append(pose_step(
+            ln["model"], adam_init(ln["model"].params), ln["pose"], adam_init(ln["pose"]),
+            ln["batch"], ln["f"], eye4, eye3, lrs, 1e-3, 2e-3, True, drop, True,
+            tile_config=ln["tcfg"], crop_size=ln["crop"],
+            crop_max=torch.zeros((3,), dtype=torch.int32), **kw))
+    caps = scene_caps([ln["tcfg"] for ln in lanes],
+                      [ln["crop"] if ln["crop"] is not None else (w, h) for ln in lanes], CPU,
+                      192)
+    models = stack_scenes([ln["model"] for ln in lanes])
+    out = pose_scenes_step(
+        models, stack_scenes([adam_init(ln["model"].params) for ln in lanes]),
+        stack_scenes([ln["pose"] for ln in lanes]),
+        stack_scenes([adam_init(ln["pose"]) for ln in lanes]),
+        stack_scenes([ln["batch"] for ln in lanes]), torch.tensor([ln["f"] for ln in lanes]),
+        torch.stack([eye4, eye4]), torch.stack([eye3, eye3]), lrs, 1e-3, 2e-3, True,
+        drop.repeat(2), [True, True], caps=caps, crop=True,
+        crop_max=torch.zeros((2, 3), dtype=torch.int32), **kw)
+    caps_n = [128, 192]
+    m2, o2 = unstack_scenes(out[0], 2, caps_n), unstack_scenes(out[1], 2, caps_n)
+    p2, po2 = unstack_scenes(out[2], 2), unstack_scenes(out[3], 2)
+    for j, one in enumerate(singles):
+        assert torch.equal(out[4][j], one[4])  # loss
+        assert _diff(m2[j], one[0]) == 0.0
+        for a, b in ((p2[j], one[2]), (po2[j].mu, one[3].mu), (po2[j].nu, one[3].nu),
+                     (o2[j].mu, one[1].mu), (o2[j].nu, one[1].nu)):
+            for f in dataclasses.fields(a):
+                assert torch.equal(getattr(a, f.name), getattr(b, f.name)), (j, f.name)

@@ -14,6 +14,7 @@ D), within that file's bounds (image and alpha 5e-4, depth 5e-3):
 Every case of a D runs in one spawn (rank bodies in
 tests/_torch_dist_workers.py); every rank's image must equal rank 0's.
 """
+import datetime
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -79,7 +80,9 @@ def renders(request):
         oracle[name] = render(_port_camera(w, h), t[0], t[1], t[3],
                               torch.zeros(3) if bg is None else torch.as_tensor(bg),
                               colors_precomp=t[2], valid_mask=t[4], backend="oracle")
-    ranks = spawn(workers.sharded_render_cases, 1, n_slabs, "gloo", CPU, args=(cases,))
+    # a rank that stops answering fails this test at the limit
+    ranks = spawn(workers.sharded_render_cases, 1, n_slabs, "gloo", CPU, args=(cases,),
+                  timeout=datetime.timedelta(minutes=5))
     return n_slabs, {name: [r[i] for r in ranks] for i, name in enumerate(CASES)}, jax_out, oracle
 
 

@@ -14,7 +14,9 @@ interpret mode and the port's oracle, through the public render API.
   * render/probe_layouts.py:stream_probe (empty tiles between runs, a run
     of exactly two chunks, a one-pair tile, the pure-padding tail, a run cut
     at the slot capacity, opaque rows past each count) through the twins
-    against the JAX stream kernel in interpret mode.
+    against the JAX stream kernel in interpret mode;
+  * the stream pair with a scene axis (two scenes in one layout) against
+    JAX's composite_pallas vmapped over the scenes.
 
 Tolerances: against the oracle, the JAX suite's cross-backend bounds
 (tests/test_pallas_raster.py:34-36, :77-79: forward 3e-4 / 3e-3 depth,
@@ -333,3 +335,54 @@ def test_stream_wrapper_dispatch_and_checks():
     pad = (lay.meta[1] >= lay.meta[2]).repeat_interleave(128)
     assert dv.shape == lay.vals.shape
     assert not dv[pad].any() and dv[~pad].abs().sum() > 0
+
+
+def test_stream_scene_axis_matches_jax_vmapped_composite():
+    """The stream pair with a scene axis (render/tiled.py composite_scenes,
+    compositor="stream", the twins) against JAX's own lockstep form of it:
+    composite_pallas with compositor="stream" vmapped over two scenes
+    (interpret mode), the scenes' splats drawn from one numpy seed, one
+    shared TileConfig (vmap shares it), two backgrounds. Forward and the
+    gradients of every splat field within test_stream_matches_jax_and_
+    oracle's bounds (float32 reassociation only: JAX's log-space prefix
+    and suffix sums by lane doubling, the twins' by cumsum)."""
+    from egogaussian_tpu.render.project import ProjectedGaussians as JProj
+    from egogaussian_tpu.render.tiled import composite_pallas
+    from egogaussian_tpu_torch.render.project import ProjectedGaussians
+    from egogaussian_tpu_torch.render.tiled import composite_scenes, scene_caps
+
+    w, h, n = 48, 32, 80
+    rng = np.random.RandomState(71)
+    mu = (rng.rand(2, n, 2) * np.array([w, h])).astype(np.float32)
+    con = np.stack([rng.rand(2, n) * 0.3 + 0.05, (rng.rand(2, n) - 0.5) * 0.02,
+                    rng.rand(2, n) * 0.3 + 0.05], -1).astype(np.float32)
+    depth = (rng.rand(2, n) * 5 + 1).astype(np.float32)
+    radii = (rng.rand(2, n) * 8 + 1).astype(np.int32)
+    cols = rng.rand(2, n, 3).astype(np.float32)
+    ops = (rng.rand(2, n) * 0.9).astype(np.float32)
+    bg = np.array([[0.2, 0.1, 0.4], [0.6, 0.3, 0.0]], np.float32)
+    target = rng.rand(2, 3, h, w).astype(np.float32)
+    kw = dict(max_per_tile=256, max_pairs=4096, tile_size=16, compositor="stream")
+
+    def j_loss(m, c, cl, o):
+        out = jax.vmap(lambda m1, c1, d1, r1, cl1, o1, b1: composite_pallas(
+            JProj(m1, c1, d1, r1, c1), cl1, o1, b1, w, h, JTileConfig(**kw),
+            interpret=True))(m, c, jnp.asarray(depth), jnp.asarray(radii), cl, o,
+                             jnp.asarray(bg))
+        return _loss_terms(out, target, 0.3, 0.1, jnp), out
+
+    (_, rj), gj = jax.value_and_grad(j_loss, argnums=(0, 1, 2, 3), has_aux=True)(
+        *(jnp.asarray(x) for x in (mu, con, cols, ops)))
+    ta = [torch.tensor(x, requires_grad=True) for x in (mu, con, cols, ops)]
+    proj = ProjectedGaussians(ta[0], ta[1], torch.as_tensor(depth), torch.as_tensor(radii),
+                              ta[1])
+    cfg = TileConfig(**kw)
+    rt = composite_scenes(proj, ta[2], ta[3], torch.as_tensor(bg),
+                          scene_caps([cfg, cfg], [(w, h)] * 2, CPU, n), "cuda")
+    gt = torch.autograd.grad(_loss_terms(rt, torch.as_tensor(target), 0.3, 0.1, torch), ta)
+    assert [int(x) for x in rt.dropped_pairs] == [int(x) for x in rj.dropped_pairs] == [0, 0]
+    alpha = rt.alpha.detach()
+    assert float(alpha.min()) < 0.5 < float(alpha.max())  # background shows through
+    _assert_fwd(rt, rj, (2e-6, 2e-6, 2e-5))
+    for name, a, b in zip(("means2d", "conics", "colors", "opacities"), gj, gt):
+        np.testing.assert_allclose(_np(b), _np(a), atol=1e-6, rtol=1e-4, err_msg=f"grad {name}")

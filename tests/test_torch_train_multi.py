@@ -3,11 +3,16 @@ exported in the reference's dataset layout (seeds 0 and 1, 3 and 2
 dynamic frames), at test_train_cli_on_exported_dataset's tiny schedule,
 with --device cpu:
 
-  * each video's output tree equals the per-video training CLI's (cli.train
-    with --seed <seed + i>) file for file, every PLY, pose file, mask,
-    evaluation image and results.txt byte for byte (cfg_args.json names
-    its own paths, metrics.jsonl its own timings);
-  * a --resume rerun trains nothing and scores the same;
+  * the videos train in one lockstep, and each video's output tree equals
+    the per-video training CLI's (cli.train with --seed <seed + i>) file
+    for file, every PLY, pose file, mask, evaluation image and
+    results.txt byte for byte (cfg_args.json names its own paths,
+    metrics.jsonl its own timings);
+  * a --resume rerun trains nothing and scores the same; a run stopped
+    inside stage 3 and rerun with --resume equals the unbroken run;
+  * videos whose frames differ in size are refused before anything is
+    written, at --mesh 2x1 only where they share a scene row; on two rows
+    they train;
   * on a 2x1 mesh (two gloo ranks, one scene row per video) each video's
     tree equals its cli.train run's the same way; on a 1x2 mesh (one
     scene row of two data ranks) --stage1_only runs stages 1.0 and 1.2
@@ -22,6 +27,7 @@ The comparison with JAX's training CLI per video (interpret-mode Pallas,
 every densify window empty so that no split noise is drawn) is marked
 slow, like JAX's multi-video CLI test.
 """
+import datetime
 import filecmp
 import json
 import os
@@ -35,6 +41,7 @@ from egogaussian_tpu_torch.cli import train_multi
 from egogaussian_tpu_torch.cli.train import main as train_main
 from egogaussian_tpu_torch.data import make_synthetic_video
 from egogaussian_tpu_torch.data.export_colmap import export_colmap_dataset
+from egogaussian_tpu_torch.parallel import launch
 from egogaussian_tpu_torch.pipeline import run_pipeline
 
 torch.set_num_threads(1)
@@ -51,6 +58,13 @@ SCHEDULE = [
 ]
 STAGES = {"static", "background", "coarse", "fine_obj/from-static", "fine_obj/from-coarse",
           "interpolate", "fine_all", "eval"}
+
+
+@pytest.fixture(autouse=True)
+def rank_limit(monkeypatch):
+    """The --mesh runs' ranks (parallel/launch.py:spawn's default timeout):
+    a rank that stops answering fails its test within minutes."""
+    monkeypatch.setattr(launch, "WAIT_LIMIT", datetime.timedelta(minutes=5))
 
 
 @pytest.fixture(scope="module")
@@ -141,6 +155,98 @@ def test_train_multi_equals_per_video_train_cli(datasets, singles, tmp_path):
     for out, single in zip(outs, singles):
         assert filecmp.cmp(os.path.join(out, "evaluation", "results.txt"),
                            os.path.join(single, "evaluation", "results.txt"), shallow=False)
+
+
+class _Interrupt(Exception):
+    """Stands in for a kill: raised right after a checkpoint save."""
+
+
+def test_resume_inside_stage3_equals_unbroken_run(datasets, singles, tmp_path, monkeypatch):
+    """The lockstep CLI with --checkpoint_every 2 stopped inside stage 3
+    (right after video 0's from-static checkpoint at iteration 4, when
+    video 1's newest is iteration 2's) and run again with --resume: the
+    lanes resume from their own checkpoints at their own iterations, and
+    each tree equals the per-video CLI's byte for byte in every file it
+    holds (the finished stages' checkpoint files stay beside them)."""
+    from egogaussian_tpu_torch.train import ckpt_hook
+
+    outs = [str(tmp_path / f"multi{i}") for i in range(2)]
+    original = ckpt_hook.StageCheckpointer.maybe_save
+
+    def stop_in_stage3(self, it, *args, **kwargs):
+        original(self, it, *args, **kwargs)
+        if self.path and self.path.endswith(os.path.join("from-static", "ckpt_fine_obj.npz")) \
+                and it == 4:
+            raise _Interrupt("stopped inside stage 3")
+
+    with monkeypatch.context() as m:
+        m.setattr(ckpt_hook.StageCheckpointer, "maybe_save", stop_in_stage3)
+        with pytest.raises(_Interrupt):
+            _multi(datasets, outs, "--checkpoint_every", "2")
+    fdir = os.path.join("fine_obj", "from-static")
+    assert not any(os.path.exists(os.path.join(o, fdir, "gaussians_fine.ply")) for o in outs)
+    assert all(os.path.exists(os.path.join(o, fdir, "ckpt_fine_obj.npz")) for o in outs)
+    assert _multi(datasets, outs, "--checkpoint_every", "2", "--resume") == 0
+    for i, (out, single) in enumerate(zip(outs, singles)):
+        tree = [f for f in _tree(out) if not os.path.basename(f).startswith("ckpt_")]
+        assert tree == _tree(single)
+        differ = [f for f in tree if f not in ("cfg_args.json", "logs/metrics.jsonl")
+                  and not filecmp.cmp(os.path.join(out, f), os.path.join(single, f),
+                                      shallow=False)]
+        assert not differ, (i, differ)
+        resumed = [r for r in _records(out) if r.get("event") == "ckpt_resume"]
+        assert {r["stage"] for r in resumed} == {"fine_obj"}
+        assert [r["step"] for r in resumed] == [4 if i == 0 else 2]
+
+
+def test_frame_size_mix_is_refused_before_anything_is_written(datasets, tmp_path, capsys):
+    """Videos whose frames differ in size cannot share a stack: refused
+    before any file is written, each video's size named."""
+    small = export_colmap_dataset(
+        make_synthetic_video(CPU, width=48, height=32, n_bg=60, n_obj=20, frames_static=3,
+                             frames_dynamic=2, seed=2), str(tmp_path / "small"))
+    outs = [str(tmp_path / "a"), str(tmp_path / "b")]
+    with pytest.raises(SystemExit):
+        train_multi.main(["--videos", datasets[0], small, "--outputs", *outs, "--device",
+                          "cpu"] + SCHEDULE)
+    err = capsys.readouterr().err
+    assert "64x48" in err and "48x32" in err
+    assert not any(os.path.exists(o) for o in outs)
+
+
+@pytest.fixture(scope="module")
+def small(tmp_path_factory):
+    """A third video whose frames are 48x32."""
+    return export_colmap_dataset(
+        make_synthetic_video(CPU, width=48, height=32, n_bg=60, n_obj=20, frames_static=3,
+                             frames_dynamic=2, seed=2), str(tmp_path_factory.mktemp("small")))
+
+
+def test_frame_size_mix_within_a_scene_row_is_refused(datasets, small, tmp_path, capsys):
+    """--mesh 2x1 over three videos: row 0 holds videos 0 and 2, whose
+    frames differ in size, so the run is refused before any rank starts or
+    any file is written, the row and each video's size named."""
+    outs = [str(tmp_path / x) for x in "abc"]
+    with pytest.raises(SystemExit):
+        train_multi.main(["--videos", datasets[0], datasets[1], small, "--outputs", *outs,
+                          "--device", "cpu", "--mesh", "2x1"] + SCHEDULE)
+    err = capsys.readouterr().err
+    assert "scene row 0" in err and "64x48" in err and "48x32" in err
+    assert not any(os.path.exists(o) for o in outs)
+
+
+def test_scene_rows_take_videos_of_different_sizes(datasets, small, singles, tmp_path):
+    """--mesh 2x1 --stage1_only over a 64x48 and a 48x32 video: each scene
+    row holds one video, so the sizes never share a stack; video 0's
+    stage-1 files equal its per-video run's byte for byte."""
+    outs = [str(tmp_path / f"out{i}") for i in range(2)]
+    assert _multi([datasets[0], small], outs, "--mesh", "2x1", "--stage1_only") == 0
+    for out in outs:
+        assert os.path.exists(os.path.join(out, "background", "static_bg.ply"))
+        assert not os.path.exists(os.path.join(out, "coarse"))
+    files = [f for f in _tree(outs[0]) if f.split(os.sep)[0] in ("static", "background")]
+    assert files and all(filecmp.cmp(os.path.join(outs[0], f), os.path.join(singles[0], f),
+                                     shallow=False) for f in files)
 
 
 def test_scene_mesh_equals_per_video_train_cli(datasets, singles, tmp_path):
