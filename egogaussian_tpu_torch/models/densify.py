@@ -31,6 +31,7 @@ from egogaussian_tpu_torch.models.optim import (
     zero_moments_where,
 )
 from egogaussian_tpu_torch.ops.quaternion import quat_to_rotmat
+from egogaussian_tpu_torch.utils.logging import spanned
 
 
 class DensifyResult(NamedTuple):
@@ -100,6 +101,7 @@ def _scatter_rows(dst: torch.Tensor, slot_idx: torch.Tensor, src: torch.Tensor,
     return buf[:c]
 
 
+@spanned("densify")
 def densify_and_prune(
     model: GaussianModel,
     opt_state: AdamState,

@@ -22,6 +22,7 @@ from egogaussian_tpu_torch.ops.covariance import (
 )
 from egogaussian_tpu_torch.ops.knn import mean_sq_dist_to_knn
 from egogaussian_tpu_torch.ops.sh import rgb_to_sh
+from egogaussian_tpu_torch.utils.logging import spanned
 
 
 def inverse_sigmoid(x: float) -> float:
@@ -94,18 +95,15 @@ class GaussianModel:
         return torch.sigmoid(self.params.opacity_logit[..., 0])
 
     def covariance(self, scale_modifier: float = 1.0) -> torch.Tensor:
-        return covariance_from_scaling_rotation(
-            self.scaling, self.params.quats, scale_modifier
-        )
+        return _covariance(self.params.log_scales, self.params.quats, scale_modifier)
 
     def covariance_rotated(self, extra_rot: torch.Tensor, which_object: int = 1,
                            scale_modifier: float = 1.0) -> torch.Tensor:
         """Covariance with the object Gaussians (is_object == which_object)
         rotated by extra_rot [3, 3] (reference gaussian_model.py:46-63)."""
         mask = self.aux.is_object == which_object
-        return covariance_from_scaling_rotation_rotated(
-            self.scaling, self.params.quats, extra_rot, mask, scale_modifier,
-            rows=self.scene_rows)
+        return _covariance(self.params.log_scales, self.params.quats, scale_modifier,
+                           extra_rot, mask, self.scene_rows)
 
     @property
     def num_alive(self) -> torch.Tensor:
@@ -119,6 +117,17 @@ class GaussianModel:
         return dataclasses.replace(
             self, aux=dataclasses.replace(self.aux, is_object=is_obj)
         )
+
+
+@spanned("project")
+def _covariance(log_scales, quats, scale_modifier, extra_rot=None, mask=None, rows=None):
+    """The packed covariance from the activated scales, with the rows of
+    `mask` rotated by extra_rot where given (the projection's first part)."""
+    scales = torch.exp(log_scales)
+    if extra_rot is None:
+        return covariance_from_scaling_rotation(scales, quats, scale_modifier)
+    return covariance_from_scaling_rotation_rotated(scales, quats, extra_rot, mask,
+                                                    scale_modifier, rows=rows)
 
 
 def _next_pow2(n: int) -> int:

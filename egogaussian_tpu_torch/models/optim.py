@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from egogaussian_tpu_torch.models.gaussians import PARAM_FIELDS, GaussianParams
+from egogaussian_tpu_torch.utils.logging import spanned
 
 
 @dataclasses.dataclass
@@ -74,6 +75,7 @@ def per_scene(x, like: torch.Tensor):
     return x
 
 
+@spanned("adam")
 def adam_update(
     params,
     grads,

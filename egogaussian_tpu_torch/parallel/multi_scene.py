@@ -37,6 +37,7 @@ from egogaussian_tpu_torch.models.gaussians import GaussianAux, GaussianModel, G
 from egogaussian_tpu_torch.models.optim import AdamState, adam_update
 from egogaussian_tpu_torch.models.pose import ObjectPose, PoseSequence
 from egogaussian_tpu_torch.parallel.mesh import gather_blocks, max_blocks, sum_blocks
+from egogaussian_tpu_torch.utils.logging import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -408,13 +409,14 @@ def multi_scene_static_step(
           else torch.as_tensor(bg_colors, dtype=torch.float32, device=dev))
     param_grads, probe_grads, losses, radii, dropped = _frames_loss_grads(
         models, batches, fidxs, grad_masks, mode, lambda_dssim, backend, tile_config, bg)
-    gn, den, rmax = _probe_stats(batches, probe_grads, radii, k)
-    loss = torch.mean(losses, dim=0)
-    drop = torch.amax(dropped, dim=0)
-    if n > 1:
-        param_grads, loss, gn, den, rmax, drop = _reduce_over_data(
-            mesh, axis, param_grads, loss, gn, den, rmax, drop)
-    models, new_opt = _apply_step(models, opt_states, lr_tree, param_grads, gn, den, rmax)
+    with span("adam"):
+        gn, den, rmax = _probe_stats(batches, probe_grads, radii, k)
+        loss = torch.mean(losses, dim=0)
+        drop = torch.amax(dropped, dim=0)
+        if n > 1:
+            param_grads, loss, gn, den, rmax, drop = _reduce_over_data(
+                mesh, axis, param_grads, loss, gn, den, rmax, drop)
+        models, new_opt = _apply_step(models, opt_states, lr_tree, param_grads, gn, den, rmax)
     return models, new_opt, loss, radii, torch.maximum(drop_max, drop.to(drop_max.dtype))
 
 

@@ -76,7 +76,7 @@ from egogaussian_tpu_torch.train.common import (
     render_label_image,
 )
 from egogaussian_tpu_torch.utils.console import CONSOLE
-from egogaussian_tpu_torch.utils.logging import log_metrics, use_logger
+from egogaussian_tpu_torch.utils.logging import log_metrics, span, use_logger
 
 
 @dataclasses.dataclass
@@ -196,23 +196,24 @@ def _static_loop(lanes, setup, total_iters: int, modes, cfg, mesh, on_step, stag
     multi = len(setup) > 1
     start = min(ln["start_it"] for ln in setup)
     for it in range(start + 1, total_iters + 1):
-        live = [ln["start_it"] < it for ln in setup]
-        mode = modes(it)
-        fidxs, bgs = [], []
-        for ln, on in zip(setup, live):
-            fidxs.append(ln["frames"](it) if on else [0] * ln["fb"])
-            bgs.append(ln["bg"](it) if on else None)
-        bg = None if all(b is None for b in bgs) else torch.as_tensor(
-            np.stack([np.zeros(3, np.float32) if b is None else b for b in bgs]), device=dev)
-        old = (st.model, st.opt, drop_max)
-        st.model, st.opt, loss, _, drop_max = multi_scene_static_step(
-            st.model, st.opt, batches, torch.as_tensor(fidxs, dtype=torch.int64), grad_masks,
-            it, drop_max, mesh=mesh, mode=mode, lambda_dssim=opt_cfg.lambda_dssim,
-            backend=backend, tile_config=caps, opt_cfg=opt_cfg, label_lr=cfg.static.label_lr)
-        if not all(live):
-            mask = torch.as_tensor(live, device=dev)
-            st.model, st.opt, drop_max = (_select(mask, a, b) for a, b in
-                                          zip((st.model, st.opt, drop_max), old))
+        with span("step"):
+            live = [ln["start_it"] < it for ln in setup]
+            mode = modes(it)
+            fidxs, bgs = [], []
+            for ln, on in zip(setup, live):
+                fidxs.append(ln["frames"](it) if on else [0] * ln["fb"])
+                bgs.append(ln["bg"](it) if on else None)
+            bg = None if all(b is None for b in bgs) else torch.as_tensor(
+                np.stack([np.zeros(3, np.float32) if b is None else b for b in bgs]), device=dev)
+            old = (st.model, st.opt, drop_max)
+            st.model, st.opt, loss, _, drop_max = multi_scene_static_step(
+                st.model, st.opt, batches, torch.as_tensor(fidxs, dtype=torch.int64), grad_masks,
+                it, drop_max, mesh=mesh, mode=mode, lambda_dssim=opt_cfg.lambda_dssim,
+                backend=backend, tile_config=caps, opt_cfg=opt_cfg, label_lr=cfg.static.label_lr)
+            if not all(live):
+                mask = torch.as_tensor(live, device=dev)
+                st.model, st.opt, drop_max = (_select(mask, a, b) for a, b in
+                                              zip((st.model, st.opt, drop_max), old))
         if on_step is not None:
             for j, ln in enumerate(setup):
                 if live[j]:
@@ -225,57 +226,59 @@ def _static_loop(lanes, setup, total_iters: int, modes, cfg, mesh, on_step, stag
         saving = any(ln["ckpt"].every and it % ln["ckpt"].every == 0 for ln in setup)
         if not (interval or reset or end_hook or saving):
             continue
-        models, opts = st.views()
-        changed = False
-        for j, ln in enumerate(setup):
-            if not live[j]:
-                continue
-            m, o = models[j], opts[j]
-            if interval:
-                # drop-triggered capacity regrowth at the interval host sync
-                ln["tile_cfg"], ln["last_drop"], grown = maybe_regrow_tile_config(
-                    m, ln["batch"].camera(0), ln["tile_cfg"], drop_max[j], ln["last_drop"],
-                    stage)
-                if grown:  # new baseline: re-arm the running-max counter
-                    drop_max = drop_max.clone()
-                    drop_max[j] = 0
-                    ln["last_drop"] = 0
+        with span("interval"):
+            models, opts = st.views()
+            changed = False
+            for j, ln in enumerate(setup):
+                if not live[j]:
+                    continue
+                m, o = models[j], opts[j]
+                if interval:
+                    # drop-triggered capacity regrowth at the interval host sync
+                    ln["tile_cfg"], ln["last_drop"], grown = maybe_regrow_tile_config(
+                        m, ln["batch"].camera(0), ln["tile_cfg"], drop_max[j], ln["last_drop"],
+                        stage)
+                    if grown:  # new baseline: re-arm the running-max counter
+                        drop_max = drop_max.clone()
+                        drop_max[j] = 0
+                        ln["last_drop"] = 0
+                        changed = True
+                    scene = dict(scene=ln["lane"]) if multi else {}
+                    _log(ln["logger"], stage, it, **ln["log"], mode=mode, loss=loss[j],
+                         alive=m.num_alive, capacity=m.capacity, dropped_pairs=drop_max[j],
+                         **scene)
+                if densify:
+                    size_threshold = 20.0 if it > opt_cfg.opacity_reset_interval else None
+                    noise = None if ln["noise"] is None else ln["noise"](m.capacity)
+                    sub_seed = int(torch.randint(0, 2**31 - 1, (), generator=ln["gen"]))
+                    res = densify_and_prune(
+                        m, o, sub_seed, max_grad=opt_cfg.densify_grad_threshold,
+                        min_opacity=0.005, extent=ln["extent"], max_screen_size=size_threshold,
+                        percent_dense=opt_cfg.percent_dense, noise=noise)
+                    m, o = res.model, res.opt_state
+                    overflow = int(res.overflow)
+                    if overflow:
+                        CONSOLE.log(f"[{stage}] it {it}: densify overflow — {overflow} "
+                                    "candidates dropped (capacity grows next interval)")
+                    m, o, grew = ensure_capacity(m, o)
+                    if grew:
+                        ln["tile_cfg"] = auto_tile_config(m, ln["batch"].camera(0),
+                                                          tile_size=cfg.render.tile_size)
                     changed = True
-                scene = dict(scene=ln["lane"]) if multi else {}
-                _log(ln["logger"], stage, it, **ln["log"], mode=mode, loss=loss[j],
-                     alive=m.num_alive, capacity=m.capacity, dropped_pairs=drop_max[j], **scene)
-            if densify:
-                size_threshold = 20.0 if it > opt_cfg.opacity_reset_interval else None
-                noise = None if ln["noise"] is None else ln["noise"](m.capacity)
-                sub_seed = int(torch.randint(0, 2**31 - 1, (), generator=ln["gen"]))
-                res = densify_and_prune(
-                    m, o, sub_seed, max_grad=opt_cfg.densify_grad_threshold,
-                    min_opacity=0.005, extent=ln["extent"], max_screen_size=size_threshold,
-                    percent_dense=opt_cfg.percent_dense, noise=noise)
-                m, o = res.model, res.opt_state
-                overflow = int(res.overflow)
-                if overflow:
-                    CONSOLE.log(f"[{stage}] it {it}: densify overflow — {overflow} "
-                                "candidates dropped (capacity grows next interval)")
-                m, o, grew = ensure_capacity(m, o)
-                if grew:
-                    ln["tile_cfg"] = auto_tile_config(m, ln["batch"].camera(0),
-                                                      tile_size=cfg.render.tile_size)
-                changed = True
-            if reset:
-                m, o = reset_opacity(m, o)
-                changed = True
-            if end_hook:
-                m, o = after_iteration(it, model=m, opt=o, lane=ln)
-                changed = True
-            # at the end of the iteration, so a checkpoint on the entropy-end
-            # boundary holds the prune (the rewound stack is recomputed)
-            ln["ckpt"].maybe_save(it, (m, o), ln["rng"], ln["gen"], extra=dict(
-                tile_cfg=ln["tile_cfg"], drop_max=drop_max[j], last_drop=ln["last_drop"]))
-            models[j], opts[j] = m, o
-        if changed:
-            st.restack(models, opts)
-            caps = caps_of()
+                if reset:
+                    m, o = reset_opacity(m, o)
+                    changed = True
+                if end_hook:
+                    m, o = after_iteration(it, model=m, opt=o, lane=ln)
+                    changed = True
+                # at the end of the iteration, so a checkpoint on the entropy-end
+                # boundary holds the prune (the rewound stack is recomputed)
+                ln["ckpt"].maybe_save(it, (m, o), ln["rng"], ln["gen"], extra=dict(
+                    tile_cfg=ln["tile_cfg"], drop_max=drop_max[j], last_drop=ln["last_drop"]))
+                models[j], opts[j] = m, o
+            if changed:
+                st.restack(models, opts)
+                caps = caps_of()
     models, _ = st.views()
     for j, ln in enumerate(setup):
         ln["model"], ln["drop_max"] = models[j], drop_max[j]
@@ -719,43 +722,44 @@ def _coarse_slot(group, batches, scene_rows, cfg, cp, multi, skip_noop_warmup, o
     cmax = crop_stats()
     backend = _one_backend([ln["backend"] for ln in group])
     for it in range(1, cp.total_num_iter + 1):
-        cams, fixed, tps, ffs, live, adv = [], [], [], [], [], []
-        for ln in group:
-            phase, i, f_cur, frames = ln["cur"]
-            sc, rng = ln["sc"], ln["rng"]
-            next_static = sc.static_phase_frames[phase + 1]
-            # frame selection (coarse_obj_pose.py:196-222)
-            if it == 1:
-                cam_idx, train_p = sc.static_phase_frames[0][0], False
-            elif rng.rand() <= cp.curr_vpt_prob:
-                cam_idx = (next_static[rng.randint(len(next_static))]
-                           if i == len(frames) - 1 else f_cur)
-                train_p = True
-            else:
-                cam_idx = ln["pool"][rng.choice(len(ln["pool"]), p=ln["weights"])]
-                train_p = False
-            first = i == 0
-            # warm-up previous-frame iterations of non-first frames are
-            # exact no-ops but for the Adam count
-            elide = skip_noop_warmup and not first and not train_p and it < cp.warm_up_iter
-            if elide:
-                ln["pending"] += 1
-                ln["elided"] += 1
-            cams.append(cam_idx)
-            fixed.append((f_cur - 1) if train_p else cam_idx)
-            tps.append(train_p and not elide)
-            ffs.append(first)
-            live.append(not elide)
-            adv.append(0 if elide else ln["pending"])
-        if not any(live):
-            continue
-        grad_params = any(f or it >= cp.warm_up_iter for f, on in zip(ffs, live) if on)
-        (st.model, st.opt, poses, popts, loss, _, drop, cmax_new) = coarse_scenes_step(
-            st.model, st.opt, poses, popts, batches, cams, t_T, t_R, fixed, it, drop, tps, ffs,
-            grad_params, opt_cfg=cfg.opt, coarse_cfg=cp, backend=backend, tile_config=caps,
-            crop=crop, crop_maxes=cmax, count_advance=adv, live=live, scenes=scene_rows)
-        if crop:
-            cmax = cmax_new
+        with span("step"):
+            cams, fixed, tps, ffs, live, adv = [], [], [], [], [], []
+            for ln in group:
+                phase, i, f_cur, frames = ln["cur"]
+                sc, rng = ln["sc"], ln["rng"]
+                next_static = sc.static_phase_frames[phase + 1]
+                # frame selection (coarse_obj_pose.py:196-222)
+                if it == 1:
+                    cam_idx, train_p = sc.static_phase_frames[0][0], False
+                elif rng.rand() <= cp.curr_vpt_prob:
+                    cam_idx = (next_static[rng.randint(len(next_static))]
+                               if i == len(frames) - 1 else f_cur)
+                    train_p = True
+                else:
+                    cam_idx = ln["pool"][rng.choice(len(ln["pool"]), p=ln["weights"])]
+                    train_p = False
+                first = i == 0
+                # warm-up previous-frame iterations of non-first frames are
+                # exact no-ops but for the Adam count
+                elide = skip_noop_warmup and not first and not train_p and it < cp.warm_up_iter
+                if elide:
+                    ln["pending"] += 1
+                    ln["elided"] += 1
+                cams.append(cam_idx)
+                fixed.append((f_cur - 1) if train_p else cam_idx)
+                tps.append(train_p and not elide)
+                ffs.append(first)
+                live.append(not elide)
+                adv.append(0 if elide else ln["pending"])
+            if not any(live):
+                continue
+            grad_params = any(f or it >= cp.warm_up_iter for f, on in zip(ffs, live) if on)
+            (st.model, st.opt, poses, popts, loss, _, drop, cmax_new) = coarse_scenes_step(
+                st.model, st.opt, poses, popts, batches, cams, t_T, t_R, fixed, it, drop, tps, ffs,
+                grad_params, opt_cfg=cfg.opt, coarse_cfg=cp, backend=backend, tile_config=caps,
+                crop=crop, crop_maxes=cmax, count_advance=adv, live=live, scenes=scene_rows)
+            if crop:
+                cmax = cmax_new
         for j, ln in enumerate(group):
             if live[j]:
                 ln["pending"] = 0
@@ -769,67 +773,68 @@ def _coarse_slot(group, batches, scene_rows, cfg, cp, multi, skip_noop_warmup, o
         reset = window and it % cp.opacity_reset_interval == 0
         if not (interval or reset):
             continue
-        models, opts = st.views()
-        for j, ln in enumerate(group):
-            ln["drop_max"] = drop[j]
-            if ln["crop_size"] is not None:
-                ln["crop_max"] = cmax[j]
-        changed = False
-        for j, ln in enumerate(group):
-            if not live[j]:
-                continue
-            m, o = models[j], opts[j]
-            if interval:
-                ln["tile_cfg"], ln["last_drop"], grown = maybe_regrow_tile_config(
-                    m, ln["batch"].camera(0), ln["tile_cfg"], ln["drop_max"], ln["last_drop"],
-                    "coarse")
-                if grown:
-                    ln["drop_max"], ln["last_drop"] = torch.zeros_like(ln["drop_max"]), 0
-                    changed = True
-                ln["crop_size"], ln["last_crop"], cchanged = maybe_grow_crop(
-                    ln["crop_size"], ln["crop_max"], ln["last_crop"], ln["batch"], "coarse")
-                if cchanged:
-                    ln["crop_max"] = _zero_crop(ln["crop_size"], dev)
-                    changed = True
-                scene = dict(scene=ids[j]) if multi else {}
-                _log(ln["logger"], "coarse", it, frame=ln["cur"][2], loss=loss[j],
-                     alive=m.num_alive, capacity=m.capacity, dropped_pairs=ln["drop_max"],
-                     crop_escapes=crop_escape_count(ln["crop_max"]), **scene)
-            if densify:
-                sc = ln["sc"]
-                size_threshold = 20.0 if it > cp.opacity_reset_interval else None
-                noise = None if sc.densify_noise is None else sc.densify_noise(
-                    ln["cur"][2], m.capacity)
-                sub_seed = int(torch.randint(0, 2**31 - 1, (), generator=ln["gen"]))
-                res = densify_and_prune(
-                    m, o, sub_seed, max_grad=cp.densify_grad_threshold,
-                    min_opacity=cp.min_opacity, extent=sc.cameras_extent,
-                    max_screen_size=size_threshold, percent_dense=cfg.opt.percent_dense,
-                    which_object=1, noise=noise)
-                m, o = res.model, res.opt_state
-                overflow = int(res.overflow)
-                if overflow:
-                    CONSOLE.log(f"[coarse] it {it}: densify overflow — {overflow} "
-                                "candidates dropped")
-                m, o, grew = ensure_capacity(m, o)
-                if grew:
-                    ln["tile_cfg"] = auto_tile_config(m, ln["batch"].camera(0),
-                                                      tile_size=cfg.render.tile_size)
-                changed = True
-            if reset:
-                m, o = reset_opacity(m, o, which_object=1)
-                changed = True
-            models[j], opts[j] = m, o
-        if changed:
+        with span("interval"):
+            models, opts = st.views()
             for j, ln in enumerate(group):
-                ln["model"], ln["opt"] = models[j], opts[j]
-                ln["pose"] = _scene_of(poses, j)
-                ln["pose_opt"] = _scene_of(popts, j)
-            st, poses, popts = restack()
-            caps = caps_of()
-            crop = any(ln["crop_size"] is not None for ln in group)
-            cmax = crop_stats()
-            drop = torch.stack([ln["drop_max"].reshape(()) for ln in group])
+                ln["drop_max"] = drop[j]
+                if ln["crop_size"] is not None:
+                    ln["crop_max"] = cmax[j]
+            changed = False
+            for j, ln in enumerate(group):
+                if not live[j]:
+                    continue
+                m, o = models[j], opts[j]
+                if interval:
+                    ln["tile_cfg"], ln["last_drop"], grown = maybe_regrow_tile_config(
+                        m, ln["batch"].camera(0), ln["tile_cfg"], ln["drop_max"], ln["last_drop"],
+                        "coarse")
+                    if grown:
+                        ln["drop_max"], ln["last_drop"] = torch.zeros_like(ln["drop_max"]), 0
+                        changed = True
+                    ln["crop_size"], ln["last_crop"], cchanged = maybe_grow_crop(
+                        ln["crop_size"], ln["crop_max"], ln["last_crop"], ln["batch"], "coarse")
+                    if cchanged:
+                        ln["crop_max"] = _zero_crop(ln["crop_size"], dev)
+                        changed = True
+                    scene = dict(scene=ids[j]) if multi else {}
+                    _log(ln["logger"], "coarse", it, frame=ln["cur"][2], loss=loss[j],
+                         alive=m.num_alive, capacity=m.capacity, dropped_pairs=ln["drop_max"],
+                         crop_escapes=crop_escape_count(ln["crop_max"]), **scene)
+                if densify:
+                    sc = ln["sc"]
+                    size_threshold = 20.0 if it > cp.opacity_reset_interval else None
+                    noise = None if sc.densify_noise is None else sc.densify_noise(
+                        ln["cur"][2], m.capacity)
+                    sub_seed = int(torch.randint(0, 2**31 - 1, (), generator=ln["gen"]))
+                    res = densify_and_prune(
+                        m, o, sub_seed, max_grad=cp.densify_grad_threshold,
+                        min_opacity=cp.min_opacity, extent=sc.cameras_extent,
+                        max_screen_size=size_threshold, percent_dense=cfg.opt.percent_dense,
+                        which_object=1, noise=noise)
+                    m, o = res.model, res.opt_state
+                    overflow = int(res.overflow)
+                    if overflow:
+                        CONSOLE.log(f"[coarse] it {it}: densify overflow — {overflow} "
+                                    "candidates dropped")
+                    m, o, grew = ensure_capacity(m, o)
+                    if grew:
+                        ln["tile_cfg"] = auto_tile_config(m, ln["batch"].camera(0),
+                                                          tile_size=cfg.render.tile_size)
+                    changed = True
+                if reset:
+                    m, o = reset_opacity(m, o, which_object=1)
+                    changed = True
+                models[j], opts[j] = m, o
+            if changed:
+                for j, ln in enumerate(group):
+                    ln["model"], ln["opt"] = models[j], opts[j]
+                    ln["pose"] = _scene_of(poses, j)
+                    ln["pose_opt"] = _scene_of(popts, j)
+                st, poses, popts = restack()
+                caps = caps_of()
+                crop = any(ln["crop_size"] is not None for ln in group)
+                cmax = crop_stats()
+                drop = torch.stack([ln["drop_max"].reshape(()) for ln in group])
     models, opts = st.views()
     for j, ln in enumerate(group):
         ln["model"], ln["opt"] = models[j], opts[j]
@@ -925,51 +930,53 @@ def train_fine_all_scenes(
     caps = caps_of()
     no_gen = torch.Generator()  # the stage draws no split noise
     for it in range(min(ln["start_it"] for ln in lanes) + 1, ap.total_num_iter + 1):
-        live = [ln["start_it"] < it for ln in lanes]
-        cams = []
-        for ln, on in zip(lanes, live):
-            if not on:
-                cams.append(0)
-            elif it == 1:
-                cams.append(ln["sc"].static_phase_frames[0][0])
-            else:
-                cams.append(int(ln["frames"][ln["rng"].choice(len(ln["frames"]),
-                                                               p=ln["weights"])]))
-        clamp = (ap.densify_from_iter < it < ap.densify_until_iter
-                 and bool(it % ap.opacity_reset_interval))
-        old = (st.model, st.opt, drop)
-        st.model, st.opt, loss, drop = fine_all_scenes_step(
-            st.model, st.opt, batches, cams, acc_T, acc_R, it, clamp, drop,
-            lambda_dssim=ap.lambda_dssim, backend=backend, tile_config=caps, opt_cfg=cfg.opt)
-        if not all(live):
-            mask = torch.as_tensor(live, device=dev)
-            st.model, st.opt, drop = (_select(mask, a, b) for a, b in
-                                      zip((st.model, st.opt, drop), old))
+        with span("step"):
+            live = [ln["start_it"] < it for ln in lanes]
+            cams = []
+            for ln, on in zip(lanes, live):
+                if not on:
+                    cams.append(0)
+                elif it == 1:
+                    cams.append(ln["sc"].static_phase_frames[0][0])
+                else:
+                    cams.append(int(ln["frames"][ln["rng"].choice(len(ln["frames"]),
+                                                                   p=ln["weights"])]))
+            clamp = (ap.densify_from_iter < it < ap.densify_until_iter
+                     and bool(it % ap.opacity_reset_interval))
+            old = (st.model, st.opt, drop)
+            st.model, st.opt, loss, drop = fine_all_scenes_step(
+                st.model, st.opt, batches, cams, acc_T, acc_R, it, clamp, drop,
+                lambda_dssim=ap.lambda_dssim, backend=backend, tile_config=caps, opt_cfg=cfg.opt)
+            if not all(live):
+                mask = torch.as_tensor(live, device=dev)
+                st.model, st.opt, drop = (_select(mask, a, b) for a, b in
+                                          zip((st.model, st.opt, drop), old))
         interval = it % ap.opacity_reset_interval == 0
         saving = any(ln["ckpt"].every and it % ln["ckpt"].every == 0 for ln in lanes)
         if not (interval or saving):
             continue
-        models, opts = st.views()
-        changed = False
-        for j, ln in enumerate(lanes):
-            if not live[j]:
-                continue
-            if interval:
-                ln["tile_cfg"], ln["last_drop"], grown = maybe_regrow_tile_config(
-                    models[j], ln["batch"].camera(0), ln["tile_cfg"], drop[j], ln["last_drop"],
-                    "fine_all")
-                if grown:
-                    drop = drop.clone()
-                    drop[j] = 0
-                    ln["last_drop"] = 0
-                    changed = True
-                scene = dict(scene=ln["lane"]) if multi else {}
-                _log(ln["logger"], "fine_all", it, loss=loss[j], alive=models[j].num_alive,
-                     capacity=models[j].capacity, dropped_pairs=drop[j], **scene)
-            ln["ckpt"].maybe_save(it, (models[j], opts[j]), ln["rng"], no_gen, extra=dict(
-                tile_cfg=ln["tile_cfg"], drop_max=drop[j], last_drop=ln["last_drop"]))
-        if changed:
-            caps = caps_of()
+        with span("interval"):
+            models, opts = st.views()
+            changed = False
+            for j, ln in enumerate(lanes):
+                if not live[j]:
+                    continue
+                if interval:
+                    ln["tile_cfg"], ln["last_drop"], grown = maybe_regrow_tile_config(
+                        models[j], ln["batch"].camera(0), ln["tile_cfg"], drop[j], ln["last_drop"],
+                        "fine_all")
+                    if grown:
+                        drop = drop.clone()
+                        drop[j] = 0
+                        ln["last_drop"] = 0
+                        changed = True
+                    scene = dict(scene=ln["lane"]) if multi else {}
+                    _log(ln["logger"], "fine_all", it, loss=loss[j], alive=models[j].num_alive,
+                         capacity=models[j].capacity, dropped_pairs=drop[j], **scene)
+                ln["ckpt"].maybe_save(it, (models[j], opts[j]), ln["rng"], no_gen, extra=dict(
+                    tile_cfg=ln["tile_cfg"], drop_max=drop[j], last_drop=ln["last_drop"]))
+            if changed:
+                caps = caps_of()
     models, _ = st.views()
     out = []
     for j, ln in enumerate(lanes):
@@ -1094,35 +1101,36 @@ def train_fine_scenes(
     st, seqs, popts, caps, crop, cmax, drop = restack()
     accums = accum_tables(seqs)
     for it in range(min(ln["start_it"] for ln in lanes) + 1, fp.total_num_iter + 1):
-        live = [ln["start_it"] < it for ln in lanes]
-        cams, tps = [], []
-        for ln, on in zip(lanes, live):
-            if not on:
-                cams.append(0)
-                tps.append(False)
-            elif it == 1:
-                cams.append(ln["sc"].static_phase_frames[0][0])
-                tps.append(False)
-            else:
-                c = int(ln["frames"][ln["rng"].choice(len(ln["frames"]), p=ln["weights"])])
-                cams.append(c)
-                tps.append(c in ln["dynamic"])
-        old = (st.model, st.opt, seqs, popts, drop, cmax)
-        st.model, st.opt, seqs, popts, loss, drop, cmax_new, wrote = fine_scenes_step(
-            st.model, st.opt, seqs, popts, batches, cams, it, drop, tps, opt_cfg=cfg.opt,
-            fine_cfg=fp, backend=backend, tile_config=caps, crop=crop, crop_maxes=cmax,
-            accums=accums)
-        if crop:
-            cmax = cmax_new
-        if not all(live):
-            mask = torch.as_tensor(live, device=dev)
-            st.model, st.opt, seqs, popts, drop = (
-                _select(mask, a, b) for a, b in zip((st.model, st.opt, seqs, popts, drop),
-                                                    old[:5]))
+        with span("step"):
+            live = [ln["start_it"] < it for ln in lanes]
+            cams, tps = [], []
+            for ln, on in zip(lanes, live):
+                if not on:
+                    cams.append(0)
+                    tps.append(False)
+                elif it == 1:
+                    cams.append(ln["sc"].static_phase_frames[0][0])
+                    tps.append(False)
+                else:
+                    c = int(ln["frames"][ln["rng"].choice(len(ln["frames"]), p=ln["weights"])])
+                    cams.append(c)
+                    tps.append(c in ln["dynamic"])
+            old = (st.model, st.opt, seqs, popts, drop, cmax)
+            st.model, st.opt, seqs, popts, loss, drop, cmax_new, wrote = fine_scenes_step(
+                st.model, st.opt, seqs, popts, batches, cams, it, drop, tps, opt_cfg=cfg.opt,
+                fine_cfg=fp, backend=backend, tile_config=caps, crop=crop, crop_maxes=cmax,
+                accums=accums)
             if crop:
-                cmax = _select(mask, cmax, old[5])
-        if wrote:  # a written-back delta moves later frames
-            accums = accum_tables(seqs)
+                cmax = cmax_new
+            if not all(live):
+                mask = torch.as_tensor(live, device=dev)
+                st.model, st.opt, seqs, popts, drop = (
+                    _select(mask, a, b) for a, b in zip((st.model, st.opt, seqs, popts, drop),
+                                                        old[:5]))
+                if crop:
+                    cmax = _select(mask, cmax, old[5])
+            if wrote:  # a written-back delta moves later frames
+                accums = accum_tables(seqs)
         if on_step is not None:
             for j, ln in enumerate(lanes):
                 if live[j]:
@@ -1134,53 +1142,54 @@ def train_fine_scenes(
         saving = any(ln["ckpt"].every and it % ln["ckpt"].every == 0 for ln in lanes)
         if not (interval or reset or saving):
             continue
-        unstack(st, seqs, popts, cmax, drop)
-        for j, ln in enumerate(lanes):
-            if not live[j]:
-                continue
-            sc, m, o = ln["sc"], ln["model"], ln["opt"]
-            if interval:
-                ln["tile_cfg"], ln["last_drop"], grown = maybe_regrow_tile_config(
-                    m, ln["batch"].camera(0), ln["tile_cfg"], ln["drop_max"], ln["last_drop"],
-                    "fine_obj")
-                if grown:
-                    ln["drop_max"], ln["last_drop"] = torch.zeros_like(ln["drop_max"]), 0
-                ln["crop_size"], ln["last_crop"], cchanged = maybe_grow_crop(
-                    ln["crop_size"], ln["crop_max"], ln["last_crop"], ln["batch"], "fine_obj")
-                if cchanged:
-                    ln["crop_max"] = _zero_crop(ln["crop_size"], dev)
-                scene = dict(scene=ln["lane"]) if multi else {}
-                _log(ln["logger"], "fine_obj", it, loss=loss[j], alive=m.num_alive,
-                     capacity=m.capacity, dropped_pairs=ln["drop_max"],
-                     crop_escapes=crop_escape_count(ln["crop_max"]), **scene)
-            if densify:
-                size_threshold = 20.0 if it > fp.opacity_reset_interval else None
-                noise = None if sc.densify_noise is None else sc.densify_noise(m.capacity)
-                sub_seed = int(torch.randint(0, 2**31 - 1, (), generator=ln["gen"]))
-                res = densify_and_prune(
-                    m, o, sub_seed, max_grad=fp.densify_grad_threshold,
-                    min_opacity=fp.min_opacity, extent=sc.cameras_extent,
-                    max_screen_size=size_threshold, percent_dense=cfg.opt.percent_dense,
-                    which_object=1, noise=noise)
-                m, o = res.model, res.opt_state
-                overflow = int(res.overflow)
-                if overflow:
-                    CONSOLE.log(f"[fine_obj] it {it}: densify overflow — {overflow} "
-                                "candidates dropped")
-                m, o, grew = ensure_capacity(m, o)
-                if grew:
-                    ln["tile_cfg"] = auto_tile_config(m, ln["batch"].camera(0),
-                                                      tile_size=cfg.render.tile_size)
-            if reset:
-                m, o = reset_opacity(m, o, which_object=1)
-            ln["model"], ln["opt"] = m, o
-            ln["ckpt"].maybe_save(it, (m, o, ln["pose_opt"], ln["seq"]), ln["rng"], ln["gen"],
-                                  extra=dict(tile_cfg=ln["tile_cfg"], drop_max=ln["drop_max"],
-                                             last_drop=ln["last_drop"],
-                                             crop_size=ln["crop_size"],
-                                             crop_max=ln["crop_max"],
-                                             last_crop=ln["last_crop"]))
-        st, seqs, popts, caps, crop, cmax, drop = restack()
+        with span("interval"):
+            unstack(st, seqs, popts, cmax, drop)
+            for j, ln in enumerate(lanes):
+                if not live[j]:
+                    continue
+                sc, m, o = ln["sc"], ln["model"], ln["opt"]
+                if interval:
+                    ln["tile_cfg"], ln["last_drop"], grown = maybe_regrow_tile_config(
+                        m, ln["batch"].camera(0), ln["tile_cfg"], ln["drop_max"], ln["last_drop"],
+                        "fine_obj")
+                    if grown:
+                        ln["drop_max"], ln["last_drop"] = torch.zeros_like(ln["drop_max"]), 0
+                    ln["crop_size"], ln["last_crop"], cchanged = maybe_grow_crop(
+                        ln["crop_size"], ln["crop_max"], ln["last_crop"], ln["batch"], "fine_obj")
+                    if cchanged:
+                        ln["crop_max"] = _zero_crop(ln["crop_size"], dev)
+                    scene = dict(scene=ln["lane"]) if multi else {}
+                    _log(ln["logger"], "fine_obj", it, loss=loss[j], alive=m.num_alive,
+                         capacity=m.capacity, dropped_pairs=ln["drop_max"],
+                         crop_escapes=crop_escape_count(ln["crop_max"]), **scene)
+                if densify:
+                    size_threshold = 20.0 if it > fp.opacity_reset_interval else None
+                    noise = None if sc.densify_noise is None else sc.densify_noise(m.capacity)
+                    sub_seed = int(torch.randint(0, 2**31 - 1, (), generator=ln["gen"]))
+                    res = densify_and_prune(
+                        m, o, sub_seed, max_grad=fp.densify_grad_threshold,
+                        min_opacity=fp.min_opacity, extent=sc.cameras_extent,
+                        max_screen_size=size_threshold, percent_dense=cfg.opt.percent_dense,
+                        which_object=1, noise=noise)
+                    m, o = res.model, res.opt_state
+                    overflow = int(res.overflow)
+                    if overflow:
+                        CONSOLE.log(f"[fine_obj] it {it}: densify overflow — {overflow} "
+                                    "candidates dropped")
+                    m, o, grew = ensure_capacity(m, o)
+                    if grew:
+                        ln["tile_cfg"] = auto_tile_config(m, ln["batch"].camera(0),
+                                                          tile_size=cfg.render.tile_size)
+                if reset:
+                    m, o = reset_opacity(m, o, which_object=1)
+                ln["model"], ln["opt"] = m, o
+                ln["ckpt"].maybe_save(it, (m, o, ln["pose_opt"], ln["seq"]), ln["rng"], ln["gen"],
+                                      extra=dict(tile_cfg=ln["tile_cfg"], drop_max=ln["drop_max"],
+                                                 last_drop=ln["last_drop"],
+                                                 crop_size=ln["crop_size"],
+                                                 crop_max=ln["crop_max"],
+                                                 last_crop=ln["last_crop"]))
+            st, seqs, popts, caps, crop, cmax, drop = restack()
     unstack(st, seqs, popts, cmax, drop)
     out = []
     for ln in lanes:

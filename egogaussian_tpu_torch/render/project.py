@@ -14,6 +14,8 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from egogaussian_tpu_torch.utils.logging import spanned
+
 
 def rigid_apply(x: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
                 rows: Optional[Sequence[int]] = None) -> torch.Tensor:
@@ -43,6 +45,7 @@ class ProjectedGaussians(NamedTuple):
     cov2d: torch.Tensor  # [N, 3] 2D covariance (a, b, c), pre-inversion
 
 
+@spanned("project")
 def project_gaussians(
     means3d: torch.Tensor,
     cov3d: torch.Tensor,

@@ -35,6 +35,7 @@ import torch
 
 from egogaussian_tpu_torch.render.oracle import ALPHA_EPS, RenderOutput
 from egogaussian_tpu_torch.render.project import ProjectedGaussians
+from egogaussian_tpu_torch.utils.logging import spanned
 
 CHUNK = 128  # pairs per chunk of the padded layout (the kernels' unit)
 
@@ -278,6 +279,7 @@ def _lead(proj: ProjectedGaussians) -> ProjectedGaussians:
     return ProjectedGaussians(*(x[None] for x in proj))
 
 
+@spanned("bin")
 def bin_scenes(proj: ProjectedGaussians, caps: SceneCaps,
                opacities: Optional[torch.Tensor] = None):
     """bin_pairs for S scenes at once: proj fields [S, N, ...], opacities
@@ -481,6 +483,7 @@ def _flat_rows(proj, colors, opacities, ch: int) -> torch.Tensor:
     return rows.reshape(-1, ch)
 
 
+@spanned("layout")
 def window_layout_scenes(proj: ProjectedGaussians, colors: torch.Tensor,
                          opacities: torch.Tensor, caps: SceneCaps) -> WindowLayout:
     """window_layout for S scenes in one layout: proj fields [S, N, ...],
@@ -638,6 +641,7 @@ def _packed_rows(proj, colors, opacities) -> torch.Tensor:
         dim=-1)
 
 
+@spanned("layout")
 def tilegrid_layout_scenes(proj: ProjectedGaussians, colors: torch.Tensor,
                            opacities: torch.Tensor, caps: SceneCaps) -> TilegridLayout:
     """tilegrid_layout for S scenes in one layout (proj fields [S, N, ...],
@@ -692,6 +696,7 @@ def tilegrid_layout(
     return lay._replace(dropped=lay.dropped[0])
 
 
+@spanned("layout")
 def stream_layout_scenes(proj: ProjectedGaussians, colors: torch.Tensor,
                          opacities: torch.Tensor, caps: SceneCaps) -> StreamLayout:
     """The stream flavor's layout for S scenes in one layout (proj fields
@@ -777,28 +782,42 @@ def composite_scenes(
     image [S, D, H, W], alpha and depth [S, 1, H, W] at the largest scene
     size (a smaller scene's pixels past its own size are bg / 0) and
     dropped_pairs [S]."""
-    config = caps.config
     if backend == "tiled":
+        lay = window_layout_scenes(proj, colors, opacities, caps)
+    elif backend == "cuda":
+        if caps.config.compositor == "stream":
+            lay = stream_layout_scenes(proj, colors, opacities, caps)
+        else:
+            lay = tilegrid_layout_scenes(proj, colors, opacities, caps)
+    else:
+        raise ValueError(f"no scene-axis compositor for backend {backend!r}")
+    image, alpha, depth = _composite(lay, bg, caps)
+    return RenderOutput(image=image, alpha=alpha, depth=depth, radii=proj.radii,
+                        dropped_pairs=lay.dropped)
+
+
+@spanned("composite")
+def _composite(lay, bg: torch.Tensor, caps: SceneCaps):
+    """(image, alpha, depth) of composite_scenes: the kernel pair of the
+    layout's kind over it, then the tiles put back into frames."""
+    if isinstance(lay, WindowLayout):
         from egogaussian_tpu_torch.render.window_raster import WindowChunkedCompositor
 
-        lay = window_layout_scenes(proj, colors, opacities, caps)
         img_t, alpha_t, depth_t = WindowChunkedCompositor.apply(
             lay.counts, lay.data, bg.contiguous(), lay.tile_size, lay.n_tx, lay.map_batch)
-    elif backend == "cuda":
+    else:
         from egogaussian_tpu_torch.render.cuda_raster import TileGridCompositor, tile_bg
 
-        if config.compositor == "stream":
+        if isinstance(lay, StreamLayout):
             from egogaussian_tpu_torch.render.stream_raster import StreamCompositor
 
-            lay = stream_layout_scenes(proj, colors, opacities, caps)
             img_t, alpha_t, depth_t = StreamCompositor.apply(
                 lay.meta, lay.vals, bg.contiguous(), lay.tile_size, lay.n_tx,
                 lay.empty.shape[0])
         else:
-            lay = tilegrid_layout_scenes(proj, colors, opacities, caps)
             img_t, alpha_t, depth_t = TileGridCompositor.apply(
                 lay.meta, lay.vals, bg.contiguous(), lay.tile_size, lay.n_tx,
-                config.bwd_exact_total)
+                caps.config.bwd_exact_total)
         # tiles owning no chunk (empty or overflowed) are background / zero
         # (the stream kernel never writes them); the mask also cuts the
         # gradient of the overflowed tiles' chunks
@@ -806,8 +825,6 @@ def composite_scenes(
         img_t = torch.where(empty, tile_bg(bg, empty.shape[0]).to(img_t.dtype), img_t)
         alpha_t = torch.where(empty, torch.zeros_like(alpha_t), alpha_t)
         depth_t = torch.where(empty, torch.zeros_like(depth_t), depth_t)
-    else:
-        raise ValueError(f"no scene-axis compositor for backend {backend!r}")
     ts, n_tx, n_ty = lay.tile_size, lay.n_tx, lay.n_ty
     w_max = max(w for w, _ in caps.sizes)
     h_max = max(h for _, h in caps.sizes)
@@ -822,8 +839,7 @@ def composite_scenes(
         image = torch.where(own, image, bg[:, :, None, None].to(image.dtype))
         alpha = torch.where(own, alpha, torch.zeros_like(alpha))
         depth = torch.where(own, depth, torch.zeros_like(depth))
-    return RenderOutput(image=image, alpha=alpha, depth=depth, radii=proj.radii,
-                        dropped_pairs=lay.dropped)
+    return image, alpha, depth
 
 
 def _first_scene(out: RenderOutput) -> RenderOutput:

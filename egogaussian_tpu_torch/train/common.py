@@ -28,6 +28,7 @@ from egogaussian_tpu_torch.render.api import RenderResult, render, resolve_backe
 from egogaussian_tpu_torch.render.camera import Camera
 from egogaussian_tpu_torch.render.project import rigid_apply
 from egogaussian_tpu_torch.utils.console import CONSOLE
+from egogaussian_tpu_torch.utils.logging import spanned
 
 
 @dataclasses.dataclass
@@ -41,11 +42,13 @@ class TrainState:
     step: torch.Tensor  # 0-d int32
 
 
+@spanned("loss")
 def mask_grad(img: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Zero gradients at masked pixels without changing the forward value."""
     return img * (1.0 - mask) + img.detach() * mask
 
 
+@spanned("loss")
 def image_loss(pred: torch.Tensor, gt: torch.Tensor, lambda_dssim: float) -> torch.Tensor:
     """(1-l)*L1 + l*(1-SSIM) — the standard 3DGS photometric loss."""
     return (1.0 - lambda_dssim) * l1_loss(pred, gt) + lambda_dssim * (1.0 - ssim(pred, gt))
