@@ -8,7 +8,8 @@ nonzero and no result line is printed):
   1. device:  requires CUDA; prints the card (nvidia-smi name, power limit)
   2. build:   compiles the nine compositor kernels (tile-grid forward, the
               tile-grid backward in both flavors, the stream pair, the
-              chunked and simple windowed pairs) and the FMA-peak probe from
+              chunked and simple windowed pairs), the pair gather and its
+              reduce, and the FMA-peak probe from
               egogaussian_tpu_torch/csrc, one nvcc per source in parallel,
               into one library
   3. kernels: each kernel against its plain PyTorch twin on the card, at
@@ -37,11 +38,14 @@ nonzero and no result line is printed):
               within 5e-6; the scene axis (scene_axis_check): each case
               beside a second scene at twice its binning capacities in
               one launch of rows 1-7 against two one-scene launches, and
-              so the twins, bit for bit
+              so the twins, bit for bit; the layouts' pair gather at the
+              static training cell's sizes (check_pair_gather) against its
+              twins and autograd's index backward, bit for bit, with times
   4. slice:   (path 1) stage-1.0 static training (train_static) on a
               640x480 synthetic video with ~100k Gaussians, shortened
               schedule; launch counters must show the tile-grid kernels
-              ran; PLY round trip
+              ran, and the pair gather and reduce once per compositor
+              forward and backward; PLY round trip
   5. coarse:  (path 2) stage-2 coarse object pose (estimate_coarse_obj_pose)
               on the same video with the object model the slice hands
               over, shortened schedule, crop windows on; pose error against
@@ -858,7 +862,126 @@ def phase_kernels(dev, errs):
                 model_colors(model), opac, knn_cfg, DEEP_FWD_TOL,
                 (vid.cameras[1], model.params.xyz, model.covariance(), model_colors(model),
                  opac), twins=False)
+    # 4) the layouts' pair gather at the static training cell's sizes
+    check_pair_gather(dev)
 
+
+HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's published HBM rate
+
+
+def gather_cell_layouts(dev, n: int = 500_000, width: int = 1600, height: int = 900):
+    """The pair gather's inputs at the static training cell's sizes
+    (render/probe_layouts.py:gather_scene at ts 32 with estimated
+    capacities), for the tile-grid, stream and window layouts: per layout
+    (rows, index, transposed, dvals), dvals the gradient the layout's own
+    compositor gives a loss of random weights."""
+    import torch
+
+    from egogaussian_tpu_torch.ops.covariance import covariance_from_scaling_rotation
+    from egogaussian_tpu_torch.render import tiled
+    from egogaussian_tpu_torch.render.camera import Camera, look_at
+    from egogaussian_tpu_torch.render.probe_layouts import gather_scene
+    from egogaussian_tpu_torch.render.project import ProjectedGaussians, project_gaussians
+
+    means, scales, quats, colors, ops, focal = (
+        torch.as_tensor(x, device=dev) if not isinstance(x, float) else x
+        for x in gather_scene(n, width, height))
+    R, tr = look_at(np.array([0.0, 0.0, -4.0]), np.zeros(3))
+    cam = Camera.from_colmap(R, tr, focal, focal, width, height, device=dev)
+    proj = project_gaussians(means, covariance_from_scaling_rotation(scales, quats),
+                             cam.viewmat, cam.fx, cam.fy, cam.cx, cam.cy, width, height)
+    cfg = tiled.estimate_tile_config(proj.means2d, proj.radii, width, height, tile_size=32,
+                                     opacities=ops)
+    lead = ProjectedGaussians(*(x.detach()[None].requires_grad_(x.is_floating_point())
+                                for x in proj))
+    out = {}
+    real = tiled.gather_pairs
+    for kind, fn, c in (("tilegrid", tiled.tilegrid_layout_scenes, cfg),
+                        ("stream", tiled.stream_layout_scenes,
+                         dataclasses.replace(cfg, compositor="stream")),
+                        ("window", tiled.window_layout_scenes, cfg)):
+        caps = tiled.scene_caps([c], [(width, height)], dev, means.shape[0])
+        seen = {}
+
+        def record(rows, index, transposed):
+            vals = real(rows, index, transposed)
+            vals.retain_grad()
+            seen.update(rows=rows.detach(), index=index, transposed=transposed, vals=vals)
+            return vals
+
+        tiled.gather_pairs = record
+        try:
+            lay = fn(lead, colors[None], ops[None], caps)
+        finally:
+            tiled.gather_pairs = real
+        image, alpha, depth = tiled._composite(lay, torch.zeros((1, 3), device=dev), caps)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        loss = sum(torch.sum(x * torch.rand(x.shape, device=dev, generator=gen))
+                   for x in (image, alpha, depth))
+        loss.backward()
+        out[kind] = (seen["rows"], seen["index"], seen["transposed"], seen["vals"].grad,
+                     seen["vals"].detach(), int(lay.dropped.sum()))
+    return out, cfg
+
+
+def check_pair_gather(dev):
+    """render/pair_gather.py at the static training cell's sizes
+    (gather_cell_layouts): per layout, the gather kernel against rows[src]
+    and the reduce kernel against its plain twin and against autograd's
+    CUDA index backward of rows[src], on the layout compositor's own
+    gradient, bit for bit (torch.equal: up to the sign of a zero); one
+    launch of each kernel per layout forward and backward. Then, on the
+    tile-grid layout (the training path), each kernel's time (CUDA events)
+    beside its byte bound, the twins' times and autograd's rows[src]
+    forward + backward (library_ms); one "pair_gather" line."""
+    import torch
+
+    from egogaussian_tpu_torch.render import pair_gather as pg
+
+    pg.PairGather.reset_launch_counts()
+    layouts, cfg = gather_cell_layouts(dev)
+    launches = (pg.PairGather.gather_launches, pg.PairGather.reduce_launches)
+    if launches != (3, 3):
+        raise AssertionError(f"pair gather launches {launches}, not one pair per layout")
+    line = dict(max_pairs=cfg.max_pairs, max_slots=cfg.max_slots,
+                max_per_tile=cfg.max_per_tile)
+    for kind, (rows, index, transposed, dvals, vals, dropped) in layouts.items():
+        ch = rows.shape[1]
+        if not torch.equal(vals, pg.gather_plain(rows, index.src, transposed)):
+            raise AssertionError(f"pair gather {kind}: kernel != rows[src]")
+        leaf = rows.clone().requires_grad_(True)
+        (lib,) = torch.autograd.grad(pg.gather_plain(leaf, index.src, transposed), leaf, dvals)
+        got = pg.reduce(dvals, index, ch, transposed)
+        plain = pg.reduce_plain(dvals, index, ch, transposed)
+        if not (torch.equal(got, plain) and torch.equal(got, lib)):
+            raise AssertionError(
+                f"pair reduce {kind}: kernel vs twin {max_err(got, plain):.3g}, "
+                f"vs autograd {max_err(got, lib):.3g}")
+        held = index.pair_slot >= 0
+        line[kind] = dict(slots=index.src.shape[0], held_pairs=int(held.sum()), dropped=dropped,
+                          tail_slots=int((index.src == index.src[-1]).sum()),
+                          nonzero_grad_rows=int((lib != 0).any(1).sum()))
+    rows, index, _, dvals, _, _ = layouts["tilegrid"]
+    ch = rows.shape[1]
+    n_slots, n_rows = index.src.shape[0], rows.shape[0]
+    held = int((index.pair_slot >= 0).sum())
+    gather_bytes = 4 * n_slots * ch + 8 * n_slots + 4 * n_rows * ch
+    reduce_bytes = 8 * index.pair_slot.numel() + 3 * 8 * n_rows + 4 * held * ch + 4 * n_rows * ch
+    leaf = rows.clone().requires_grad_(True)
+
+    def library():
+        torch.autograd.grad(pg.gather_plain(leaf, index.src, True), leaf, dvals)
+
+    with torch.no_grad():
+        t = dict(gather_ms=cuda_ms(lambda: pg.gather(rows, index, True)),
+                 reduce_ms=cuda_ms(lambda: pg.reduce(dvals, index, ch, True)),
+                 gather_plain_ms=cuda_ms(lambda: pg.gather_plain(rows, index.src, True)),
+                 reduce_plain_ms=cuda_ms(lambda: pg.reduce_plain(dvals, index, ch, True),
+                                         iters=3, warmup=1))
+    t["library_ms"] = cuda_ms(library, iters=3, warmup=1)
+    emit("pair_gather", **line, **t, gather_bound_ms=gather_bytes / HBM_BYTES_PER_S * 1e3,
+         reduce_bound_ms=reduce_bytes / HBM_BYTES_PER_S * 1e3, gather_bytes=gather_bytes,
+         reduce_bytes=reduce_bytes, launches=dict(gather=launches[0], reduce=launches[1]))
 
 
 # ---------------------------------------------------------------------------
@@ -1071,6 +1194,7 @@ def phase_slice(dev, vid, out_dir):
     from egogaussian_tpu_torch.data import split_viewpoints_by_phase
     from egogaussian_tpu_torch.models.gaussians import load_ply, save_ply
     from egogaussian_tpu_torch.render.cuda_raster import TileGridCompositor
+    from egogaussian_tpu_torch.render.pair_gather import PairGather
     from egogaussian_tpu_torch.train.static import train_static
 
     cfg = Config()
@@ -1089,6 +1213,7 @@ def phase_slice(dev, vid, out_dir):
             clock[it] = time.perf_counter()
 
     TileGridCompositor.reset_launch_counts()
+    PairGather.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     res = train_static(vid.cameras, vid.points, vid.colors, cfg, groups, extent,
@@ -1097,7 +1222,9 @@ def phase_slice(dev, vid, out_dir):
     torch.cuda.synchronize()
     seconds = time.time() - t0
     launches = {"fwd": dict(TileGridCompositor.fwd_launches),
-                "bwd": dict(TileGridCompositor.bwd_launches)}
+                "bwd": dict(TileGridCompositor.bwd_launches),
+                "pair_gather": PairGather.gather_launches,
+                "pair_reduce": PairGather.reduce_launches}
     peak = torch.cuda.max_memory_allocated()
 
     per_mode = {}
@@ -1123,6 +1250,11 @@ def phase_slice(dev, vid, out_dir):
         for d, n in launches[kind].items():
             if n <= 0:
                 raise AssertionError(f"tilegrid {kind} kernel (D={d}) never launched on the main path")
+    # every tile-grid layout gathers through the pair gather, and every
+    # backward through its reduce
+    if (launches["pair_gather"], launches["pair_reduce"]) != (
+            sum(launches["fwd"].values()), sum(launches["bwd"].values())):
+        raise AssertionError(f"pair gather launches {launches} do not follow the compositor's")
     if res.dropped_pairs:
         raise AssertionError(f"{res.dropped_pairs} pairs dropped on the main path")
     hw = (vid.cameras[0].height, vid.cameras[0].width)
@@ -1152,9 +1284,11 @@ def launch_counts():
     from egogaussian_tpu_torch.render.window_raster import WindowChunkedCompositor as wc
     from egogaussian_tpu_torch.render.window_raster import WindowCompositor as ws
 
+    from egogaussian_tpu_torch.render.pair_gather import PairGather
     from egogaussian_tpu_torch.utils.peak import FmaChain
 
-    out = {"fma_peak": FmaChain.launches}
+    out = {"fma_peak": FmaChain.launches, "pair_gather": PairGather.gather_launches,
+           "pair_reduce": PairGather.reduce_launches}
     for d in (3, 1):
         out[f"tilegrid_fwd_d{d}"] = tg.fwd_launches[d]
         out[f"tilegrid_bwd_d{d}"] = tg.bwd_launches[d]
@@ -1170,12 +1304,13 @@ def launch_counts():
 
 def reset_launch_counts():
     from egogaussian_tpu_torch.render.cuda_raster import TileGridCompositor
+    from egogaussian_tpu_torch.render.pair_gather import PairGather
     from egogaussian_tpu_torch.render.stream_raster import StreamCompositor
     from egogaussian_tpu_torch.render.window_raster import WindowChunkedCompositor, WindowCompositor
     from egogaussian_tpu_torch.utils.peak import FmaChain
 
     for fn in (TileGridCompositor, StreamCompositor, WindowChunkedCompositor, WindowCompositor,
-               FmaChain):
+               FmaChain, PairGather):
         fn.reset_launch_counts()
 
 
@@ -2814,11 +2949,14 @@ def train_child(counts_path, argv, module=CHILD_CLIS["--train-child"]) -> int:
         while not stop.wait(0.1):
             flush()
 
-    threading.Thread(target=loop, daemon=True).start()
+    flusher = threading.Thread(target=loop, daemon=True)
+    flusher.start()
     try:
         train_main(argv)
     finally:
+        # the loop's flush and this one share the .tmp file: let it end first
         stop.set()
+        flusher.join()
         flush()
     return 0
 

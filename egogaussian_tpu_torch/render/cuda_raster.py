@@ -1,6 +1,7 @@
 """The tile-grid compositor: CUDA kernels, plain PyTorch twins, autograd;
 and the build of the kernel library that every compositor shares (the
-tile-grid, stream and windowed kernels of `egogaussian_tpu_torch/csrc/`).
+tile-grid, stream and windowed kernels of `egogaussian_tpu_torch/csrc/`,
+and the layouts' pair gather, render/pair_gather.py).
 
 Port of the tile-grid half of `egogaussian_tpu/render/pallas_raster.py`
 (`make_tilegrid_compositor`, `_tilegrid_fwd_kernel`, `_tilegrid_bwd_kernel`
@@ -57,7 +58,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 _SOURCES = ("tilegrid_common.cuh", "tilegrid_cluster.cuh", "chunked_pair.cuh",
             "window_split.cuh", "tilegrid_fwd.cu", "tilegrid_bwd.cu", "stream_fwd.cu", "stream_bwd.cu",
             "window_chunked_fwd.cu", "window_chunked_bwd.cu", "window_fwd.cu", "window_bwd.cu",
-            "fma_peak.cu")
+            "fma_peak.cu", "pair_gather.cu")
 # compile flags of each source; the objects are then linked with -shared
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -164,6 +165,10 @@ def kernel_library() -> ctypes.CDLL:
         fn.argtypes = [p] * 14 + [i] * 5 + [p]
     lib.egogs_fma_chain.restype = i
     lib.egogs_fma_chain.argtypes = [p, p, i, i, p]
+    lib.egogs_pair_gather.restype = i
+    lib.egogs_pair_gather.argtypes = [p, p, p, ctypes.c_longlong, i, i, p]
+    lib.egogs_pair_reduce.restype = i
+    lib.egogs_pair_reduce.argtypes = [p] * 6 + [i] * 5 + [p]
     return lib
 
 

@@ -13,8 +13,10 @@ tile, the pure-padding tail and a run cut at the slot capacity.
 inputs: window rows that are not a multiple of 128 or of 4, masked rows
 among live ones, an all-masked chunk between live chunks and an
 all-masked tile, alphas at the 0.99 clamp and on either side of 1/255,
-a mean on a pixel centre and a conic whose power clamps at 0. All are
-numpy only, so the kernel checks of `chip_smoke.py`, the card tests and
+a mean on a pixel centre and a conic whose power clamps at 0.
+`gather_scene` is no hand-made layout but a scene at the training cell's
+sizes, for the card checks of the layouts' pair gather. All are numpy
+only, so the kernel checks of `chip_smoke.py`, the card tests and
 the CPU tests share one copy.
 """
 from __future__ import annotations
@@ -276,3 +278,22 @@ def simple_window_probe(d: int, ts: int, m: int = 300, seed: int = 8):
                   for a, b in ((0, 2), (2, 5), (5, 6), (6, 6 + d), (6 + d, 7 + d)))
     bg = np.array([[0.2, 0.1, 0.4][:d]], np.float32)
     return (*parts, bg, 3, 3 * ts, ts)
+
+
+def gather_scene(n: int = 500_000, width: int = 1600, height: int = 900, seed: int = 0):
+    """A scene at the static training cell's sizes (500k Gaussians,
+    1600x900) for the layouts' pair gather: n Gaussians in a box in front of
+    the camera at (0, 0, -4) looking at the origin (focal 0.7 x width), so
+    they fill the frame; isotropic-ish scales of half the mean spacing and
+    opacity 0.1 (3DGS's initial values), random rotations and colors.
+    Returns (means [n, 3], scales [n, 3], quats [n, 4], colors [n, 3],
+    opacities [n], focal), float32 numpy."""
+    rng = np.random.RandomState(seed)
+    half = np.array([3.2, 1.8, 1.5], np.float32)
+    means = (rng.uniform(-1.0, 1.0, (n, 3)) * half).astype(np.float32)
+    spacing = (float(np.prod(2 * half)) / n) ** (1.0 / 3.0)
+    scales = (0.5 * spacing * np.exp(0.3 * rng.randn(n, 3))).astype(np.float32)
+    quats = rng.randn(n, 4).astype(np.float32)
+    colors = rng.rand(n, 3).astype(np.float32)
+    opacities = np.full(n, 0.1, np.float32)
+    return means, scales, quats, colors, opacities, 0.7 * width

@@ -20,6 +20,9 @@ Port of `egogaussian_tpu/render/tiled.py`:
          "stream": per-slot meta, pairs row-major ([n_slots*128, 7+D]), the
            stream kernel pair (render/stream_raster.py)
 
+Every layout gathers its pair rows through render/pair_gather.py, whose
+backward sums each Gaussian's pair slots (no sort, no float atomics).
+
 Every static capacity that can lose a pair counts it in `dropped`; nothing
 is dropped silently. Each pair slot's Gaussian and each layout slot's tile
 are found by a parallel binary search (pair_owner, slot_owner) where JAX
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from egogaussian_tpu_torch.render.oracle import ALPHA_EPS, RenderOutput
+from egogaussian_tpu_torch.render.pair_gather import PairIndex, gather_pairs
 from egogaussian_tpu_torch.render.project import ProjectedGaussians
 from egogaussian_tpu_torch.utils.logging import spanned
 
@@ -279,7 +283,15 @@ def _lead(proj: ProjectedGaussians) -> ProjectedGaussians:
     return ProjectedGaussians(*(x[None] for x in proj))
 
 
-@spanned("bin")
+class SortedPairs(NamedTuple):
+    """What bin_scenes_pairs hands the layouts beside bin_scenes' binning:
+    the pairs before the tile sort, for the gather's backward."""
+
+    perm: torch.Tensor  # [S, MP] pre-sort pair at each sorted position
+    offsets: torch.Tensor  # [S, N] first pre-sort pair of depth-sorted Gaussian g
+    counts: torch.Tensor  # [S, N] pairs Gaussian g emits (in increasing tile id)
+
+
 def bin_scenes(proj: ProjectedGaussians, caps: SceneCaps,
                opacities: Optional[torch.Tensor] = None):
     """bin_pairs for S scenes at once: proj fields [S, N, ...], opacities
@@ -288,6 +300,14 @@ def bin_scenes(proj: ProjectedGaussians, caps: SceneCaps,
     tensors. Returns order [S, N], g_sorted [S, MP], tile_sorted [S, MP],
     starts [S, T], tile_cnt [S, T], dropped [S], (n_tx, n_ty), with T
     the shared grid's tiles (tile ids within the scene)."""
+    return bin_scenes_pairs(proj, caps, opacities)[0]
+
+
+@spanned("bin")
+def bin_scenes_pairs(proj: ProjectedGaussians, caps: SceneCaps,
+                     opacities: Optional[torch.Tensor] = None):
+    """(bin_scenes' seven values, SortedPairs): the binning and the pairs
+    before the tile sort."""
     config = caps.config
     ts = config.tile_size
     n_tx, n_ty, hi_x, hi_y = _grid(caps)
@@ -399,7 +419,7 @@ def bin_scenes(proj: ProjectedGaussians, caps: SceneCaps,
             tile_id = torch.where(keep, tile_id, torch.full_like(tile_id, n_tiles))
 
         # sort by (tile id, depth rank) with one packed int64 key (unique)
-        packed_sorted = torch.sort((tile_id << 32) | g, dim=-1).values
+        packed_sorted, perm = torch.sort((tile_id << 32) | g, dim=-1)
         tile_sorted = packed_sorted >> 32
         g_sorted = packed_sorted & 0xFFFFFFFF
 
@@ -411,7 +431,8 @@ def bin_scenes(proj: ProjectedGaussians, caps: SceneCaps,
         tile_cnt = torch.minimum(raw_cnt, mpt)
         dropped = torch.clamp(total - caps.max_pairs, min=0) + torch.sum(
             torch.clamp(raw_cnt - mpt, min=0), dim=-1)
-    return order, g_sorted, tile_sorted, starts, tile_cnt, dropped, (n_tx, n_ty)
+    return ((order, g_sorted, tile_sorted, starts, tile_cnt, dropped, (n_tx, n_ty)),
+            SortedPairs(perm, offsets, counts))
 
 
 def _tile_gather(starts, g_sorted, rows: int, max_pairs: int) -> torch.Tensor:
@@ -424,6 +445,24 @@ def _tile_gather(starts, g_sorted, rows: int, max_pairs: int) -> torch.Tensor:
 def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x [S, M] at idx [S, ...] per scene -> [S, ...]."""
     return torch.gather(x, 1, idx.reshape(idx.shape[0], -1)).reshape(idx.shape)
+
+
+def _sorted_ranks(tile_sorted, starts, tile_cnt, n_tiles: int):
+    """(tile, rank, kept) of each sorted pair [S, MP]: its tile clamped into
+    the grid, its rank in that tile's run, and whether it is one of the
+    tile's kept pairs (a tile of the grid, rank < tile_cnt)."""
+    t = torch.clamp(tile_sorted, max=n_tiles - 1)
+    pos = torch.arange(tile_sorted.shape[-1], dtype=torch.int64, device=t.device)
+    rank = pos - _take_rows(starts, t)
+    kept = (tile_sorted < n_tiles) & (rank < _take_rows(tile_cnt, t))
+    return t, rank, kept
+
+
+def _pair_index(src, order, pairs: SortedPairs, slot_sorted) -> PairIndex:
+    """The gather's index from each slot's source row and each sorted pair's
+    slot (-1 for none), the latter moved to the pairs' pre-sort order."""
+    pair_slot = torch.empty_like(slot_sorted).scatter_(1, pairs.perm, slot_sorted)
+    return PairIndex(src, order, pairs.offsets, pairs.counts, pair_slot)
 
 
 def _window_sources(order, g_sorted, starts, rows: int, caps: SceneCaps) -> torch.Tensor:
@@ -491,13 +530,20 @@ def window_layout_scenes(proj: ProjectedGaussians, colors: torch.Tensor,
     window rows and counts those of its own binning; the window is
     widened to the largest scene's (rows past a count are masked in the
     kernel). `dropped` is per scene."""
-    order, g_sorted, _, starts, tile_cnt, dropped, (n_tx, n_ty) = bin_scenes(
-        proj, caps, opacities)
+    (order, g_sorted, tile_sorted, starts, tile_cnt, dropped, (n_tx, n_ty)), pairs = (
+        bin_scenes_pairs(proj, caps, opacities))
     m_pad = -(-caps.config.max_per_tile // CHUNK) * CHUNK
+    n_tiles = n_tx * n_ty
     with torch.no_grad():
         src = _window_sources(order, g_sorted, starts, m_pad, caps)
+        # pair of rank r in tile t of scene s: window row (s T + t) m_pad + r
+        t, rank, kept = _sorted_ranks(tile_sorted, starts, tile_cnt, n_tiles)
+        scene = torch.arange(t.shape[0], dtype=torch.int64, device=t.device)[:, None]
+        slot = torch.where(kept, (scene * n_tiles + t) * m_pad + rank, torch.full_like(t, -1))
+        index = _pair_index(src, order, pairs, slot)
     ch = 7 + colors.shape[-1]
-    data = _flat_rows(proj, colors, opacities, ch)[src].reshape(-1, m_pad, ch)
+    data = gather_pairs(_flat_rows(proj, colors, opacities, ch), index, False)
+    data = data.reshape(-1, m_pad, ch)
     return WindowLayout(tile_cnt.reshape(-1).to(torch.int32), data, dropped, n_tx, n_ty,
                         caps.config.tile_size, caps.config.map_batch)
 
@@ -514,9 +560,9 @@ def window_layout(
     and data = packed[order][tile_gather], with the window widened from
     max_per_tile to M', the next multiple of 128 (the chunked kernel's
     unit). Rows at or past a tile's count are masked inside the kernel, so
-    the widening changes nothing. The gather runs in torch, so its
-    backward (index_add back to the Gaussians) is autograd's. The one-scene
-    case of window_layout_scenes."""
+    the widening changes nothing. The gather and its backward (each
+    Gaussian's window rows summed back into its row) are
+    render/pair_gather.py's. The one-scene case of window_layout_scenes."""
     caps = scene_caps([config], [(width, height)], proj.means2d.device, proj.depths.shape[0])
     lay = window_layout_scenes(_lead(proj), colors[None], opacities[None], caps)
     return lay._replace(dropped=lay.dropped[0])
@@ -582,6 +628,8 @@ class _PaddedRuns(NamedTuple):
     caps: SceneCaps
     order: torch.Tensor  # [S, N]
     g_sorted: torch.Tensor  # [S, MP]
+    tile_sorted: torch.Tensor  # [S, MP]
+    pairs: SortedPairs
     starts: torch.Tensor  # [S, T] first pair of each tile in the sorted pair array
     tile_cnt: torch.Tensor
     padded_cnt: torch.Tensor
@@ -594,8 +642,8 @@ class _PaddedRuns(NamedTuple):
 
 
 def _padded_runs(proj, opacities, caps: SceneCaps) -> _PaddedRuns:
-    order, g_sorted, _, starts, tile_cnt, dropped, (n_tx, n_ty) = bin_scenes(
-        proj, caps, opacities)
+    (order, g_sorted, tile_sorted, starts, tile_cnt, dropped, (n_tx, n_ty)), pairs = (
+        bin_scenes_pairs(proj, caps, opacities))
     sc = caps.config.max_slots
     with torch.no_grad():
         padded_cnt = ((tile_cnt + CHUNK - 1) // CHUNK) * CHUNK
@@ -605,8 +653,8 @@ def _padded_runs(proj, opacities, caps: SceneCaps) -> _PaddedRuns:
         overflowed = starts2 + padded_cnt > caps.max_slots[:, None]
         dropped = dropped + torch.sum(
             torch.where(overflowed, tile_cnt, torch.zeros_like(tile_cnt)), dim=-1)
-    return _PaddedRuns(caps, order, g_sorted, starts, tile_cnt, padded_cnt, starts2,
-                       overflowed, dropped, sc, n_tx, n_ty)
+    return _PaddedRuns(caps, order, g_sorted, tile_sorted, pairs, starts, tile_cnt,
+                       padded_cnt, starts2, overflowed, dropped, sc, n_tx, n_ty)
 
 
 def slot_owner(starts2: torch.Tensor, n_slots: int) -> torch.Tensor:
@@ -632,6 +680,18 @@ def _slot_sources(runs: _PaddedRuns, owner: torch.Tensor) -> torch.Tensor:
     src = _take_rows(runs.order, _take_rows(runs.g_sorted, p_q))
     s_n, n = runs.order.shape
     return (src + torch.arange(s_n, device=src.device)[:, None] * n).reshape(-1)
+
+
+def _run_index(runs: _PaddedRuns, src: torch.Tensor) -> PairIndex:
+    """The gather's index of the padded runs: pair of rank r in tile t of
+    scene s holds slot s sc + starts2[s, t] + r, if t's run fits."""
+    t, rank, kept = _sorted_ranks(runs.tile_sorted, runs.starts, runs.tile_cnt,
+                                  runs.n_tx * runs.n_ty)
+    kept = kept & ~_take_rows(runs.overflowed, t)
+    scene = torch.arange(t.shape[0], dtype=torch.int64, device=t.device)[:, None]
+    slot = torch.where(kept, scene * runs.sc + _take_rows(runs.starts2, t) + rank,
+                       torch.full_like(t, -1))
+    return _pair_index(src, runs.order, runs.pairs, slot)
 
 
 def _packed_rows(proj, colors, opacities) -> torch.Tensor:
@@ -666,11 +726,10 @@ def tilegrid_layout_scenes(proj: ProjectedGaussians, colors: torch.Tensor,
             torch.where(runs.overflowed, zero, runs.tile_cnt),
             (base + fit_slots).expand(s_n, n_tiles),
         ]).reshape(3, -1).to(torch.int32).contiguous()
-        src = _slot_sources(runs, slot_owner(runs.starts2, runs.sc))
+        index = _run_index(runs, _slot_sources(runs, slot_owner(runs.starts2, runs.sc)))
 
-    ch16 = ch16_of(colors.shape[-1])
-    rows = _flat_rows(proj, colors, opacities, ch16)[src]
-    vals = rows.reshape(-1, CHUNK, ch16).transpose(1, 2).contiguous()
+    vals = gather_pairs(_flat_rows(proj, colors, opacities, ch16_of(colors.shape[-1])), index,
+                        True)
     empty = ((runs.tile_cnt == 0) | runs.overflowed).reshape(-1)
     return TilegridLayout(meta, vals, empty, runs.dropped, runs.n_tx, runs.n_ty,
                           caps.config.tile_size)
@@ -689,8 +748,9 @@ def tilegrid_layout(
     `composite_pallas`, gather layout: slot q of tile t holds pair
     starts[t] + (q - starts2[t])). Tiles whose padded run does not fit the
     slot capacity own no chunk and their pairs count as dropped. The pair
-    gather runs in torch, so its backward (index_add back to the Gaussians)
-    is autograd's. The one-scene case of tilegrid_layout_scenes."""
+    gather writes the transposed chunks directly, and its backward sums
+    each Gaussian's slots back into its row (render/pair_gather.py). The
+    one-scene case of tilegrid_layout_scenes."""
     caps = scene_caps([config], [(width, height)], proj.means2d.device, proj.depths.shape[0])
     lay = tilegrid_layout_scenes(_lead(proj), colors[None], opacities[None], caps)
     return lay._replace(dropped=lay.dropped[0])
@@ -718,7 +778,7 @@ def stream_layout_scenes(proj: ProjectedGaussians, colors: torch.Tensor,
     dev = runs.tile_cnt.device
     with torch.no_grad():
         owner = slot_owner(runs.starts2, runs.sc)
-        src = _slot_sources(runs, owner)
+        index = _run_index(runs, _slot_sources(runs, owner))
         q0 = torch.arange(0, runs.sc, CHUNK, dtype=torch.int64, device=dev)
         t_chunk = owner[:, ::CHUNK]
         rank_off = q0 - _take_rows(runs.starts2, t_chunk)
@@ -730,7 +790,7 @@ def stream_layout_scenes(proj: ProjectedGaussians, colors: torch.Tensor,
             t_chunk + scene * n_tiles, rank_off, _take_rows(runs.tile_cnt, t_chunk),
             (last_used[:, None] + scene * n_slots).expand(s_n, n_slots),
         ]).reshape(4, -1).to(torch.int32).contiguous()
-    vals = _flat_rows(proj, colors, opacities, 7 + colors.shape[-1])[src]
+    vals = gather_pairs(_flat_rows(proj, colors, opacities, 7 + colors.shape[-1]), index, False)
     empty = ((runs.tile_cnt == 0) | runs.overflowed).reshape(-1)
     return StreamLayout(meta, vals, empty, runs.dropped, runs.n_tx, runs.n_ty,
                         caps.config.tile_size)

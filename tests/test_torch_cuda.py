@@ -1,6 +1,6 @@
 """The compositor CUDA kernels (tile-grid forward, both tile-grid backward
-flavors, the stream pair, the chunked and simple windowed pairs) against
-their plain twins and the oracle, and the tile-grid, stream and both
+flavors, the stream pair, the chunked and simple windowed pairs) and the
+layouts' pair gather against their plain twins and the oracle, and the tile-grid, stream and both
 windowed pairs against their cull-off instances, on the card. Marked `cuda`; without a
 CUDA device every test skips.
 
@@ -12,6 +12,8 @@ forward 3e-4 (image, alpha) and 3e-3 (depth); gradients atol 2e-4,
 rtol 1e-3; the exact-total render's gradients within 5e-6 of the oracle
 (:301-347).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -682,3 +684,63 @@ def test_scene_axis_launch_equals_one_scene_launches(dev, d, tile_size):
                                          ts, n_tx)
         assert torch.equal(wdd[sl, :wd.shape[1]], wd1)
         assert not bool(wdd[sl, wd.shape[1]:].any())
+
+
+@pytest.mark.parametrize("kind", ["tilegrid", "stream", "window"])
+def test_pair_gather_at_the_cells_sizes(dev, kind, monkeypatch):
+    """render/pair_gather.py on the card at the static training cell's sizes
+    (probe_layouts.gather_scene: 500k Gaussians, 1600x900, ts 32, estimated
+    capacities): the gather kernel against rows[src], the reduce kernel
+    against its plain twin and against autograd's CUDA index backward of
+    rows[src] on the gradient of the layout's own compositor, bit for bit
+    (torch.equal: up to the sign of a zero); one launch of each per layout
+    forward and backward."""
+    from egogaussian_tpu_torch.render import pair_gather as pg
+    from egogaussian_tpu_torch.render import tiled
+    from egogaussian_tpu_torch.render.probe_layouts import gather_scene
+    from egogaussian_tpu_torch.render.project import ProjectedGaussians
+
+    width, height = 1600, 900
+    means, scales, quats, colors, ops, focal = gather_scene(width=width, height=height)
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    R, tr = look_at(np.array([0.0, 0.0, -4.0]), np.zeros(3))
+    cam = Camera.from_colmap(R, tr, focal, focal, width, height, device=dev)
+    proj = project_gaussians(t(means), covariance_from_scaling_rotation(t(scales), t(quats)),
+                             cam.viewmat, cam.fx, cam.fy, cam.cx, cam.cy, width, height)
+    cfg = tiled.estimate_tile_config(proj.means2d, proj.radii, width, height, tile_size=32,
+                                     opacities=t(ops))
+    if kind == "stream":
+        cfg = dataclasses.replace(cfg, compositor="stream")
+    caps = tiled.scene_caps([cfg], [(width, height)], dev, means.shape[0])
+    lead = ProjectedGaussians(*(x.detach()[None].requires_grad_(x.is_floating_point())
+                                for x in proj))
+    seen = {}
+    real = tiled.gather_pairs
+
+    def record(rows, index, transposed):
+        vals = real(rows, index, transposed)
+        vals.retain_grad()
+        seen.update(rows=rows.detach(), index=index, transposed=transposed, vals=vals)
+        return vals
+
+    monkeypatch.setattr(tiled, "gather_pairs", record)
+    pg.PairGather.reset_launch_counts()
+    fn = {"tilegrid": tiled.tilegrid_layout_scenes, "stream": tiled.stream_layout_scenes,
+          "window": tiled.window_layout_scenes}[kind]
+    lay = fn(lead, t(colors)[None], t(ops)[None], caps)
+    image, alpha, depth = tiled._composite(lay, torch.zeros((1, 3), device=dev), caps)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sum(torch.sum(x * torch.rand(x.shape, device=dev, generator=gen))
+        for x in (image, alpha, depth)).backward()
+    torch.cuda.synchronize()
+    assert (pg.PairGather.gather_launches, pg.PairGather.reduce_launches) == (1, 1)
+    rows, index, transposed = seen["rows"], seen["index"], seen["transposed"]
+    dvals = seen["vals"].grad
+    assert torch.equal(seen["vals"].detach(), pg.gather_plain(rows, index.src, transposed))
+    leaf = rows.clone().requires_grad_(True)
+    (lib,) = torch.autograd.grad(pg.gather_plain(leaf, index.src, transposed), leaf, dvals)
+    got = pg.reduce(dvals, index, rows.shape[1], transposed)
+    assert pg.PairGather.reduce_launches == 2
+    assert bool((lib != 0).any())
+    assert torch.equal(got, pg.reduce_plain(dvals, index, rows.shape[1], transposed))
+    assert torch.equal(got, lib)

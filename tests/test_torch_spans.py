@@ -122,16 +122,16 @@ def _coarse_step(p):
 
 def test_static_step_records_each_layer_forward_and_backward(scene, tmp_path):
     """One static step: each layer's ranges in the forward and, for the
-    layers with a gradient, in the backward; the pair gather's index
-    backward runs in `layout`, the compositor's backward in `composite`,
+    layers with a gradient, in the backward; the pair gather's backward
+    (PairGather's reduce) runs in `layout`, the compositor's backward in `composite`,
     SSIM's convolution backward in `loss`, the covariance's in `project`."""
     _, spans, nodes = _recorded(lambda: _static_step(scene), tmp_path)
     fwd, bwd = _split(spans, nodes)
     assert fwd == FORWARD and bwd == BACKWARD
     where = {name: {_innermost(spans, t, tid) for n, t, tid in nodes if n == name}
-             for name in ("IndexBackward0", "TileGridCompositorBackward",
+             for name in ("PairGatherBackward", "TileGridCompositorBackward",
                           "ConvolutionBackward0", "ExpBackward0", "PowBackward0")}
-    assert where == {"IndexBackward0": {"layout"}, "TileGridCompositorBackward": {"composite"},
+    assert where == {"PairGatherBackward": {"layout"}, "TileGridCompositorBackward": {"composite"},
                      "ConvolutionBackward0": {"loss"}, "ExpBackward0": {"project"},
                      "PowBackward0": {"project"}}
 
@@ -143,7 +143,7 @@ def test_coarse_step_records_the_render_layers(scene, tmp_path):
     assert all(fwd.get(k, 0) >= 1 for k in RENDER), fwd
     assert all(bwd.get(k, 0) >= 1 for k in RENDER if k != "bin"), bwd
     assert "bin" not in bwd
-    where = {_innermost(spans, t, tid) for n, t, tid in nodes if n == "IndexBackward0"}
+    where = {_innermost(spans, t, tid) for n, t, tid in nodes if n == "PairGatherBackward"}
     assert where == {"layout"}
 
 
